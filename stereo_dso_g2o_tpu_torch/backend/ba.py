@@ -1,0 +1,781 @@
+"""Windowed photometric bundle adjustment with FEJ + marginalization.
+
+Port of `stereo_dso_g2o_tpu/backend/ba.py` (the reference's legacy DSO
+solver): host/target adjoints, H/b assembly in active (A), prior (L) and
+Schur (SC) parts as one-hot-host contractions over the [NP, F] residual
+cube, the marginal prior HM/bM, the preconditioned fixed-lambda solve with
+late nullspace orthogonalization, back-substitution of the point steps,
+point marginalization into HM/bM and slot-indexed frame marginalization.
+The JAX `lax.while_loop` of `optimize_fused` becomes a host loop with the
+same early exit.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from stereo_dso_g2o_tpu_torch.backend import window as W
+from stereo_dso_g2o_tpu_torch.config import (
+    CPARS,
+    SCALE_A,
+    SCALE_B,
+    SCALE_C,
+    SCALE_F,
+    SCALE_XI_ROT,
+    SCALE_XI_TRANS,
+    Settings,
+    default_settings,
+)
+from stereo_dso_g2o_tpu_torch.ops import residuals as R
+from stereo_dso_g2o_tpu_torch.utils import se3
+
+C_SCALE = np.asarray([SCALE_F, SCALE_F, SCALE_C, SCALE_C], dtype=np.float32)
+
+
+def _c_scale(win):
+    return torch.as_tensor(C_SCALE, device=win.device)
+
+
+def _row_scale(win):
+    return torch.tensor(
+        [SCALE_XI_TRANS] * 3 + [SCALE_XI_ROT] * 3 + [SCALE_A, SCALE_B],
+        dtype=win.state.dtype, device=win.device,
+    )
+
+
+# ---------------------------------------------------------------------------
+# adjoints & deltas
+# ---------------------------------------------------------------------------
+
+
+def adjoints(win: W.Window):
+    """adHost/adTarget per (host, target) pair (setAdjointsF)."""
+    ev = win.evalPT
+    T_th = torch.einsum("tij,hjk->htik", ev, se3.inverse(ev))
+    Adj = se3.adjoint(T_th)
+    F = win.F
+    dt, dev = ev.dtype, ev.device
+    AH = torch.zeros((F, F, 8, 8), dtype=dt, device=dev)
+    AT = torch.zeros((F, F, 8, 8), dtype=dt, device=dev)
+    AH[..., :6, :6] = -torch.swapaxes(Adj, -1, -2)
+    AT[..., :6, :6] = torch.eye(6, dtype=dt, device=dev)
+
+    aff0 = win.aff_g2l_0()
+    affLL = W.aff_transfer(
+        win.ab_exposure[:, None], win.ab_exposure[None, :],
+        aff0[:, None, :], aff0[None, :, :],
+    )
+    a = affLL[..., 0]
+    AT[..., 6, 6] = -a
+    AT[..., 7, 7] = -1.0
+    AH[..., 6, 6] = a
+    AH[..., 7, 7] = a
+
+    rs = _row_scale(win)
+    return AH * rs[None, None, :, None], AT * rs[None, None, :, None]
+
+
+def deltas(win: W.Window):
+    """Frame/calib/point deltas from the FEJ point (setDeltaF)."""
+    d_frame = win.state - win.state_zero
+    dc = (win.c_value - win.c_zero) / _c_scale(win)
+    d_pt = win.pt_idepth - win.pt_idepth_zero
+    return d_frame, dc, d_pt
+
+
+def ht_delta(win: W.Window, AH, AT, d_frame):
+    """adHTdeltaF: per-pair relative 8-dof delta row vectors."""
+    return torch.einsum("hi,htij->htj", d_frame, AH) + torch.einsum(
+        "ti,htij->htj", d_frame, AT
+    )
+
+
+def stitched_delta(win: W.Window, d_frame, dc):
+    """getStitchedDeltaF: (D,) = [dc, d_frame_0, ..., d_frame_{F-1}]."""
+    return torch.cat([dc, d_frame.reshape(-1)])
+
+
+def frame_priors(win: W.Window, settings: Settings):
+    """FrameHessian::getPrior, per slot."""
+    F = win.F
+    first = win.frame_id == 0
+    p = torch.zeros((F, 8), dtype=win.state.dtype, device=win.device)
+    a_other = (settings.initial_aff_a_prior if settings.affine_opt_mode_a < 0
+               else settings.affine_opt_mode_a)
+    b_other = (settings.initial_aff_b_prior if settings.affine_opt_mode_b < 0
+               else settings.affine_opt_mode_b)
+    p[:, 6] = torch.where(first, torch.full_like(p[:, 6], settings.initial_aff_a_prior),
+                          torch.full_like(p[:, 6], a_other))
+    p[:, 7] = torch.where(first, torch.full_like(p[:, 7], settings.initial_aff_b_prior),
+                          torch.full_like(p[:, 7], b_other))
+    zero = torch.zeros_like(p[:, 0:3])
+    p[:, 0:3] = torch.where(first[:, None], torch.full_like(zero, settings.initial_trans_prior), zero)
+    p[:, 3:6] = torch.where(first[:, None], torch.full_like(zero, settings.initial_rot_prior), zero)
+    return p * win.frame_valid[:, None]
+
+
+# ---------------------------------------------------------------------------
+# accumulation
+# ---------------------------------------------------------------------------
+
+
+class Accum(NamedTuple):
+    H: torch.Tensor  # (D, D)
+    b: torch.Tensor  # (D,)
+    Hdd: torch.Tensor  # (NP,)
+    bd: torch.Tensor  # (NP,)
+    Hcd: torch.Tensor  # (NP, 4)
+    nres: torch.Tensor  # ()
+
+
+def _res_approx(win: W.Window, mode: int, dp, dc, d_pt):
+    """resApprox per mode, from the accepted Jacobians."""
+    if mode == 0:
+        return win.J_resF
+    if mode == 2:
+        return win.res_to_zero
+    Jp_dx = (
+        torch.einsum("nfk,nfk->nf", win.J_pdxi[:, :, 0, :], dp[..., :6])
+        + torch.einsum("nfk,k->nf", win.J_pdc[:, :, 0, :], dc)
+        + win.J_pdd[:, :, 0] * d_pt[:, None]
+    )
+    Jp_dy = (
+        torch.einsum("nfk,nfk->nf", win.J_pdxi[:, :, 1, :], dp[..., :6])
+        + torch.einsum("nfk,k->nf", win.J_pdc[:, :, 1, :], dc)
+        + win.J_pdd[:, :, 1] * d_pt[:, None]
+    )
+    return (
+        win.res_to_zero
+        + win.J_Idx[:, :, 0, :] * Jp_dx[..., None]
+        + win.J_Idx[:, :, 1, :] * Jp_dy[..., None]
+        + win.J_abF[:, :, 0, :] * dp[..., 6][..., None]
+        + win.J_abF[:, :, 1, :] * dp[..., 7][..., None]
+    )
+
+
+def _onehot_host(win, dtype):
+    F = win.F
+    return (
+        win.pt_host[:, None].long() == torch.arange(F, device=win.device)[None, :]
+    ).to(dtype)
+
+
+def accumulate_top(win: W.Window, AH, AT, mask, mode: int, settings: Settings,
+                   use_prior: bool):
+    """AccumulatedTopHessianSSE::addPoint<mode> + stitchDouble."""
+    F = win.F
+    dtype = win.state.dtype
+    dev = win.device
+    d_frame, dc, d_pt = deltas(win)
+    dp = ht_delta(win, AH, AT, d_frame)[win.pt_host.long()]  # (NP, F, 8)
+
+    resA = _res_approx(win, mode, dp, dc, d_pt)
+    m = mask.to(dtype)
+
+    JIdx = win.J_Idx
+    JabF = win.J_abF
+    Jpdxi = win.J_pdxi
+    Jpdc = win.J_pdc
+    Jpdd = win.J_pdd
+
+    JI_r = torch.einsum("nfp,nfkp->nfk", resA, JIdx)
+    JIdx2 = torch.einsum("nfip,nfjp->nfij", JIdx, JIdx)
+
+    G = torch.cat([Jpdc, Jpdxi], dim=-1)  # (NP, F, 2, 10)
+    u10 = torch.einsum("nfip,nfia->nfpa", JIdx, G)  # (NP, F, 8, 10)
+    V = torch.cat([u10, torch.swapaxes(JabF, -1, -2), resA[..., None]], dim=-1)
+
+    onehot = _onehot_host(win, dtype)
+    Vm = V * m[..., None, None]
+    # pair[h, f] = sum_n onehot[n, h] * sum_p Vm[n,f,p,:]^T V[n,f,p,:]
+    per = torch.einsum("nfpa,nfpb->nfab", Vm, V)  # (NP, F, 13, 13)
+    pair = torch.einsum("nh,nfab->hfab", onehot, per)
+
+    A8 = pair[..., 4:12, 4:12]
+    Ac = pair[..., 4:12, 0:4]
+    Acc = torch.sum(pair[..., 0:4, 0:4], dim=(0, 1))
+    br = pair[..., 4:12, 12]
+    bc = torch.sum(pair[..., 0:4, 12], dim=(0, 1))
+
+    eyeF = torch.eye(F, dtype=dtype, device=dev)
+    Hoff = torch.einsum("htab,htbc,htdc->htad", AH, A8, AT)
+    Hsym = Hoff + torch.swapaxes(torch.swapaxes(Hoff, 0, 1), -1, -2)
+    Hsym = Hsym * (1.0 - eyeF)[:, :, None, None]
+    diag_h = torch.einsum("htab,htbc,htdc->had", AH, A8, AH)
+    diag_t = torch.einsum("htab,htbc,htdc->tad", AT, A8, AT)
+
+    D = CPARS + 8 * F
+    Hout = torch.zeros((D, D), dtype=dtype, device=dev)
+    bout = torch.zeros((D,), dtype=dtype, device=dev)
+
+    Hff_total = Hsym + torch.einsum("had,ht->htad", diag_h + diag_t, eyeF)
+    Hout[CPARS:, CPARS:] = Hff_total.permute(0, 2, 1, 3).reshape(8 * F, 8 * F)
+    Hfc = torch.einsum("htab,htbc->hac", AH, Ac) + torch.einsum("htab,htbc->tac", AT, Ac)
+    Hout[CPARS:, :CPARS] = Hfc.reshape(8 * F, CPARS)
+    Hout[:CPARS, CPARS:] = Hfc.reshape(8 * F, CPARS).T
+    Hout[:CPARS, :CPARS] = Acc
+
+    bf = torch.einsum("htab,htb->ha", AH, br) + torch.einsum("htab,htb->ta", AT, br)
+    bout[CPARS:] = bf.reshape(-1)
+    bout[:CPARS] = bc
+
+    if use_prior:
+        prior_f = frame_priors(win, settings)
+        d_prior = win.state
+        ci = torch.arange(CPARS, device=dev)
+        Hout[ci, ci] += settings.initial_calib_hessian
+        bout[:CPARS] += settings.initial_calib_hessian * dc
+        idx = CPARS + torch.arange(8 * F, device=dev)
+        Hout[idx, idx] += prior_f.reshape(-1)
+        bout[CPARS:] += (prior_f * d_prior).reshape(-1)
+
+    JJd = torch.einsum("nfij,nfj->nfi", JIdx2, Jpdd)
+    bd = torch.sum(m * torch.einsum("nfi,nfi->nf", JI_r, Jpdd), dim=1)
+    Hdd = torch.sum(m * torch.einsum("nfi,nfi->nf", JJd, Jpdd), dim=1)
+    Hcd = torch.sum(
+        m[..., None]
+        * (Jpdc[:, :, 0, :] * JJd[:, :, 0, None] + Jpdc[:, :, 1, :] * JJd[:, :, 1, None]),
+        dim=1,
+    )
+    nres = torch.sum(mask)
+    return Accum(H=Hout, b=bout, Hdd=Hdd, bd=bd, Hcd=Hcd, nres=nres)
+
+
+def point_prior(win: W.Window, settings: Settings, marg_fac=None):
+    """EFPoint::priorF."""
+    p = torch.where(
+        win.pt_has_prior,
+        torch.full_like(win.pt_idepth, settings.idepth_fix_prior),
+        torch.zeros_like(win.pt_idepth),
+    )
+    if marg_fac is not None:
+        p = p * marg_fac
+    return p
+
+
+class Schur(NamedTuple):
+    H: torch.Tensor
+    b: torch.Tensor
+    HdiF: torch.Tensor  # (NP,)
+    bdSum: torch.Tensor  # (NP,)
+    Hcd: torch.Tensor  # (NP, 4)
+    JpJdF: torch.Tensor  # (NP, F, 8)
+    idepth_hessian: torch.Tensor  # (NP,)
+
+
+def accumulate_sc(win: W.Window, AH, AT, active, acc: Accum, prior_pt,
+                  shift_prior_to_zero: bool):
+    """AccumulatedSCHessianSSE::addPoint + stitchDouble."""
+    F = win.F
+    dtype = win.state.dtype
+    dev = win.device
+    _, _, d_pt = deltas(win)
+
+    ngood = torch.sum(active, dim=1)
+    has = ngood > 0
+
+    Hdd = torch.clamp(acc.Hdd + prior_pt, min=1e-10)
+    zero = torch.zeros_like(Hdd)
+    idepth_hessian = torch.where(has, Hdd, zero)
+    HdiF = torch.where(has, 1.0 / Hdd, zero)
+    bdSum = acc.bd
+    if shift_prior_to_zero:
+        bdSum = bdSum + prior_pt * d_pt
+    bdSum = torch.where(has, bdSum, zero)
+    Hcd = torch.where(has[:, None], acc.Hcd, torch.zeros_like(acc.Hcd))
+
+    JIdx2 = torch.einsum("nfip,nfjp->nfij", win.J_Idx, win.J_Idx)
+    JJd = torch.einsum("nfij,nfj->nfi", JIdx2, win.J_pdd)
+    JabJIdx = torch.einsum("nfip,nfjp->nfij", win.J_abF, win.J_Idx)
+    JpJd_pose = torch.einsum("nfki,nfk->nfi", win.J_pdxi, JJd)
+    JpJd_ab = torch.einsum("nfij,nfj->nfi", JabJIdx, win.J_pdd)
+    JpJdF = torch.cat([JpJd_pose, JpJd_ab], dim=-1) * active[..., None]
+
+    D = CPARS + 8 * F
+    Hout = torch.zeros((D, D), dtype=dtype, device=dev)
+    bout = torch.zeros((D,), dtype=dtype, device=dev)
+
+    Hout[:CPARS, :CPARS] = torch.einsum("ni,nj->ij", Hcd * HdiF[:, None], Hcd)
+    bout[:CPARS] = torch.einsum("ni,n->i", Hcd, bdSum * HdiF)
+
+    onehot = _onehot_host(win, dtype)
+    X = JpJdF.reshape(JpJdF.shape[0], F * 8)
+    Xw = X * HdiF[:, None]
+    Dflat = torch.einsum("nh,na,nb->hab", onehot, Xw, X)
+    Dacc = Dflat.reshape(F, F, 8, F, 8).permute(0, 1, 3, 2, 4)
+    Eacc = torch.einsum("nh,nti,nj->htij", onehot, JpJdF, Hcd * HdiF[:, None])
+    EBacc = torch.einsum("nh,nti,n->hti", onehot, JpJdF, HdiF * bdSum)
+
+    Hfc = torch.einsum("ijab,ijbc->iac", AH, Eacc) + torch.einsum("ijab,ijbc->jac", AT, Eacc)
+    Hout[CPARS:, :CPARS] += Hfc.reshape(8 * F, CPARS)
+    Hout[:CPARS, CPARS:] += Hfc.reshape(8 * F, CPARS).T
+    bf = torch.einsum("ijab,ijb->ia", AH, EBacc) + torch.einsum("ijab,ijb->ja", AT, EBacc)
+    bout[CPARS:] += bf.reshape(-1)
+
+    eyeF = torch.eye(F, dtype=dtype, device=dev)
+    t1 = torch.einsum("ijab,ijkbc,ikdc->iad", AH, Dacc, AH)
+    Hff = torch.einsum("iad,ij->ijad", t1, eyeF)
+    Hff = Hff + torch.einsum("ijab,ijkbc,ikdc->jkad", AT, Dacc, AT)
+    Hff = Hff + torch.einsum("ijab,ijkbc,ikdc->jiad", AT, Dacc, AH)
+    Hff = Hff + torch.einsum("ijab,ijkbc,ikdc->ikad", AH, Dacc, AT)
+    Hout[CPARS:, CPARS:] += Hff.permute(0, 2, 1, 3).reshape(8 * F, 8 * F)
+    return Schur(H=Hout, b=bout, HdiF=HdiF, bdSum=bdSum, Hcd=Hcd, JpJdF=JpJdF,
+                 idepth_hessian=idepth_hessian)
+
+
+# ---------------------------------------------------------------------------
+# nullspaces & orthogonalization
+# ---------------------------------------------------------------------------
+
+
+def nullspaces(win: W.Window):
+    """Gauge nullspace columns N (D, 7): 6 pose + 1 scale."""
+    F = win.F
+    dtype, dev = win.state.dtype, win.device
+    Adj = se3.adjoint(win.evalPT)
+    t = win.evalPT[:, :3, 3]
+    inv_scale = torch.tensor(
+        [1.0 / SCALE_XI_TRANS] * 3 + [1.0 / SCALE_XI_ROT] * 3, dtype=dtype, device=dev
+    )
+    zc = torch.zeros(CPARS, dtype=dtype, device=dev)
+    valid = win.frame_valid[:, None]
+    cols = []
+    for i in range(6):
+        n = torch.zeros((F, 8), dtype=dtype, device=dev)
+        n[:, :6] = Adj[:, :, i] * inv_scale[None, :]
+        cols.append(torch.cat([zc, (n * valid).reshape(-1)]))
+    n = torch.zeros((F, 8), dtype=dtype, device=dev)
+    n[:, :3] = t * (1.0 / SCALE_XI_TRANS)
+    cols.append(torch.cat([zc, (n * valid).reshape(-1)]))
+    return torch.stack(cols, dim=1)
+
+
+def orthogonalize(x, N):
+    """Remove nullspace components: x - N (N^T N)^-1 N^T x."""
+    norms = torch.linalg.norm(N, dim=0, keepdim=True)
+    Nn = N / torch.clamp(norms, min=1e-12)
+    NtN = Nn.T @ Nn
+    eye = torch.eye(NtN.shape[0], dtype=N.dtype, device=N.device)
+    coef = torch.linalg.solve(NtN + 1e-10 * eye, Nn.T @ x)
+    return x - Nn @ coef
+
+
+# ---------------------------------------------------------------------------
+# solve + resubstitute
+# ---------------------------------------------------------------------------
+
+
+class SolveOut(NamedTuple):
+    x: torch.Tensor  # (D,)
+    step_c: torch.Tensor  # (4,)
+    step_f: torch.Tensor  # (F, 8)
+    step_pt: torch.Tensor  # (NP,)
+
+
+def solve_system(win: W.Window, acc_A: Accum, sc: Schur, settings: Settings,
+                 iteration: int, lam=1e-5, do_orth=True):
+    F = win.F
+    D = CPARS + 8 * F
+    dev = win.device
+    d_frame, dc, _ = deltas(win)
+
+    bM_top = win.bM + win.HM @ stitched_delta(win, d_frame, dc)
+    HFinal = acc_A.H + win.HM
+    bFinal = acc_A.b + bM_top - sc.b
+
+    diag = torch.arange(D, device=dev)
+    HFinal = HFinal.clone()
+    HFinal[diag, diag] = HFinal[diag, diag] * (1.0 + lam)
+    HFinal = HFinal - sc.H * (1.0 / (1.0 + lam))
+
+    slot_active = torch.cat(
+        [torch.ones(CPARS, dtype=torch.bool, device=dev),
+         torch.repeat_interleave(win.frame_valid, 8)]
+    )
+    HFinal = torch.where(
+        slot_active[:, None] & slot_active[None, :], HFinal, torch.zeros_like(HFinal)
+    )
+    HFinal[diag, diag] += torch.where(slot_active, 0.0, 1.0)
+    bFinal = torch.where(slot_active, bFinal, torch.zeros_like(bFinal))
+
+    # zero-information dimensions are unit-pinned (zero step), not solved
+    no_info = torch.abs(HFinal[diag, diag]) < 1e-6
+    HFinal[diag, diag] += torch.where(no_info, 1.0, 0.0)
+    bFinal = torch.where(no_info, torch.zeros_like(bFinal), bFinal)
+
+    SVecI = 1.0 / torch.sqrt(torch.abs(HFinal[diag, diag]) + 10.0)
+    Hs = SVecI[:, None] * HFinal * SVecI[None, :]
+    bs = SVecI * bFinal
+    xs = torch.linalg.solve(Hs, bs)
+    x = SVecI * xs
+
+    if do_orth and iteration >= 2:
+        x = orthogonalize(x, nullspaces(win))
+
+    # a non-finite solve must not poison the window state
+    x = torch.where(torch.isfinite(x).all(), x, torch.zeros_like(x))
+
+    step_c = -x[:CPARS]
+    step_f = -x[CPARS:].reshape(F, 8) * win.frame_valid[:, None]
+
+    AH, AT = adjoints(win)
+    xf = x[CPARS:].reshape(F, 8)
+    xAd = torch.einsum("hi,htij->htj", xf, AH) + torch.einsum("ti,htij->htj", xf, AT)
+
+    active = win.res_exists & (win.res_state == W.RES_IN)
+    ngood = torch.sum(active, dim=1)
+    b_pt = sc.bdSum - x[:CPARS] @ sc.Hcd.T
+    b_pt = b_pt - torch.einsum(
+        "nfj,nfj->n", xAd[win.pt_host.long()], sc.JpJdF * active[..., None]
+    )
+    step_pt = torch.where(ngood > 0, -b_pt * sc.HdiF, torch.zeros_like(b_pt))
+    step_pt = torch.where(torch.isfinite(step_pt), step_pt, torch.zeros_like(step_pt))
+    return SolveOut(x=x, step_c=step_c, step_f=step_f, step_pt=step_pt)
+
+
+def apply_step(win: W.Window, out: SolveOut) -> W.Window:
+    """doStepFromBackup with stepfac=1: state += step; point idepth steps
+    also reset idepth_zero."""
+    new_id = win.pt_idepth + out.step_pt
+    return win.replace(
+        state=win.state + out.step_f,
+        c_value=win.c_value + out.step_c * _c_scale(win),
+        pt_idepth=new_id,
+        pt_idepth_zero=new_id,
+    )
+
+
+def step_converged(win: W.Window, out: SolveOut, settings: Settings):
+    """Convergence test of doStepFromBackup; () bool tensor."""
+    nf = torch.clamp(torch.sum(win.frame_valid), min=1)
+    sumA = torch.sum(out.step_f[:, 6] ** 2) / nf
+    sumB = torch.sum(out.step_f[:, 7] ** 2) / nf
+    sumT = torch.sum(out.step_f[:, 0:3] ** 2) / nf
+    sumR = torch.sum(out.step_f[:, 3:6] ** 2) / nf
+    pt_ok = win.pt_status == W.PT_ACTIVE
+    n_pt = torch.sum(pt_ok)
+    sum_id = torch.sum(torch.where(pt_ok, torch.abs(win.pt_idepth), torch.zeros_like(win.pt_idepth)))
+    sumNID = sum_id / torch.clamp(n_pt, min=1)
+    th = settings.th_opt_iterations
+    return (
+        (torch.sqrt(sumA) < 0.0005 * th)
+        & (torch.sqrt(sumB) < 0.00005 * th)
+        & (torch.sqrt(sumR) < 0.00005 * th)
+        & (torch.sqrt(sumT) * sumNID < 0.00005 * th)
+    )
+
+
+# ---------------------------------------------------------------------------
+# the optimization loop
+# ---------------------------------------------------------------------------
+
+
+def accumulate_priors(win: W.Window, settings: Settings):
+    """The prior-only part of accumulateLF (frame/calib priors)."""
+    F = win.F
+    D = CPARS + 8 * F
+    dtype, dev = win.state.dtype, win.device
+    _, dc, _ = deltas(win)
+    H = torch.zeros((D, D), dtype=dtype, device=dev)
+    b = torch.zeros((D,), dtype=dtype, device=dev)
+    prior_f = frame_priors(win, settings)
+    ci = torch.arange(CPARS, device=dev)
+    H[ci, ci] += settings.initial_calib_hessian
+    b[:CPARS] += settings.initial_calib_hessian * dc
+    idx = CPARS + torch.arange(8 * F, device=dev)
+    H[idx, idx] += prior_f.reshape(-1)
+    b[CPARS:] += (prior_f * win.state).reshape(-1)
+    NP = win.NP
+    return Accum(
+        H=H, b=b,
+        Hdd=torch.zeros((NP,), dtype=dtype, device=dev),
+        bd=torch.zeros((NP,), dtype=dtype, device=dev),
+        Hcd=torch.zeros((NP, CPARS), dtype=dtype, device=dev),
+        nres=torch.zeros((), dtype=torch.int64, device=dev),
+    )
+
+
+def ba_iteration(win: W.Window, dI_stack, iteration: int,
+                 settings: Settings = default_settings()):
+    """One GN iteration of the windowed BA (linearize -> accumulate ->
+    solve -> step). Returns (win, energy, converged, nres)."""
+    active_set = win.res_exists & ~win.res_linearized
+    lin = R.linearize(win, dI_stack, settings=settings)
+    win = R.apply_res(win, lin, active_set)
+
+    AH, AT = adjoints(win)
+    active = win.res_exists & (win.res_state == W.RES_IN)
+    mode0 = active & ~win.res_linearized
+    accA = accumulate_top(win, AH, AT, mode0, 0, settings, use_prior=False)
+    accL = accumulate_priors(win, settings)
+    acc = Accum(
+        H=accA.H + accL.H, b=accA.b + accL.b, Hdd=accA.Hdd + accL.Hdd,
+        bd=accA.bd + accL.bd, Hcd=accA.Hcd + accL.Hcd, nres=accA.nres,
+    )
+    prior_pt = point_prior(win, settings)
+    sc = accumulate_sc(win, AH, AT, active, acc, prior_pt, True)
+    out = solve_system(win, acc, sc, settings, iteration)
+    win = apply_step(win, out)
+    win = win.replace(pt_idepth_hessian=sc.idepth_hessian)
+
+    energy = torch.sum(torch.where(active_set, lin.energy, torch.zeros_like(lin.energy)))
+    converged = step_converged(win, out, settings)
+    return win, energy, converged, acc.nres
+
+
+def optimize_fused(win: W.Window, dI_stack, settings: Settings = default_settings(),
+                   max_its: int = 6):
+    """The whole GN loop (FullSystem::optimize, legacy) with the JAX
+    package's early exit: stop once an iteration converged and at least
+    min_opt_iterations ran. Returns (win, energy, nres)."""
+    energy = torch.zeros((), dtype=torch.float32, device=win.device)
+    nres = torch.zeros((), dtype=torch.int32, device=win.device)
+    for it in range(max_its):
+        win, e, conv, nr = ba_iteration(win, dI_stack, it, settings=settings)
+        energy = e.to(torch.float32)
+        nres = nr.to(torch.int32)
+        if (it + 1 >= settings.min_opt_iterations) and bool(conv):
+            break
+    return win, energy, nres
+
+
+# ---------------------------------------------------------------------------
+# final linearization pass, point flagging, marginalization
+# ---------------------------------------------------------------------------
+
+
+def linearize_all_final(win: W.Window, dI_stack, newest_slot: int,
+                        settings: Settings = default_settings()):
+    """linearizeAll(fixLinearization=true) + setNewFrameEnergyTH."""
+    F = win.F
+    dev = win.device
+    active_set = win.res_exists & ~win.res_linearized
+    lin = R.linearize(win, dI_stack, settings=settings)
+    win = R.apply_res(win, lin, active_set)
+
+    active = win.res_exists & (win.res_state == W.RES_IN)
+
+    tgt_new = torch.arange(F, device=dev)[None, :] == newest_slot
+    sel = active_set & tgt_new & (win.res_new_energy_wo >= 0)
+    vals = torch.where(sel, win.res_new_energy_wo,
+                       torch.full_like(win.res_new_energy_wo, float("inf"))).reshape(-1)
+    count = torch.sum(sel)
+    svals = torch.sort(vals).values
+    nth = (settings.frame_energy_th_n * count).to(torch.int32).long()
+    nth_val = torch.sqrt(svals[torch.clamp(nth, 0, svals.shape[0] - 1)])
+    th = nth_val * settings.frame_energy_th_fac_median
+    th = (
+        26.0 * settings.frame_energy_th_const_weight
+        + th * (1.0 - settings.frame_energy_th_const_weight)
+    )
+    th = th * th * settings.overall_energy_th_weight**2
+    th = torch.where(count > 0, th, torch.full_like(th, 12.0 * 12.0 * 8.0))
+    new_th = torch.where(torch.arange(F, device=dev) == newest_slot, th, win.frame_energy_th)
+    win = win.replace(frame_energy_th=new_th)
+
+    pre = W.precalc(win)
+    h = win.pt_host.long()
+    KRKi = pre["KRKi"][h]
+    Kt = pre["Kt"][h]
+    P3 = torch.stack([win.pt_u, win.pt_v, torch.ones_like(win.pt_u)], -1)
+    ptp_inf = torch.einsum("nfij,nj->nfi", KRKi, P3)
+    ptp = ptp_inf + Kt * win.pt_idepth[:, None, None]
+    rel_bs = 0.01 * torch.linalg.norm(
+        ptp_inf[..., :2] / ptp_inf[..., 2:3] - ptp[..., :2] / ptp[..., 2:3], dim=-1
+    )
+    rel_bs = torch.where(active, rel_bs, torch.zeros_like(rel_bs))
+    win = win.replace(
+        pt_max_rel_baseline=torch.maximum(win.pt_max_rel_baseline, torch.max(rel_bs, dim=1).values),
+        pt_num_good_res=win.pt_num_good_res
+        + torch.sum(active & active_set, dim=1).to(torch.int32),
+    )
+    win = win.replace(res_exists=win.res_exists & active)
+    energy = torch.sum(torch.where(active_set, lin.energy, torch.zeros_like(lin.energy)))
+    return win, energy
+
+
+def res_to_zero_fixed(win: W.Window):
+    """EFResidual::fixLinearizationF: res_toZeroF = resF - J * delta."""
+    AH, AT = adjoints(win)
+    d_frame, dc, d_pt = deltas(win)
+    dp = ht_delta(win, AH, AT, d_frame)[win.pt_host.long()]
+    Jp_dx = (
+        torch.einsum("nfk,nfk->nf", win.J_pdxi[:, :, 0, :], dp[..., :6])
+        + torch.einsum("nfk,k->nf", win.J_pdc[:, :, 0, :], dc)
+        + win.J_pdd[:, :, 0] * d_pt[:, None]
+    )
+    Jp_dy = (
+        torch.einsum("nfk,nfk->nf", win.J_pdxi[:, :, 1, :], dp[..., :6])
+        + torch.einsum("nfk,k->nf", win.J_pdc[:, :, 1, :], dc)
+        + win.J_pdd[:, :, 1] * d_pt[:, None]
+    )
+    return (
+        win.J_resF
+        - win.J_Idx[:, :, 0, :] * Jp_dx[..., None]
+        - win.J_Idx[:, :, 1, :] * Jp_dy[..., None]
+        - win.J_abF[:, :, 0, :] * dp[..., 6][..., None]
+        - win.J_abF[:, :, 1, :] * dp[..., 7][..., None]
+    )
+
+
+def flag_points_for_removal(win: W.Window, dI_stack, frames_to_marg, last_slot,
+                            prev_slot, settings: Settings = default_settings()):
+    """FullSystem::flagPointsForRemoval: classify every active point as
+    KEEP / MARGINALIZE / DROP; relinearize + fix res_toZero for the
+    marginalization candidates. frames_to_marg: (F,) bool tensor."""
+    active_pt = win.pt_status == W.PT_ACTIVE
+    nres = torch.sum(win.res_exists, dim=1)
+
+    drop_simple = active_pt & ((win.pt_idepth < 0) | (nres == 0))
+
+    res_in = win.res_exists & (win.res_state == W.RES_IN)
+    vis_in_to_marg = torch.sum(res_in & frames_to_marg[None, :], dim=1)
+    oob_a = (
+        (nres >= settings.min_good_active_res_for_marg)
+        & (win.pt_num_good_res > settings.min_good_res_for_marg + 10)
+        & (nres - vis_in_to_marg < settings.min_good_active_res_for_marg)
+    )
+    # recorded states outlive the residual's removal (see the JAX package)
+    lr0_state = win.res_state[:, last_slot]
+    prev_ok = prev_slot >= 0
+    lr1_state = win.res_state[:, max(prev_slot, 0)]
+    oob_b = lr0_state == W.RES_OOB
+    oob_c = (nres >= 2) & (lr0_state == W.RES_OUTLIER) & prev_ok & (lr1_state == W.RES_OUTLIER)
+    host_flagged = frames_to_marg[win.pt_host.long()]
+    oob = active_pt & ~drop_simple & (oob_a | oob_b | oob_c | host_flagged)
+
+    inlier = (nres >= settings.min_good_active_res_for_marg) & (
+        win.pt_num_good_res >= settings.min_good_res_for_marg
+    )
+
+    lin = R.linearize(win, dI_stack, settings=settings)
+    relin_mask = (oob & inlier)[:, None] & win.res_exists
+    win = R.apply_res(win, lin, relin_mask)
+
+    rtz = res_to_zero_fixed(win)
+    fix_mask = relin_mask & (win.res_state == W.RES_IN)
+    win = win.replace(
+        res_to_zero=torch.where(fix_mask[..., None], rtz, win.res_to_zero),
+        res_linearized=win.res_linearized | fix_mask,
+    )
+
+    well = inlier & (win.pt_idepth_hessian > settings.min_idepth_h_marg)
+    marg = oob & well
+    drop = drop_simple | (oob & ~well)
+    status = win.pt_status
+    status = torch.where(marg, torch.full_like(status, W.PT_MARGINALIZE), status)
+    status = torch.where(drop & ~marg, torch.full_like(status, W.PT_DROP), status)
+    return win.replace(pt_status=status)
+
+
+def marginalize_points(win: W.Window, settings: Settings = default_settings()):
+    """EnergyFunctional::marginalizePointsF: mode-2 accumulation of flagged
+    points' fixed residuals, Schur over their idepth, folded into HM/bM;
+    marginalized and dropped points removed."""
+    AH, AT = adjoints(win)
+    marg_pt = win.pt_status == W.PT_MARGINALIZE
+    mask = (
+        marg_pt[:, None] & win.res_exists & (win.res_state == W.RES_IN)
+        & win.res_linearized
+    )
+    acc2 = accumulate_top(win, AH, AT, mask, 2, settings, use_prior=False)
+    prior_pt = torch.where(
+        marg_pt,
+        point_prior(win, settings) * settings.idepth_fix_prior_marg_fac,
+        torch.zeros_like(win.pt_idepth),
+    )
+    acc_masked = Accum(
+        H=acc2.H, b=acc2.b,
+        Hdd=torch.where(marg_pt, acc2.Hdd, torch.zeros_like(acc2.Hdd)),
+        bd=torch.where(marg_pt, acc2.bd, torch.zeros_like(acc2.bd)),
+        Hcd=torch.where(marg_pt[:, None], acc2.Hcd, torch.zeros_like(acc2.Hcd)),
+        nres=acc2.nres,
+    )
+    sc2 = accumulate_sc(win, AH, AT, mask, acc_masked, prior_pt, False)
+    win = win.replace(
+        HM=win.HM + settings.marg_weight_fac * (acc2.H - sc2.H),
+        bM=win.bM + settings.marg_weight_fac * (acc2.b - sc2.b),
+    )
+    gone = (win.pt_status == W.PT_MARGINALIZE) | (win.pt_status == W.PT_DROP)
+    return win.replace(
+        pt_status=torch.where(gone, torch.full_like(win.pt_status, W.PT_INACTIVE), win.pt_status),
+        res_exists=win.res_exists & ~gone[:, None],
+        res_linearized=win.res_linearized & ~gone[:, None],
+    )
+
+
+def marginalize_frame(win: W.Window, slot: int, settings: Settings = default_settings()):
+    """EnergyFunctional::marginalizeFrame, slot-indexed: add the frame's
+    prior, scaled Schur-eliminate its 8-dof block from HM/bM, zero the slot.
+    The caller guarantees the frame hosts no points and no residuals target
+    it."""
+    F = win.F
+    D = CPARS + 8 * F
+    dev = win.device
+    io = CPARS + 8 * slot
+    idx8 = io + torch.arange(8, device=dev)
+
+    HM = win.HM.clone()
+    bM = win.bM.clone()
+    prior_f = frame_priors(win, settings)[slot]
+    HM[idx8, idx8] += prior_f
+    bM[idx8] += prior_f * win.state[slot]
+
+    SVec = torch.sqrt(torch.abs(torch.diagonal(HM)) + 10.0)
+    SVecI = 1.0 / SVec
+    Hs = SVecI[:, None] * HM * SVecI[None, :]
+    bs = SVecI * bM
+
+    blk = Hs[idx8][:, idx8]
+    blk = 0.5 * (blk + blk.T)
+    blk_inv = torch.linalg.inv(blk + 1e-6 * torch.eye(8, dtype=blk.dtype, device=dev))
+    rows = Hs[idx8, :]
+    Hs = Hs - rows.T @ blk_inv @ rows
+    bs = bs - rows.T @ (blk_inv @ bs[idx8])
+
+    HM_new = SVec[:, None] * Hs * SVec[None, :]
+    bM_new = SVec * bs
+    HM_new = 0.5 * (HM_new + HM_new.T)
+
+    slot_mask = torch.ones((D,), dtype=torch.bool, device=dev)
+    slot_mask[idx8] = False
+    HM_new = torch.where(slot_mask[:, None] & slot_mask[None, :], HM_new, torch.zeros_like(HM_new))
+    bM_new = torch.where(slot_mask, bM_new, torch.zeros_like(bM_new))
+
+    def zrow(x, val=0):
+        out = x.clone()
+        out[slot] = val
+        return out
+
+    return win.replace(
+        HM=HM_new, bM=bM_new,
+        frame_valid=zrow(win.frame_valid, False),
+        frame_id=zrow(win.frame_id, -1),
+        state=zrow(win.state),
+        state_zero=zrow(win.state_zero),
+        prior=zrow(win.prior),
+    )
+
+
+def drop_frame_refs(win: W.Window, slot: int):
+    """Remove residuals targeting `slot` and drop points hosted there."""
+    F = win.F
+    tgt = torch.arange(F, device=win.device) == slot
+    hosted = (win.pt_host == slot) & (win.pt_status == W.PT_ACTIVE)
+    return win.replace(
+        res_exists=win.res_exists & ~tgt[None, :] & ~hosted[:, None],
+        pt_status=torch.where(hosted, torch.full_like(win.pt_status, W.PT_INACTIVE), win.pt_status),
+    )
+
+
+def marginalize_frames_masked(win: W.Window, flagged, settings: Settings = default_settings()):
+    """All flagged-frame marginalizations (drop refs + Schur-eliminate), in
+    slot order. flagged: (F,) bool (numpy or tensor)."""
+    flagged = np.asarray(torch.as_tensor(flagged).cpu())
+    for s_ in range(win.F):
+        if flagged[s_]:
+            win = marginalize_frame(drop_frame_refs(win, s_), s_, settings=settings)
+    return win

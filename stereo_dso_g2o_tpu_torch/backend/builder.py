@@ -1,0 +1,77 @@
+"""Window construction/bookkeeping (the FullSystem's insert ops).
+
+Port of `stereo_dso_g2o_tpu/backend/builder.py`: functional updates of the
+Window for EnergyFunctional::insertFrame/insertPoint/insertResidual and
+FrameHessian::setEvalPT_scaled.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from stereo_dso_g2o_tpu_torch.backend import window as W
+from stereo_dso_g2o_tpu_torch.config import SCALE_A, SCALE_B
+
+
+def _set_row(x, idx, val):
+    out = x.clone()
+    out[idx] = torch.as_tensor(val, dtype=x.dtype, device=x.device)
+    return out
+
+
+def insert_frame(win: W.Window, slot: int, T_w2c, aff, exposure: float,
+                 frame_id: int, energy_th: float = 8 * 12.0 * 12.0) -> W.Window:
+    """Insert a keyframe at `slot` with FEJ pose T_w2c (setEvalPT_scaled:
+    pose part of the state zero, ab part set, state_zero = state)."""
+    state = torch.zeros(8, dtype=win.state.dtype, device=win.device)
+    state[6] = float(aff[0]) / SCALE_A
+    state[7] = float(aff[1]) / SCALE_B
+    return win.replace(
+        frame_valid=_set_row(win.frame_valid, slot, True),
+        evalPT=_set_row(win.evalPT, slot, np.asarray(T_w2c, np.float32)),
+        state=_set_row(win.state, slot, state),
+        state_zero=_set_row(win.state_zero, slot, state),
+        ab_exposure=_set_row(win.ab_exposure, slot, float(exposure)),
+        frame_energy_th=_set_row(win.frame_energy_th, slot, float(energy_th)),
+        frame_id=_set_row(win.frame_id, slot, int(frame_id)),
+    )
+
+
+def set_frame_eval_pt(win: W.Window, slot) -> W.Window:
+    """Re-linearize a frame at its current pose: evalPT <- current
+    worldToCam; pose state zeroed; ab kept as both state and state_zero."""
+    w2c = win.w2c()[slot]
+    state = win.state[slot]
+    new_state = torch.zeros_like(state)
+    new_state[6] = state[6]
+    new_state[7] = state[7]
+    return win.replace(
+        evalPT=_set_row(win.evalPT, slot, w2c),
+        state=_set_row(win.state, slot, new_state),
+        state_zero=_set_row(win.state_zero, slot, new_state),
+    )
+
+
+def insert_points(win: W.Window, idx, host_slot: int, u, v, idepth, color,
+                  weights, energy_th, has_prior=False) -> W.Window:
+    idx = torch.as_tensor(idx, device=win.device).long()
+    return win.replace(
+        pt_status=_set_row(win.pt_status, idx, W.PT_ACTIVE),
+        pt_host=_set_row(win.pt_host, idx, host_slot),
+        pt_u=_set_row(win.pt_u, idx, u),
+        pt_v=_set_row(win.pt_v, idx, v),
+        pt_idepth=_set_row(win.pt_idepth, idx, idepth),
+        pt_idepth_zero=_set_row(win.pt_idepth_zero, idx, idepth),
+        pt_color=_set_row(win.pt_color, idx, color),
+        pt_weights=_set_row(win.pt_weights, idx, weights),
+        pt_has_prior=_set_row(win.pt_has_prior, idx, has_prior),
+        pt_energy_th=_set_row(win.pt_energy_th, idx, energy_th),
+        pt_num_good_res=_set_row(win.pt_num_good_res, idx, 0),
+        pt_max_rel_baseline=_set_row(win.pt_max_rel_baseline, idx, 0.0),
+        pt_idepth_hessian=_set_row(win.pt_idepth_hessian, idx, 0.0),
+        res_exists=_set_row(win.res_exists, idx, False),
+        res_linearized=_set_row(win.res_linearized, idx, False),
+        res_state=_set_row(win.res_state, idx, W.RES_IN),
+        res_energy=_set_row(win.res_energy, idx, 0.0),
+    )

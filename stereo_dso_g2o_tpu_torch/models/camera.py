@@ -1,0 +1,97 @@
+"""Camera calibration state: the per-level intrinsics pyramid + baseline.
+
+Port of `stereo_dso_g2o_tpu/models/camera.py`. fx/fy/cx/cy live as a (4,)
+value tensor (optimizable in windowed BA), per-level values follow
+globalCalib.cpp:90-99:  fx_l = fx_0 * 0.5^l ; cx_l = (cx_0 + 0.5) / 2^l - 0.5.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+
+@dataclasses.dataclass
+class Calib:
+    c: torch.Tensor  # (4,) float32 fx, fy, cx, cy at level 0
+    baseline: torch.Tensor  # () float32 stereo baseline [m]
+    w: Tuple[int, ...]  # per-level widths
+    h: Tuple[int, ...]  # per-level heights
+
+    @property
+    def n_levels(self) -> int:
+        return len(self.w)
+
+    @property
+    def device(self):
+        return self.c.device
+
+    def fx(self, lvl: int):
+        return self.c[0] * (0.5**lvl)
+
+    def fy(self, lvl: int):
+        return self.c[1] * (0.5**lvl)
+
+    def cx(self, lvl: int):
+        return (self.c[2] + 0.5) / (1 << lvl) - 0.5
+
+    def cy(self, lvl: int):
+        return (self.c[3] + 0.5) / (1 << lvl) - 0.5
+
+    def K(self, lvl: int):
+        fx, fy, cx, cy = self.fx(lvl), self.fy(lvl), self.cx(lvl), self.cy(lvl)
+        z = torch.zeros_like(fx)
+        o = torch.ones_like(fx)
+        return torch.stack(
+            [
+                torch.stack([fx, z, cx]),
+                torch.stack([z, fy, cy]),
+                torch.stack([z, z, o]),
+            ]
+        )
+
+    def Ki(self, lvl: int):
+        fx, fy, cx, cy = self.fx(lvl), self.fy(lvl), self.cx(lvl), self.cy(lvl)
+        z = torch.zeros_like(fx)
+        o = torch.ones_like(fx)
+        return torch.stack(
+            [
+                torch.stack([1.0 / fx, z, -cx / fx]),
+                torch.stack([z, 1.0 / fy, -cy / fy]),
+                torch.stack([z, z, o]),
+            ]
+        )
+
+    def bf(self):
+        """baseline * fx — disparity-to-inverse-depth factor."""
+        return self.baseline * self.c[0]
+
+
+def calib_from_c(c: torch.Tensor, baseline, w0: int, h0: int, n_levels: int) -> Calib:
+    """Calib from a (4,) intrinsics tensor and the level-0 image size."""
+    return Calib(
+        c=c,
+        baseline=torch.as_tensor(baseline, dtype=torch.float32, device=c.device),
+        w=tuple(w0 >> lvl for lvl in range(n_levels)),
+        h=tuple(h0 >> lvl for lvl in range(n_levels)),
+    )
+
+
+def make_calib(fx, fy, cx, cy, baseline, w: int, h: int, n_levels: int = 6,
+               device="cpu") -> Calib:
+    ws = tuple(w >> lvl for lvl in range(n_levels))
+    hs = tuple(h >> lvl for lvl in range(n_levels))
+    for lvl in range(1, n_levels):
+        if ws[lvl] * 2 != ws[lvl - 1] or hs[lvl] * 2 != hs[lvl - 1]:
+            raise ValueError(
+                f"image size {w}x{h} not divisible by 2^{n_levels - 1}; "
+                f"crop/resize first (cf. globalCalib.cpp:55-60 warning)"
+            )
+    return Calib(
+        c=torch.tensor([fx, fy, cx, cy], dtype=torch.float32, device=device),
+        baseline=torch.tensor(float(baseline), dtype=torch.float32, device=device),
+        w=ws,
+        h=hs,
+    )

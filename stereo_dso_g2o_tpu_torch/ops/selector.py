@@ -1,0 +1,280 @@
+"""Gradient-histogram pixel selection.
+
+Port of `stereo_dso_g2o_tpu/ops/selector.py` (PixelSelector2):
+per-32x32-block gradient-histogram thresholds, 3-scale potential-grid
+selection with a per-cell pseudo-random direction (integer hash), and the
+host-side density controller with random thinning.
+
+The thinning draw is injectable: `PixelSelector(uniform=...)` takes a
+function `uniform(salt, shape) -> tensor of U[0,1)`. The default draws from
+a `torch.Generator` seeded from the salt; the JAX package draws from
+`jax.random`, which torch cannot reproduce, so parity tests pass in a
+function that returns the JAX draw.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from stereo_dso_g2o_tpu_torch.config import Settings, default_settings
+from stereo_dso_g2o_tpu_torch.utils.fixed import nonzero_fixed
+
+# The 16 unit direction vectors (PixelSelector2.cpp:368-384).
+_DIRECTIONS = np.array(
+    [
+        [0, 1.0000], [0.3827, 0.9239], [0.1951, 0.9808], [0.9239, 0.3827],
+        [0.7071, 0.7071], [0.3827, -0.9239], [0.8315, 0.5556], [0.8315, -0.5556],
+        [0.5556, -0.8315], [0.9808, 0.1951], [0.9239, -0.3827], [0.7071, -0.7071],
+        [0.5556, 0.8315], [0.9808, -0.1951], [1.0000, 0.0000], [0.1951, -0.9808],
+    ],
+    dtype=np.float32,
+)
+
+_M32 = 0xFFFFFFFF
+
+
+def _cell_hash(bx, by, salt: int):
+    """Deterministic per-cell direction index in [0, 16): the JAX package's
+    uint32 hash, computed in int64 and masked to 32 bits after every
+    multiply."""
+    h = ((bx * 2654435761) & _M32) ^ ((by * 40503) & _M32) ^ (salt & _M32)
+    h = ((h ^ (h >> 13)) * 0x5BD1E995) & _M32
+    return (h >> 4) & 0xF
+
+
+def block_thresholds(asg0: torch.Tensor, settings: Settings = default_settings()):
+    """Per-32x32-block smoothed squared gradient thresholds (makeHists).
+    Returns (H//32, W//32) float32."""
+    H, W = asg0.shape
+    dev = asg0.device
+    h32, w32 = H // 32, W // 32
+    g = torch.clamp(torch.sqrt(asg0).to(torch.int32), max=48)
+    xs = torch.arange(W, device=dev)
+    ys = torch.arange(H, device=dev)
+    valid = (
+        (xs[None, :] >= 1) & (xs[None, :] <= W - 2)
+        & (ys[:, None] >= 1) & (ys[:, None] <= H - 2)
+    )
+    gb = g[: h32 * 32, : w32 * 32].reshape(h32, 32, w32, 32)
+    vb = valid[: h32 * 32, : w32 * 32].reshape(h32, 32, w32, 32)
+    bins = torch.arange(49, device=dev, dtype=torch.int32)
+    le = (gb[..., None] <= bins) & vb[..., None]
+    cum = torch.sum(le, dim=(1, 3))  # (h32, w32, 49)
+    total = torch.sum(vb, dim=(1, 3))
+    th_count = (total * settings.min_grad_hist_cut + 0.5).to(torch.int32)
+    meets = cum >= th_count[..., None] + 1
+    first = torch.argmax(meets.to(torch.uint8), dim=-1)
+    any_meets = torch.any(meets, dim=-1)
+    quant = torch.where(any_meets, first, torch.full_like(first, 90))
+    ths = quant.to(torch.float32) + settings.min_grad_hist_add
+
+    def box(x):
+        total = torch.zeros_like(x)
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                y = torch.roll(x, (dy, dx), dims=(0, 1))
+                if dy == 1:
+                    y[0, :] = 0.0
+                if dy == -1:
+                    y[-1, :] = 0.0
+                if dx == 1:
+                    y[:, 0] = 0.0
+                if dx == -1:
+                    y[:, -1] = 0.0
+                total = total + y
+        return total
+
+    sm = box(ths) / box(torch.ones_like(ths))
+    return sm * sm
+
+
+class Selection(NamedTuple):
+    status_map: torch.Tensor  # (H, W) int32 in {0,1,2,4}
+    counts: torch.Tensor  # (3,) int32
+
+
+SUPPORTED_POTS = (1, 2, 3, 4, 5, 6, 8, 10, 12, 16)
+
+
+def snap_pot(pot: int) -> int:
+    """Nearest supported potential (ties -> smaller = denser)."""
+    return min(SUPPORTED_POTS, key=lambda p: (abs(p - pot), p))
+
+
+def _select_at_pot(v0, v1, v2, pot: int, H: int, W: int):
+    """3-scale cell-winner selection at one potential; the winner per cell
+    is the first maximal score in raster order."""
+    dev = v0.device
+    B = 4 * pot
+    Hp = ((H + B - 1) // B) * B
+    Wp = ((W + B - 1) // B) * B
+
+    def pad(x):
+        return torch.nn.functional.pad(x, (0, Wp - W, 0, Hp - H), value=-1.0)
+
+    v0p, v1p, v2p = pad(v0), pad(v1), pad(v2)
+
+    def block_argmax(v, b):
+        hb, wb = Hp // b, Wp // b
+        vb = v.reshape(hb, b, wb, b).permute(0, 2, 1, 3).reshape(hb, wb, b * b)
+        best, arg = torch.max(vb, dim=-1)
+        iy = arg // b + torch.arange(hb, device=dev)[:, None] * b
+        ix = arg % b + torch.arange(wb, device=dev)[None, :] * b
+        return best, iy, ix
+
+    def any4(x, h, w):
+        return x.reshape(h, 2, w, 2).permute(0, 2, 1, 3).reshape(h, w, 4).any(-1)
+
+    b0v, b0y, b0x = block_argmax(v0p, pot)
+    sel0 = b0v > 0
+    b1v, b1y, b1x = block_argmax(v1p, 2 * pot)
+    h1, w1 = b1v.shape
+    sel0_any = any4(sel0, h1, w1)
+    sel1 = (~sel0_any) & (b1v > 0)
+    b2v, b2y, b2x = block_argmax(v2p, 4 * pot)
+    h2, w2 = b2v.shape
+    sel1_any = any4(sel1, h2, w2)
+    sel0_any2 = any4(sel0_any, h2, w2)
+    sel2 = (~sel0_any2) & (~sel1_any) & (b2v > 0)
+
+    status = torch.zeros((Hp * Wp,), dtype=torch.int32, device=dev)
+    for by, bx, sel, code in ((b0y, b0x, sel0, 1), (b1y, b1x, sel1, 2), (b2y, b2x, sel2, 4)):
+        val = torch.where(sel, code, 0).to(torch.int32).reshape(-1)
+        status = status.scatter_reduce(0, (by * Wp + bx).reshape(-1), val, reduce="amax")
+    status = status.reshape(Hp, Wp)[:H, :W]
+    counts = torch.stack([sel0.sum(), sel1.sum(), sel2.sum()]).to(torch.int32)
+    return status, counts
+
+
+def select(dI0, asg0, asg1, asg2, ths_smoothed, pot: int, th_factor: float = 1.0,
+           salt: int = 0, settings: Settings = default_settings()) -> Selection:
+    """One selection pass at potential `pot` (PixelSelector2::select)."""
+    H, W = asg0.shape
+    dev = asg0.device
+    dirs = torch.as_tensor(_DIRECTIONS, device=dev)
+    pot = snap_pot(int(pot))
+
+    xs = torch.arange(W, device=dev)
+    ys = torch.arange(H, device=dev)
+    border = (
+        (xs[None, :] >= 4) & (xs[None, :] < W - 5)
+        & (ys[:, None] >= 4) & (ys[:, None] <= H - 4)
+    )
+    th0 = ths_smoothed[
+        torch.clamp(ys[:, None] >> 5, max=ths_smoothed.shape[0] - 1),
+        torch.clamp(xs[None, :] >> 5, max=ths_smoothed.shape[1] - 1),
+    ]
+    dw1 = settings.grad_downweight_per_level
+    dw2 = dw1 * dw1
+    th1 = th0 * dw1
+    th2 = th1 * dw2
+
+    gx = dI0[..., 1]
+    gy = dI0[..., 2]
+
+    x1 = (xs.to(torch.float32) * 0.5 + 0.25).to(torch.int64)
+    y1 = (ys.to(torch.float32) * 0.5 + 0.25).to(torch.int64)
+    ag1 = asg1[torch.clamp(y1[:, None], max=asg1.shape[0] - 1),
+               torch.clamp(x1[None, :], max=asg1.shape[1] - 1)]
+    x2 = (xs.to(torch.float32) * 0.25 + 0.125).to(torch.int64)
+    y2 = (ys.to(torch.float32) * 0.25 + 0.125).to(torch.int64)
+    ag2 = asg2[torch.clamp(y2[:, None], max=asg2.shape[0] - 1),
+               torch.clamp(x2[None, :], max=asg2.shape[1] - 1)]
+
+    pass0 = border & (asg0 > th0 * th_factor)
+    pass1 = border & (ag1 > th1 * th_factor)
+    pass2 = border & (ag2 > th2 * th_factor)
+
+    def dir_field(cell, s):
+        bx = xs // cell
+        by = ys // cell
+        # argument order as in the JAX package: (rows, cols)
+        return dirs[_cell_hash(by[:, None], bx[None, :], s)]  # (H, W, 2)
+
+    d0 = dir_field(pot, salt * 3 + 0)
+    d1 = dir_field(2 * pot, salt * 3 + 1)
+    d2f = dir_field(4 * pot, salt * 3 + 2)
+
+    if settings.select_direction_distribution:
+        dn0 = torch.abs(gx * d0[..., 0] + gy * d0[..., 1])
+        dn1 = torch.abs(gx * d1[..., 0] + gy * d1[..., 1])
+        dn2 = torch.abs(gx * d2f[..., 0] + gy * d2f[..., 1])
+    else:
+        dn0, dn1, dn2 = asg0, ag1, ag2
+
+    neg = torch.full_like(asg0, -1.0)
+    v0 = torch.where(pass0, dn0, neg)
+    v1 = torch.where(pass1, dn1, neg)
+    v2 = torch.where(pass2, dn2, neg)
+    status, counts = _select_at_pot(v0, v1, v2, pot, H, W)
+    return Selection(status_map=status, counts=counts)
+
+
+def torch_uniform(salt: int, shape, device) -> torch.Tensor:
+    """U[0,1) draw from a torch.Generator seeded from the salt."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(salt) & 0x7FFFFFFF)
+    return torch.rand(shape, generator=gen, device=device)
+
+
+class PixelSelector:
+    """Host-side density controller (PixelSelector2::makeMaps).
+
+    Holds the adaptive `current_potential` between frames, re-runs `select`
+    with an adjusted potential until the yield is within [0.25, 1.25]x of the
+    requested density, and randomly thins overshoot with
+    `uniform(salt, shape, device)`."""
+
+    def __init__(self, settings: Settings = default_settings(), seed: int = 0,
+                 uniform: Optional[Callable] = None):
+        self.settings = settings
+        self.current_potential = 3
+        self._seed = seed
+        self._calls = 0
+        self.uniform = torch_uniform if uniform is None else uniform
+
+    def make_maps(self, dI0, asg0, asg1, asg2, density: float, th_factor: float = 1.0):
+        """Returns (status_map (H,W) int32 in {0,1,2,4}, num_selected)."""
+        ths = block_thresholds(asg0, self.settings)
+        self._calls += 1
+        salt = self._seed * 1000003 + self._calls
+        pot = self.current_potential
+        for recursion in range(2, -1, -1):
+            selm = select(dI0, asg0, asg1, asg2, ths, pot, th_factor, salt, self.settings)
+            num_have = float(torch.sum(selm.counts))
+            quotia = density / max(num_have, 1.0)
+            K = num_have * (pot + 1) * (pot + 1)
+            ideal_pot = max(int(np.sqrt(K / density) - 1), 1)
+            if recursion > 0 and quotia > 1.25 and pot > 1:
+                pot = snap_pot(min(ideal_pot, pot - 1))
+                continue
+            if recursion > 0 and quotia < 0.25:
+                pot = snap_pot(max(ideal_pot, pot + 1))
+                continue
+            break
+        self.current_potential = snap_pot(max(ideal_pot, 1))
+
+        status = selm.status_map
+        if quotia < 0.95:
+            u = self.uniform(salt, tuple(status.shape), status.device)
+            keep = torch.as_tensor(u, device=status.device) < quotia
+            status = torch.where(keep, status, torch.zeros_like(status))
+            num_have = float(torch.sum(status > 0))
+        return status, int(num_have)
+
+
+def map_to_points(status_map: torch.Tensor, cap: int):
+    """Compact a selection map into fixed-capacity point arrays (raster
+    order, zero-padded): (us, vs, types, valid), (cap,) each."""
+    H, W = status_map.shape
+    flat = status_map.reshape(-1)
+    idx = nonzero_fixed(flat > 0, cap)
+    valid = idx >= 0
+    safe = torch.clamp(idx, min=0)
+    us = (safe % W).to(torch.float32)
+    vs = (safe // W).to(torch.float32)
+    types = torch.where(valid, flat[safe], torch.zeros_like(flat[safe]))
+    return us, vs, types, valid

@@ -1,0 +1,525 @@
+"""Coarse-tracker ops: reference idepth maps + direct image alignment.
+
+Port of `stereo_dso_g2o_tpu/ops/tracker_ops.py` (CoarseTracker):
+
+- `build_ref_maps`: weighted point splat at level 0, sum-pooling up the
+  pyramid, 2-phase dilation, normalization (makeCoarseDepthL0 STEP2-5).
+- `compact_ref_level`: one level's maps as fixed-capacity point lists.
+- `calc_res`, `calc_gs`: warped Huber residuals and the 8x8 GN system.
+- `lm_level`: the per-level LM loop with the in-loop cutoff repeat.
+
+The JAX package vmaps the tracker over pose hypotheses; here the
+hypotheses are a leading batch dimension B of the pose arguments. The JAX
+`lax.while_loop` becomes a host loop that runs until every hypothesis is
+done and freezes the finished ones, which is what a vmapped while_loop does.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from stereo_dso_g2o_tpu_torch.config import (
+    SCALE_A,
+    SCALE_B,
+    SCALE_XI_ROT,
+    SCALE_XI_TRANS,
+    Settings,
+    default_settings,
+)
+from stereo_dso_g2o_tpu_torch.utils import se3
+from stereo_dso_g2o_tpu_torch.utils.fixed import nonzero_fixed
+from stereo_dso_g2o_tpu_torch.utils.smalls import cholesky_solve_small, fma
+
+# ---------------------------------------------------------------------------
+# reference map construction
+# ---------------------------------------------------------------------------
+
+
+def _dilate(idepth, wsum, shifts):
+    num = torch.zeros_like(wsum)
+    s_id = torch.zeros_like(idepth)
+    s_w = torch.zeros_like(wsum)
+    for dy, dx in shifts:
+        wn = torch.roll(wsum, (dy, dx), dims=(0, 1))
+        idn = torch.roll(idepth, (dy, dx), dims=(0, 1))
+        m = wn > 0
+        num = num + m
+        s_id = s_id + torch.where(m, idn, torch.zeros_like(idn))
+        s_w = s_w + torch.where(m, wn, torch.zeros_like(wn))
+    hole = (wsum <= 0) & (num > 0)
+    den = torch.clamp(num, min=1)
+    return (
+        torch.where(hole, s_id / den, idepth),
+        torch.where(hole, s_w / den, wsum),
+    )
+
+
+def _dilate_diag(idepth, wsum):
+    """Fill holes from the four diagonal neighbours (levels 0-1)."""
+    return _dilate(idepth, wsum, ((-1, -1), (1, 1), (-1, 1), (1, -1)))
+
+
+def _dilate_cross(idepth, wsum):
+    """Fill holes from the four axis neighbours (levels >= 2)."""
+    return _dilate(idepth, wsum, ((0, -1), (0, 1), (-1, 0), (1, 0)))
+
+
+def build_ref_maps(us, vs, idepths, weights, valid, *, n_levels: int = 6, dI_ref=None):
+    """Per-level (idepth_map, valid_map, color_map) tuples for tracking.
+
+    us, vs: (N,) level-0 pixel coords; idepths, weights: (N,); valid: (N,);
+    dI_ref: tuple of per-level (H,W,3) reference pyramids."""
+    assert dI_ref is not None
+    H, W = dI_ref[0].shape[:2]
+    dev = us.device
+    iu = torch.clamp(us.to(torch.int64), 0, W - 1)
+    iv = torch.clamp(vs.to(torch.int64), 0, H - 1)
+    w_ok = torch.where(valid, weights, torch.zeros_like(weights)).float()
+    flat = iv * W + iu
+    id_acc = torch.zeros(H * W, dtype=torch.float32, device=dev)
+    id_acc.index_put_((flat,), (idepths * w_ok).float(), accumulate=True)
+    w_acc = torch.zeros(H * W, dtype=torch.float32, device=dev)
+    w_acc.index_put_((flat,), w_ok, accumulate=True)
+
+    id_maps, w_maps = [id_acc.reshape(H, W)], [w_acc.reshape(H, W)]
+    for _lvl in range(1, n_levels):
+        idp = id_maps[-1]
+        wp = w_maps[-1]
+        h2, w2 = idp.shape[0] // 2, idp.shape[1] // 2
+
+        def pool(x):
+            return (
+                x[0 : 2 * h2 : 2, 0 : 2 * w2 : 2]
+                + x[0 : 2 * h2 : 2, 1 : 2 * w2 : 2]
+                + x[1 : 2 * h2 : 2, 0 : 2 * w2 : 2]
+                + x[1 : 2 * h2 : 2, 1 : 2 * w2 : 2]
+            )
+
+        id_maps.append(pool(idp))
+        w_maps.append(pool(wp))
+
+    out_id, out_valid, out_color = [], [], []
+    for lvl in range(n_levels):
+        idm, wm = id_maps[lvl], w_maps[lvl]
+        if lvl < 2:
+            idm, wm = _dilate_diag(idm, wm)
+        else:
+            idm, wm = _dilate_cross(idm, wm)
+        ok = wm > 0
+        idn = torch.where(ok, idm / torch.clamp(wm, min=1e-12), torch.full_like(idm, -1.0))
+        hl, wl = idn.shape
+        xs = torch.arange(wl, device=dev)
+        ys = torch.arange(hl, device=dev)
+        interior = (
+            (xs[None, :] >= 2) & (xs[None, :] < wl - 2)
+            & (ys[:, None] >= 2) & (ys[:, None] < hl - 2)
+        )
+        colr = dI_ref[lvl][..., 0]
+        ok = ok & interior & (idn > 0) & torch.isfinite(colr)
+        out_id.append(torch.where(ok, idn, torch.full_like(idn, -1.0)))
+        out_valid.append(ok)
+        out_color.append(colr)
+    return tuple(out_id), tuple(out_valid), tuple(out_color)
+
+
+def compact_ref_level(id_map, valid_map, color_map, cap: int):
+    """Compact one level's maps into fixed-capacity point lists."""
+    H, W = id_map.shape
+    idx = nonzero_fixed(valid_map.reshape(-1), cap)
+    ok = idx >= 0
+    safe = torch.clamp(idx, min=0)
+    u = (safe % W).to(torch.float32)
+    v = (safe // W).to(torch.float32)
+    zero = torch.zeros(cap, dtype=torch.float32, device=id_map.device)
+    return (
+        u,
+        v,
+        torch.where(ok, id_map.reshape(-1)[safe], zero),
+        torch.where(ok, color_map.reshape(-1)[safe], zero),
+        ok,
+    )
+
+
+# ---------------------------------------------------------------------------
+# residuals + normal equations
+# ---------------------------------------------------------------------------
+
+
+class ResStats(NamedTuple):
+    energy: torch.Tensor  # (B,)
+    num_terms: torch.Tensor  # (B,)
+    num_saturated: torch.Tensor  # (B,)
+    flow_t: torch.Tensor  # (B,)
+    flow_rt: torch.Tensor  # (B,)
+    buf_ok: torch.Tensor  # (B, N)
+    buf_inb: torch.Tensor  # (B, N)
+    buf_idepth: torch.Tensor
+    buf_u: torch.Tensor
+    buf_v: torch.Tensor
+    buf_dx: torch.Tensor
+    buf_dy: torch.Tensor
+    buf_residual: torch.Tensor
+    buf_weight: torch.Tensor
+    buf_ref_color: torch.Tensor
+
+
+def _bilinear3(dI, x, y):
+    """Bilinear (I, gx, gy) sample of an (H, W, 3) level at (x, y)."""
+    H, W = dI.shape[:2]
+    x = torch.clamp(x, 0.0, W - 1.001)
+    y = torch.clamp(y, 0.0, H - 1.001)
+    xf = torch.floor(x)
+    yf = torch.floor(y)
+    ix = torch.nan_to_num(xf).long()  # NaN coords sample index 0 and stay NaN
+    iy = torch.nan_to_num(yf).long()
+    fx = (x - xf)[..., None]
+    fy = (y - yf)[..., None]
+    top = (1 - fx) * dI[iy, ix] + fx * dI[iy, ix + 1]
+    bot = (1 - fx) * dI[iy + 1, ix] + fx * dI[iy + 1, ix + 1]
+    return (1 - fy) * top + fy * bot
+
+
+def _huber_w(ar, th):
+    return torch.where(ar < th, torch.ones_like(ar), th / torch.clamp(ar, min=1e-12))
+
+
+def calc_res(
+    pc_u, pc_v, pc_idepth, pc_color, pc_ok, dI_new, K_lvl, T_ref_new, aff_ab,
+    cutoff_th, settings: Settings = default_settings(), compute_flow: bool = True,
+) -> ResStats:
+    """Photometric residuals of all reference points warped into the new frame
+    (calcRes legacy semantics), for B pose hypotheses at once.
+
+    pc_*: (N,); K_lvl: (4,); T_ref_new: (B,4,4); aff_ab: (B,2);
+    cutoff_th: (B,)."""
+    H, W = dI_new.shape[:2]
+    fx, fy, cx, cy = K_lvl[0], K_lvl[1], K_lvl[2], K_lvl[3]
+    R = T_ref_new[:, :3, :3]
+    t = T_ref_new[:, :3, 3]
+
+    xn = (pc_u - cx) / fx
+    yn = (pc_v - cy) / fy
+    P = torch.stack([xn, yn, torch.ones_like(xn)], -1)  # (N, 3)
+    PR = torch.einsum("nk,bjk->bnj", P, R)  # P @ R^T
+    pt = PR + t[:, None, :] * pc_idepth[None, :, None]
+    u_n = pt[..., 0] / pt[..., 2]
+    v_n = pt[..., 1] / pt[..., 2]
+    # XLA contracts these multiply-adds into FMAs (one rounding). At the
+    # identity pose an integer reference pixel lands exactly on the in-bounds
+    # edge (Ku > 2), so the rounding decides the test: round it the same way.
+    Ku = fma(fx, u_n, cx)
+    Kv = fma(fy, v_n, cy)
+    new_idepth = pc_idepth[None, :] / pt[..., 2]
+
+    inb = (
+        pc_ok[None, :]
+        & (Ku > 2) & (Kv > 2) & (Ku < W - 3) & (Kv < H - 3)
+        & (new_idepth > 0)
+    )
+
+    hit = _bilinear3(dI_new, Ku, Kv)
+    residual = hit[..., 0] - (aff_ab[:, 0:1] * pc_color[None, :] + aff_ab[:, 1:2])
+    ar = torch.abs(residual)
+    hw = _huber_w(ar, settings.huber_th)
+
+    cut = cutoff_th[:, None]
+    saturated = inb & (ar > cut)
+    good = inb & ~saturated
+    max_energy = 2.0 * settings.huber_th * cut - settings.huber_th**2
+    e_term = torch.where(
+        good, hw * residual * residual * (2.0 - hw),
+        torch.where(saturated, max_energy.expand_as(ar), torch.zeros_like(ar)),
+    )
+    energy = torch.sum(e_term, dim=-1)
+    num_terms = torch.sum(inb, dim=-1)
+    num_saturated = torch.sum(saturated, dim=-1)
+
+    B = T_ref_new.shape[0]
+    if compute_flow:
+        ti = t[:, None, :] * pc_idepth[None, :, None]
+        ptT = P[None] + ti
+        KuT = fx * ptT[..., 0] / ptT[..., 2] + cx
+        KvT = fy * ptT[..., 1] / ptT[..., 2] + cy
+        ptT2 = P[None] - ti
+        KuT2 = fx * ptT2[..., 0] / ptT2[..., 2] + cx
+        KvT2 = fy * ptT2[..., 1] / ptT2[..., 2] + cy
+        pt3 = PR - ti
+        Ku3 = fx * pt3[..., 0] / pt3[..., 2] + cx
+        Kv3 = fy * pt3[..., 1] / pt3[..., 2] + cy
+
+        m = pc_ok[None, :]
+        nsel = torch.clamp(torch.sum(pc_ok), min=1)
+
+        def msum(x):
+            return torch.sum(torch.where(m, x, torch.zeros_like(x)), dim=-1)
+
+        flow_t = (
+            msum((KuT - pc_u) ** 2 + (KvT - pc_v) ** 2)
+            + msum((KuT2 - pc_u) ** 2 + (KvT2 - pc_v) ** 2)
+        ) / (2.0 * nsel + 0.1)
+        flow_rt = (
+            msum((Ku - pc_u) ** 2 + (Kv - pc_v) ** 2)
+            + msum((Ku3 - pc_u) ** 2 + (Kv3 - pc_v) ** 2)
+        ) / (2.0 * nsel + 0.1)
+    else:
+        flow_t = torch.zeros(B, dtype=dI_new.dtype, device=dI_new.device)
+        flow_rt = torch.zeros(B, dtype=dI_new.dtype, device=dI_new.device)
+
+    return ResStats(
+        energy=energy,
+        num_terms=num_terms,
+        num_saturated=num_saturated,
+        flow_t=flow_t,
+        flow_rt=flow_rt,
+        buf_ok=good,
+        buf_inb=inb,
+        buf_idepth=new_idepth,
+        buf_u=u_n,
+        buf_v=v_n,
+        buf_dx=hit[..., 1],
+        buf_dy=hit[..., 2],
+        buf_residual=residual,
+        buf_weight=hw,
+        buf_ref_color=pc_color[None, :].expand_as(residual),
+    )
+
+
+def _precond_scale(like):
+    return torch.tensor(
+        [SCALE_XI_ROT] * 3 + [SCALE_XI_TRANS] * 3 + [SCALE_A, SCALE_B],
+        dtype=like.dtype, device=like.device,
+    )
+
+
+def calc_gs(stats: ResStats, K_lvl, a_coeff, b0):
+    """(B,8,8) H and (B,8) b from the warped buffers (calcGSSSE), scaled by
+    the reference's preconditioners (including its rot/trans scale swap).
+
+    a_coeff: (B,) photometric transfer slope; b0: reference frame's aff b."""
+    fx, fy = K_lvl[0], K_lvl[1]
+    ok = stats.buf_ok
+    n = torch.clamp(torch.sum(ok, dim=-1), min=1).to(torch.float32)
+
+    dx = stats.buf_dx * fx
+    dy = stats.buf_dy * fy
+    u = stats.buf_u
+    v = stats.buf_v
+    idp = stats.buf_idepth
+
+    J = torch.stack(
+        [
+            idp * dx,
+            idp * dy,
+            -idp * (u * dx + v * dy),
+            -(u * v * dx + dy * (1.0 + v * v)),
+            u * v * dy + dx * (1.0 + u * u),
+            u * dy - v * dx,
+            a_coeff[:, None] * (b0 - stats.buf_ref_color),
+            -torch.ones_like(u),
+            stats.buf_residual,
+        ],
+        dim=-1,
+    )  # (B, N, 9)
+    w = torch.where(ok, stats.buf_weight, torch.zeros_like(stats.buf_weight))
+    Hfull = torch.einsum("bni,bnj->bij", J * w[..., None], J) / n[:, None, None]
+    Hm = Hfull[:, :8, :8]
+    bv = Hfull[:, :8, 8]
+    scale = _precond_scale(Hm)
+    return Hm * scale[:, None] * scale[None, :], bv * scale
+
+
+# ---------------------------------------------------------------------------
+# per-level LM loop
+# ---------------------------------------------------------------------------
+
+
+class LevelResult(NamedTuple):
+    T: torch.Tensor  # (B,4,4) refined refToNew
+    aff: torch.Tensor  # (B,2)
+    res_per_point: torch.Tensor  # (B,) sqrt(E/num)
+    flow_t: torch.Tensor
+    flow_rt: torch.Tensor
+    num_terms: torch.Tensor
+    sat_frac: torch.Tensor  # (B,) saturation fraction at the final cutoff
+    repeated: torch.Tensor  # (B,) bool
+
+
+def _aff_transfer(ref_exposure, new_exposure, ref_aff, new_aff):
+    """AffLight::fromToVecExposure; new_aff: (B, 2) -> (B, 2)."""
+    a = torch.exp(new_aff[:, 0] - ref_aff[0]) * new_exposure / ref_exposure
+    b = new_aff[:, 1] - a * ref_aff[1]
+    return torch.stack([a, b], dim=-1)
+
+
+def _cutoff_rep_of(ar, inb, settings: Settings):
+    """Closed-form while-doubling of levelCutoffRepeat: doubles while the
+    saturated fraction exceeds 0.6 and rep < 50. ar, inb: (B, N)."""
+    n = torch.clamp(torch.sum(inb, dim=-1), min=1)
+    rep = torch.ones(ar.shape[0], dtype=torch.float32, device=ar.device)
+    for _ in range(7):
+        sat = torch.sum(inb & (ar > settings.coarse_cutoff_th * rep[:, None]), dim=-1) / n
+        rep = torch.where((sat > 0.6) & (rep < 50.0), rep * 2.0, rep)
+    return rep
+
+
+def _energy_at_cutoff(ar, inb, cutoff, settings: Settings):
+    """(energy, num_terms, sat_frac) at cutoff (B,) from |residual| (B, N)."""
+    hw = _huber_w(ar, settings.huber_th)
+    cut = cutoff[:, None]
+    saturated = inb & (ar > cut)
+    good = inb & ~saturated
+    max_energy = 2.0 * settings.huber_th * cut - settings.huber_th**2
+    e = torch.where(
+        good, hw * ar * ar * (2.0 - hw),
+        torch.where(saturated, max_energy.expand_as(ar), torch.zeros_like(ar)),
+    )
+    n = torch.sum(inb, dim=-1)
+    return torch.sum(e, dim=-1), n, torch.sum(saturated, dim=-1) / torch.clamp(n, min=1)
+
+
+def _bsel(mask, new, old):
+    """Per-hypothesis select: mask (B,), tensors (B, ...)."""
+    return torch.where(mask.reshape(mask.shape + (1,) * (new.ndim - 1)), new, old)
+
+
+def lm_level(
+    pc_u, pc_v, pc_idepth, pc_color, pc_ok, dI_new, K_lvl,
+    T_init,  # (B, 4, 4)
+    aff_init,  # (B, 2)
+    ref_aff,  # (2,)
+    ref_exposure,
+    new_exposure,
+    have_repeated,  # (B,) bool
+    settings: Settings = default_settings(),
+    max_iterations: int = 10,
+) -> LevelResult:
+    """One pyramid level of the tracker's LM (legacy loop), including the
+    cutoff-repeat machinery, for B hypotheses (see module docstring)."""
+    s = settings
+    lambda_extrap_limit = 0.001
+    B = T_init.shape[0]
+    dev = T_init.device
+    f32 = torch.float32
+
+    def res_of(T, aff, cutoff, compute_flow=False):
+        ab = _aff_transfer(ref_exposure, new_exposure, ref_aff, aff)
+        return calc_res(
+            pc_u, pc_v, pc_idepth, pc_color, pc_ok, dI_new, K_lvl, T, ab,
+            cutoff, settings=settings, compute_flow=compute_flow,
+        ), ab
+
+    stats_p, ab0 = res_of(T_init, aff_init, torch.full((B,), 1e30, dtype=f32, device=dev))
+    ar0 = torch.abs(stats_p.buf_residual)
+    inb0 = stats_p.buf_inb
+    rep0 = _cutoff_rep_of(ar0, inb0, s)
+    cutoff0 = s.coarse_cutoff_th * rep0
+    stats0 = stats_p._replace(buf_ok=inb0 & (ar0 <= cutoff0[:, None]))
+    E0, n0, _ = _energy_at_cutoff(ar0, inb0, cutoff0, s)
+    H0, b0v = calc_gs(stats0, K_lvl, ab0[:, 0], ref_aff[1])
+    rep_pending0 = (rep0 > 1.0) & ~have_repeated
+
+    opt_a = settings.affine_opt_mode_a >= 0
+    opt_b = settings.affine_opt_mode_b >= 0
+    scale = _precond_scale(H0)
+
+    def solve(Hm, bv, lam):
+        Hl = Hm + torch.diag_embed(torch.diagonal(Hm, dim1=-2, dim2=-1)) * lam[:, None, None]
+        if opt_a and opt_b:
+            inc = cholesky_solve_small(Hl, -bv)
+        elif not opt_a and not opt_b:
+            inc6 = cholesky_solve_small(Hl[:, :6, :6], -bv[:, :6])
+            inc = torch.cat([inc6, torch.zeros(B, 2, dtype=Hl.dtype, device=dev)], -1)
+        elif opt_a and not opt_b:
+            inc7 = cholesky_solve_small(Hl[:, :7, :7], -bv[:, :7])
+            inc = torch.cat([inc7, torch.zeros(B, 1, dtype=Hl.dtype, device=dev)], -1)
+        else:  # fix a, optimize b (stitch trick)
+            idx = torch.tensor([0, 1, 2, 3, 4, 5, 7], device=dev)
+            Hs = Hl[:, idx][:, :, idx]
+            inc7 = cholesky_solve_small(Hs, -bv[:, idx])
+            inc = torch.zeros(B, 8, dtype=Hl.dtype, device=dev)
+            inc[:, :6] = inc7[:, :6]
+            inc[:, 7] = inc7[:, 6]
+        extrap = torch.where(
+            lam < lambda_extrap_limit,
+            torch.sqrt(torch.sqrt(lambda_extrap_limit / torch.clamp(lam, min=1e-12))),
+            torch.ones_like(lam),
+        )
+        inc = inc * extrap[:, None]
+        inc_scaled = inc * scale
+        fin = torch.isfinite(inc_scaled).all(dim=-1, keepdim=True)
+        return torch.where(fin, inc_scaled, torch.zeros_like(inc_scaled)), inc
+
+    it = torch.zeros(B, dtype=torch.int64, device=dev)
+    total = torch.zeros(B, dtype=torch.int64, device=dev)
+    T, aff, E_old, n_old = T_init, aff_init, E0, n0
+    lam = torch.full((B,), 0.01, dtype=f32, device=dev)
+    Hm, bv, cutoff, ar, inb = H0, b0v, cutoff0, ar0, inb0
+    rep_pending = rep_pending0
+    done = torch.full((B,), max_iterations <= 0, dtype=torch.bool, device=dev)
+
+    while not bool(done.all()):
+        run = ~done
+        inc_scaled, inc_raw = solve(Hm, bv, lam)
+        T_new = se3.se3_exp(inc_scaled[:, :6]) @ T
+        aff_new = aff + inc_scaled[:, 6:8]
+        stats_new, ab_new = res_of(T_new, aff_new, cutoff)
+        accept = (stats_new.energy / torch.clamp(stats_new.num_terms, min=1)) < (
+            E_old / torch.clamp(n_old, min=1)
+        )
+
+        Hn, bn = calc_gs(stats_new, K_lvl, ab_new[:, 0], ref_aff[1])
+        T_out = _bsel(accept, T_new, T)
+        aff_out = _bsel(accept, aff_new, aff)
+        E_out = torch.where(accept, stats_new.energy, E_old)
+        n_out = torch.where(accept, stats_new.num_terms, n_old)
+        H_out = _bsel(accept, Hn, Hm)
+        b_out = _bsel(accept, bn, bv)
+        lam_out = torch.where(
+            accept, lam * 0.5, torch.clamp(lam * 4.0, min=lambda_extrap_limit)
+        )
+        ar_out = _bsel(accept, torch.abs(stats_new.buf_residual), ar)
+        inb_out = _bsel(accept, stats_new.buf_inb, inb)
+
+        it1 = it + 1
+        pass_end = (torch.linalg.norm(inc_raw, dim=-1) <= 1e-3) | (it1 >= max_iterations)
+        do_rep = pass_end & rep_pending
+        rep2 = _cutoff_rep_of(ar_out, inb_out, s)
+        cutoff2 = s.coarse_cutoff_th * rep2
+        E2, n2, _ = _energy_at_cutoff(ar_out, inb_out, cutoff2, s)
+        it_out = torch.where(do_rep, torch.zeros_like(it1), it1)
+        lam_out = torch.where(do_rep, torch.full_like(lam_out, 0.01), lam_out)
+        cutoff_out = torch.where(do_rep, cutoff2, cutoff)
+        E_out = torch.where(do_rep, E2, E_out)
+        n_out = torch.where(do_rep, n2, n_out)
+        done_out = (pass_end & ~do_rep) | (total + 1 >= 2 * max_iterations + 2)
+
+        # finished hypotheses keep their carry (vmapped while_loop semantics)
+        it = torch.where(run, it_out, it)
+        total = torch.where(run, total + 1, total)
+        T = _bsel(run, T_out, T)
+        aff = _bsel(run, aff_out, aff)
+        E_old = torch.where(run, E_out, E_old)
+        n_old = torch.where(run, n_out, n_old)
+        lam = torch.where(run, lam_out, lam)
+        Hm = _bsel(run, H_out, Hm)
+        bv = _bsel(run, b_out, bv)
+        cutoff = torch.where(run, cutoff_out, cutoff)
+        ar = _bsel(run, ar_out, ar)
+        inb = _bsel(run, inb_out, inb)
+        rep_pending = torch.where(run, rep_pending & ~do_rep, rep_pending)
+        done = torch.where(run, done_out, done)
+
+    _, _, sat_f = _energy_at_cutoff(ar, inb, cutoff, s)
+    stats_f, _ = res_of(T, aff, cutoff, compute_flow=True)
+    return LevelResult(
+        T=T,
+        aff=aff,
+        res_per_point=torch.sqrt(E_old / torch.clamp(n_old, min=1)),
+        flow_t=stats_f.flow_t,
+        flow_rt=stats_f.flow_rt,
+        num_terms=n_old,
+        sat_frac=sat_f,
+        repeated=rep_pending0,
+    )

@@ -1,0 +1,115 @@
+"""The windowed BA of the PyTorch port against the JAX package, on the
+3-frame rendered window of test_ba.py (perturbed poses and depths, with
+depth priors) handed
+over through `stereo_dso_g2o_tpu_torch.bridge`: residual linearization,
+the GN loop, point flagging, and point and frame marginalization. (BA from
+the real warmed windows of a FullSystem run is in test_torch_full_system.)
+
+Tolerances: the Jacobians and residuals are per-term f32 products, 1e-4
+relative to the largest entry; the energy is a sum of ~1e3 Huber terms in
+another order, 1e-4 relative; poses 1e-5 on the 4x4 entries; the
+marginalization prior HM/bM is a sum of outer products, 1e-4 of its
+largest entry."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from _torch_parity import fields, n, t
+from test_ba import _build_window
+
+from stereo_dso_g2o_tpu.backend import ba as jba
+from stereo_dso_g2o_tpu.config import default_settings as jdefault_settings
+from stereo_dso_g2o_tpu.ops import residuals as jres
+from stereo_dso_g2o_tpu_torch import bridge
+from stereo_dso_g2o_tpu_torch.backend import ba as tba
+from stereo_dso_g2o_tpu_torch.ops import residuals as tres
+
+JSET = jdefault_settings()
+TSET = bridge.settings_from_fields(dataclasses.asdict(JSET))
+RTOL = 1e-4
+
+
+def _close(got, want, rtol=RTOL, what=""):
+    want = np.asarray(want, np.float64)
+    scale = max(np.abs(want).max(), 1e-12)
+    np.testing.assert_allclose(np.asarray(got, np.float64), want, atol=rtol * scale, rtol=0,
+                               err_msg=what)
+
+
+@pytest.fixture(scope="module")
+def window():
+    jwin, jdI, poses, idepths, K = _build_window(seed=1, n_pts=250, pose_noise=0.005,
+                                                 idepth_noise=0.03)
+    # depth priors on every point, as FullSystem's stereo initialization
+    # gives them: without them the window's scale is free, and the first
+    # (not yet orthogonalized) GN steps wander along it differently on each
+    # side by ~3e-4
+    jwin = jwin.replace(pt_has_prior=jwin.pt_status == 1)
+    jdI = jdI.astype(jnp.float32)  # its zero padding is float64 under x64
+    return jwin, jdI, bridge.window_from_numpy(fields(jwin)), t(jdI)
+
+
+def test_bridge_round_trip(window):
+    jwin, _, twin, _ = window
+    for name, arr in fields(jwin).items():
+        got = n(getattr(twin, name))
+        np.testing.assert_array_equal(got, arr.astype(got.dtype), err_msg=name)
+
+
+def test_linearize_matches(window):
+    jwin, jdI, twin, tdI = window
+    jl = jres.linearize(jwin, jdI, settings=JSET)
+    tl = tres.linearize(twin, tdI, settings=TSET)
+    np.testing.assert_array_equal(n(tl.new_state), np.array(jl.new_state))
+    for f in jl._fields:
+        if f != "new_state":
+            _close(n(getattr(tl, f)), np.array(getattr(jl, f)), what=f)
+
+
+def test_optimize_fused_matches(window):
+    jwin, jdI, twin, tdI = window
+    jw, je, jn = jba.optimize_fused(jwin, jdI, settings=JSET, max_its=6)
+    tw, te, tn = tba.optimize_fused(twin, tdI, settings=TSET, max_its=6)
+    assert int(tn) == int(jn)
+    np.testing.assert_allclose(float(te), float(je), rtol=RTOL)
+    want = bridge.window_from_numpy(fields(jw))
+    np.testing.assert_allclose(n(tw.w2c()), n(want.w2c()), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(n(tw.pt_idepth), n(want.pt_idepth), rtol=RTOL, atol=1e-6)
+    np.testing.assert_array_equal(n(tw.res_state), n(want.res_state))
+
+
+def test_flag_and_marginalize_points_match(window):
+    jwin, jdI, twin, tdI = window
+    jw, _, _ = jba.optimize_fused(jwin, jdI, settings=JSET, max_its=4)
+    tw = bridge.window_from_numpy(fields(jw))
+    marg = np.array([True, False, False, False])
+    jf = jba.flag_points_for_removal(jw, jdI, jnp.asarray(marg), 2, 1, settings=JSET)
+    tf = tba.flag_points_for_removal(tw, tdI, torch.from_numpy(marg), 2, 1, settings=TSET)
+    np.testing.assert_array_equal(n(tf.pt_status), np.array(jf.pt_status))
+    assert (np.array(jf.pt_status) != np.array(jw.pt_status)).any()
+    jm = jba.marginalize_points(jf, settings=JSET)
+    tm = tba.marginalize_points(tf, settings=TSET)
+    np.testing.assert_array_equal(n(tm.pt_status), np.array(jm.pt_status))
+    _close(n(tm.HM), np.array(jm.HM), what="HM")
+    _close(n(tm.bM), np.array(jm.bM), what="bM")
+
+
+def test_marginalize_frame_matches(window):
+    jwin, jdI, twin, tdI = window
+    jw, _, _ = jba.optimize_fused(jwin, jdI, settings=JSET, max_its=4)
+    tw = bridge.window_from_numpy(fields(jw))
+    jd = jba.marginalize_frame(jba.drop_frame_refs(jw, 1), 1, settings=JSET)
+    td = tba.marginalize_frame(tba.drop_frame_refs(tw, 1), 1, settings=TSET)
+    np.testing.assert_array_equal(n(td.frame_valid), np.array(jd.frame_valid))
+    np.testing.assert_array_equal(n(td.pt_status), np.array(jd.pt_status))
+    np.testing.assert_array_equal(n(td.res_exists), np.array(jd.res_exists))
+    _close(n(td.HM), np.array(jd.HM), what="HM")
+    _close(n(td.bM), np.array(jd.bM), what="bM")
+    flagged = np.array([False, False, True, False])
+    jmm = jba.marginalize_frames_masked(jw, jnp.asarray(flagged), settings=JSET)
+    tmm = tba.marginalize_frames_masked(tw, flagged, settings=TSET)
+    np.testing.assert_array_equal(n(tmm.frame_valid), np.array(jmm.frame_valid))
+    _close(n(tmm.HM), np.array(jmm.HM), what="HM masked")
