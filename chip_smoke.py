@@ -5,19 +5,35 @@
 
 Phases (each one passes or the script exits non-zero; nothing is caught):
   1. device: requires CUDA, prints `nvidia-smi` name and power limit;
-  2. build: compiles the epipolar-search kernel (csrc/, nvcc, sm_90a);
-  3. kernel vs plain: runs the kernel and its plain PyTorch version on a
-     rendered 1216x352 stereo pair with seeded lanes at the slice's shapes
-     (temporal N=5120, stereo N=2560 in both directions), checks agreement
-     and times both (CUDA events, median of 20 synchronized repetitions);
+  2. build: compiles both epipolar-search kernels (csrc/, nvcc, sm_90a, one
+     compiler process per source, started together);
+  3. resident kernel vs plain: runs the kernel and its plain PyTorch
+     version on a rendered 1216x352 stereo pair with seeded lanes at the
+     slice's shapes (temporal N=5120, stereo N=2560 in both directions),
+     checks agreement and times both (CUDA events, median of 20
+     synchronized repetitions); the slab kernel is held against it and
+     timed on the same lanes;
   4. slice: renders 40 frames of the bench corridor (sequence 0) on the
      card, runs the port's FullSystem over them at the KITTI-resolution
      bench settings, and checks: not lost, finite poses, the kernel was
      launched, a frame marginalization ran, KF count and ATE inside the
-     bounds recorded in PERF.md.
-The last two lines are the kernel report and the device report (JSON).
-With SDSO_PROFILE=1 the slice also prints its per-section host times and a
-torch.profiler summary of its last frames (device busy share, top kernels).
+     bounds recorded in PERF.md;
+  5. slab kernel vs plain, and vs the resident kernel, on a rendered
+     2048x1024 pair (over the 6 MB gate) at max_pix_search 0.027 (S = 86):
+     temporal N=5120, stereo N=2560 both ways, stereo N=8192 (what
+     stereo_match gives it); both kernels timed there;
+  6. stereo_match on that pair: went through the slab kernel, enough good
+     points, inverse depth against the renderer's ground truth;
+  7. the main path as bench.py drives it: FullSystem over frames 0-11,
+     GraphSystem.from_full_system, add_frame over frames 12-39: not lost,
+     finite poses, the resident kernel launched, a keyframe and a frame
+     marginalization decided by the graph path, KF count and ATE inside
+     the bounds recorded in PERF.md.
+Every kernel launch counter is set to 0 just before a path is driven and
+read just after. The last two lines are the kernel report and the device
+report (JSON). With SDSO_PROFILE=1 the two odometry paths also print their
+per-section host times and a torch.profiler summary of their last frames
+(device busy share, top kernels).
 """
 
 from __future__ import annotations
@@ -37,6 +53,17 @@ PKG = ROOT / "stereo_dso_g2o_tpu_torch"
 
 W_, H_, BASE, N_FRAMES, STEP = 1216, 352, 0.54, 40, 0.30
 N_TEMPORAL, N_STEREO = 5120, 2560
+BOOT = 12  # bench.py: frames the host FullSystem bootstraps before the freeze
+# the stereo-match configuration: a 2048x1024 pair, the KITTI settings scaled
+# by the pixel count (x4.9, rounded); max_pix_search 0.027 gives S = 86
+W2, H2, MAX_PIX_SEARCH2, N_MATCH = 2048, 1024, 0.027, 8192
+MATCH_DENSITY, MATCH_GOOD_MIN, MATCH_REL_MAX = 6000.0, 1500, 0.03
+# JAX package, bootstrap 12 + GraphSystem 28 frames on CPU, same frames and
+# settings (tests/_torch_parity.py, PERF.md): 10 KFs, ATE 0.0279 m.
+GRAPH_KF_RANGE = (7, 13)
+GRAPH_ATE_MAX = 2 * 0.0279 + 0.01
+# published peaks of one H100 SXM: the roofline a kernel's bound is taken from
+HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12
 # JAX package, FullSystem on CPU, same 40 frames and settings (PERF.md):
 # 10 KFs, ATE 0.0334 m. Bounds: KF count within +-3, ATE <= 2x + 0.01 m.
 KF_RANGE = (7, 13)
@@ -151,6 +178,53 @@ def compare(out_k, out_p, name):
     return uv_err
 
 
+def bound_ms(H, W, channels, c, gn_iters):
+    """The least time the card could take for one search on these inputs:
+    bytes (the image the kernel's function needs, the five (N, 8) operands
+    and the (N, 8) output, each once) over the memory rate, against the
+    operations these lanes need (their valid steps, not S) over the f32
+    peak. Per (step, pixel): 2 adds for the position, a 4-tap bilinear (2
+    floors, 2 subs, 8 mul/add for the weights, 7 for the sum), residual and
+    Huber energy (9): 30; per GN iteration and pixel: three such samples
+    with differenced gradients and the step: 80."""
+    n = c["scal"].shape[0]
+    steps = float(torch.clamp(c["scal"][:, 4], 0, c["S"]).sum())
+    nbytes = 4 * (H * W * channels + 5 * n * 8 + n * 8)
+    flops = 8 * (30 * steps + 80 * gn_iters * n)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return 1000.0 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_pair(kernel, plain):
+    """CUDA-event medians in the order plain, kernel, kernel, plain; the
+    lower of each pair."""
+    p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)
+    return min(k1, k2), min(p1, p2), (k1, k2, p1, p2)
+
+
+def run_odometry(step, n_from, n_to, is_lost, label, prof_frames):
+    """Drive frames n_from..n_to-1 through `step(i)`, each synchronized;
+    with SDSO_PROFILE=1 trace the last `prof_frames`. Returns (frame ms
+    list, profiler or None)."""
+    from stereo_dso_g2o_tpu_torch.utils.timing import PROF
+
+    traced = contextlib.ExitStack()
+    prof = None
+    frame_ms = []
+    for i in range(n_from, n_to):
+        if PROF.enabled and i == n_to - prof_frames:
+            prof = traced.enter_context(torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]))
+        t1 = time.perf_counter()
+        step(i)
+        torch.cuda.synchronize()
+        frame_ms.append(1000.0 * (time.perf_counter() - t1))
+        if is_lost():
+            fail(f"{label}: lost at frame {i}")
+    traced.close()
+    return frame_ms, prof
+
+
 def print_profile(prof, wall_ms):
     """Host sections of the whole run, then the device's busy share and
     top kernels over the traced frames."""
@@ -193,16 +267,21 @@ def main() -> int:
     from stereo_dso_g2o_tpu_torch.ops import trace_cuda as tk
 
     t0 = time.perf_counter()
-    lib = tk.build()
-    print(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {tk.BUILD_SECONDS if tk.BUILD_SECONDS is not None else 'cached'})")
-    ptxas = tk.BUILD_DIR / "ptxas.log"
-    if ptxas.exists():
-        for line in ptxas.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {line.strip()}")
+    libs = tk.build()
+    print(f"[build] {len(libs)} kernels in {time.perf_counter() - t0:.1f} s")
+    for name, lib in libs.items():
+        secs = tk.BUILD_SECONDS.get(name)
+        print(f"[build] {name}: {lib.name}, nvcc "
+              f"{f'{secs:.1f} s' if secs is not None else 'cached'}")
+        ptxas = tk.BUILD_DIR / f"ptxas_{name}.log"
+        if ptxas.exists():
+            for line in ptxas.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"[build] {name}: {line.strip()}")
 
-    # ---- 3. kernel vs plain at the slice's shapes ----
+    # ---- 3. resident kernel vs plain at the slice's shapes ----
+    import dataclasses
+
     from stereo_dso_g2o_tpu_torch.io import synthetic
     from stereo_dso_g2o_tpu_torch.ops.pyramid import build_pyramid
 
@@ -225,59 +304,69 @@ def main() -> int:
     gn = dict(huber_th=float(settings.huber_th), gn_iters=int(settings.trace_gn_iterations),
               gn_threshold=float(settings.trace_gn_threshold),
               radius=int(settings.min_trace_test_radius))
+    timing = {}  # (kernel, size, case) -> (kernel ms, plain ms)
+    max_err = {"epipolar_search": 0.0, "epipolar_search_slab": 0.0}
+    bounds = {}
+
+    def check_and_time(size, cases, first, first_ref, second, second_ref):
+        """`first` against its plain version and `second` against `first`,
+        on every case; both timed beside their plain versions."""
+        H, W = size
+        for name, c in cases:
+            args = (c["dI"], c["scal"], c["color"], c["weights"], c["patx"], c["paty"])
+            kw = dict(S=c["S"], edge=c["edge"], **gn)
+            fns = {f.__name__: f for f in (first, first_ref, second, second_ref)}
+            out = {k: f(*args, **kw) for k, f in fns.items()}
+            torch.cuda.synchronize()
+            tag = f"{W}x{H} {name}"
+            err = compare(out[first.__name__], out[first_ref.__name__],
+                          f"{first.__name__} vs plain, {tag}")
+            max_err[first.__name__] = max(max_err[first.__name__], err)
+            err = compare(out[second.__name__], out[second_ref.__name__],
+                          f"{second.__name__} vs plain, {tag}")
+            max_err[second.__name__] = max(max_err[second.__name__], err)
+            compare(out[second.__name__], out[first.__name__],
+                    f"{second.__name__} vs {first.__name__}, {tag}")
+            for kern, ref in ((first, first_ref), (second, second_ref)):
+                k_ms, p_ms, raw = time_pair(lambda: kern(*args, **kw), lambda: ref(*args, **kw))
+                timing[(kern.__name__, f"{W}x{H}", name)] = (k_ms, p_ms)
+                channels = 3 if kern is tk.epipolar_search else 1
+                bounds[(kern.__name__, f"{W}x{H}", name)] = bound_ms(H, W, channels, c, gn["gn_iters"])
+                b_ms, b_by = bounds[(kern.__name__, f"{W}x{H}", name)]
+                print(f"[kernel] {kern.__name__} {tag}: S={c['S']} kernel {raw[0]:.4f}/{raw[1]:.4f} ms, "
+                      f"plain {raw[2]:.4f}/{raw[3]:.4f} ms (median of 20, order p,k,k,p); "
+                      f"bound {b_ms:.5f} ms by {b_by}, share {100 * b_ms / k_ms:.1f} %")
+
     cases = [
         ("temporal N=5120", make_lanes(settings, dIL, dIR, N_TEMPORAL, False, 0.0, 1)),
         ("stereo L->R N=2560", make_lanes(settings, dIL, dIR, N_STEREO, True, -1.0, 2)),
         ("stereo R->L N=2560", make_lanes(settings, dIR, dIL, N_STEREO, True, 1.0, 3)),
     ]
-    timing = {}
-    max_err = 0.0
-    for name, c in cases:
-        args = (c["dI"], c["scal"], c["color"], c["weights"], c["patx"], c["paty"])
-        kw = dict(S=c["S"], edge=c["edge"], **gn)
-        out_k = tk.epipolar_search(*args, **kw)
-        out_p = tk.epipolar_search_ref(*args, **kw)
-        torch.cuda.synchronize()
-        max_err = max(max_err, compare(out_k, out_p, name))
-        ms_p1 = cuda_ms(lambda: tk.epipolar_search_ref(*args, **kw))
-        ms_k1 = cuda_ms(lambda: tk.epipolar_search(*args, **kw))
-        ms_k2 = cuda_ms(lambda: tk.epipolar_search(*args, **kw))
-        ms_p2 = cuda_ms(lambda: tk.epipolar_search_ref(*args, **kw))
-        timing[name] = (min(ms_k1, ms_k2), min(ms_p1, ms_p2))
-        print(f"[kernel] {name}: S={c['S']} kernel {ms_k1:.4f}/{ms_k2:.4f} ms, "
-              f"plain {ms_p1:.4f}/{ms_p2:.4f} ms (median of 20, order p,k,k,p)")
+    check_and_time((H_, W_), cases, tk.epipolar_search, tk.epipolar_search_ref,
+                   tk.epipolar_search_slab, tk.epipolar_search_slab_ref)
 
     # ---- 4. the slice: FullSystem over 40 frames ----
+    from stereo_dso_g2o_tpu_torch.frontend import graph_system as tgs
     from stereo_dso_g2o_tpu_torch.frontend.full_system import FullSystem
     from stereo_dso_g2o_tpu_torch.io import trajectory
     from stereo_dso_g2o_tpu_torch.models.camera import make_calib
-
     from stereo_dso_g2o_tpu_torch.utils.timing import PROF
 
+    launches = {}  # path -> (resident launches, slab launches)
+    gt = [np.linalg.inv(T) for T in poses_cw]
     calib = make_calib(K[0, 0], K[1, 1], K[0, 2], K[1, 2], BASE, W_, H_, n_levels=6, device=dev)
     fs = FullSystem(calib, settings, device=dev)
     # SDSO_PROFILE=1: per-section host times (each section synchronizes, so
     # the frame times of such a run are not the steady-state ones) and a
     # torch.profiler trace of the last PROFILE_FRAMES frames
-    traced = contextlib.ExitStack()
     tk.reset_launches()
-    frame_ms = []
     t_all = time.perf_counter()
-    for i in range(N_FRAMES):
-        if PROF.enabled and i == N_FRAMES - PROFILE_FRAMES:
-            prof = traced.enter_context(torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]))
-        t1 = time.perf_counter()
-        fs.add_frame(lefts[i], rights[i], i, timestamp=0.1 * i)
-        torch.cuda.synchronize()
-        frame_ms.append(1000.0 * (time.perf_counter() - t1))
-        if fs.is_lost:
-            fail(f"lost at frame {i}")
-    traced.close()
+    frame_ms, prof = run_odometry(
+        lambda i: fs.add_frame(lefts[i], rights[i], i, timestamp=0.1 * i),
+        0, N_FRAMES, lambda: fs.is_lost, "slice", PROFILE_FRAMES)
     total_s = time.perf_counter() - t_all
-    launches = tk.LAUNCHES
+    launches["full_system"] = (tk.LAUNCHES, tk.LAUNCHES_SLAB)
     traj = fs.trajectory()
-    gt = [np.linalg.inv(T) for T in poses_cw]
     if len(traj) != N_FRAMES or not all(np.isfinite(T).all() for T in traj):
         fail("non-finite or missing poses")
     ate = trajectory.ate_rmse(traj, gt)
@@ -287,11 +376,13 @@ def main() -> int:
           f"{float(np.median(steady)):.1f} mean {float(np.mean(steady)):.1f} (frames 2..), "
           f"first two {frame_ms[0]:.0f}/{frame_ms[1]:.0f} ms")
     print(f"[slice] KFs {n_kf} at frames {[s.id for s in fs.kf_shells]}, ATE {ate:.5f} m, "
-          f"frame marginalizations {fs.n_frame_marginalizations}, kernel launches {launches}, "
+          f"frame marginalizations {fs.n_frame_marginalizations}, kernel launches "
+          f"{launches['full_system']}, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
     if PROF.enabled:
         print_profile(prof, sum(frame_ms[-PROFILE_FRAMES:]))
-    if launches <= 0:
+        PROF.reset()
+    if launches["full_system"][0] <= 0:
         fail("the epipolar kernel was not launched on the main path")
     if fs.n_frame_marginalizations < 1:
         fail("no frame marginalization ran")
@@ -299,21 +390,155 @@ def main() -> int:
         fail(f"KF count {n_kf} outside {KF_RANGE}")
     if not ate <= ATE_MAX:
         fail(f"ATE {ate} > {ATE_MAX}")
+    del fs
 
-    t_ms, p_ms = timing["temporal N=5120"]
-    s_ms, s_pms = timing["stereo L->R N=2560"]
-    report = {"kernels": [{
-        "name": "epipolar_search",
-        "route": "cuda",
-        "source": "stereo_dso_g2o_tpu_torch/csrc/epipolar_search.cu",
-        "replaces": "stereo_dso_g2o_tpu/ops/trace_pallas.py:449",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": t_ms,
-        "plain_ms": p_ms,
-        "ms_stereo": s_ms,
-        "plain_ms_stereo": s_pms,
-    }]}
+    # ---- 5. slab kernel vs plain and vs the resident kernel, 2048x1024 ----
+    settings2 = dataclasses.replace(
+        settings, max_pix_search=MAX_PIX_SEARCH2, immature_cap=N_MATCH,
+        desired_immature_density=MATCH_DENSITY)
+    K2 = synthetic.default_K(W2, H2, fov_deg=80.0)
+    pair_poses = np.stack([poses_cw[0], synthetic.stereo_pose(poses_cw[0], BASE)])
+    t0 = time.perf_counter()
+    imgs2, ideps2 = synthetic.render_multi_batch(scene, K2, W2, H2, pair_poses, device=dev)
+    torch.cuda.synchronize()
+    print(f"[render] one stereo pair {W2}x{H2} with inverse depth on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not tk.uses_slab_route(H2, W2) or tk.uses_slab_route(H_, W_):
+        fail("the route gate does not send 2048x1024 to the slab kernel and 1216x352 to the other")
+    dIL2 = build_pyramid(imgs2[0], 1)[0][0]
+    dIR2 = build_pyramid(imgs2[1], 1)[0][0]
+    cases2 = [
+        ("temporal N=5120", make_lanes(settings2, dIL2, dIR2, N_TEMPORAL, False, 0.0, 4)),
+        ("stereo L->R N=2560", make_lanes(settings2, dIL2, dIR2, N_STEREO, True, -1.0, 5)),
+        ("stereo R->L N=2560", make_lanes(settings2, dIR2, dIL2, N_STEREO, True, 1.0, 6)),
+        (f"stereo L->R N={N_MATCH}", make_lanes(settings2, dIL2, dIR2, N_MATCH, True, -1.0, 7)),
+    ]
+    check_and_time((H2, W2), cases2, tk.epipolar_search_slab, tk.epipolar_search_slab_ref,
+                   tk.epipolar_search, tk.epipolar_search_ref)
+
+    # ---- 6. stereo_match at full width ----
+    from stereo_dso_g2o_tpu_torch.frontend.stereo_match import stereo_match
+
+    calib2 = make_calib(K2[0, 0], K2[1, 1], K2[0, 2], K2[1, 2], BASE, W2, H2, n_levels=6,
+                        device=dev)
+    tk.reset_launches()
+    result, imap = stereo_match(imgs2[0], imgs2[1], calib2, settings=settings2, device=dev)
+    torch.cuda.synchronize()
+    launches["stereo_match"] = (tk.LAUNCHES, tk.LAUNCHES_SLAB)
+    match_ms = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        stereo_match(imgs2[0], imgs2[1], calib2, settings=settings2, device=dev)
+        torch.cuda.synchronize()
+        match_ms.append(1000.0 * (time.perf_counter() - t1))
+    good = result.good
+    n_good, n_sel = int(good.sum()), int(result.valid.sum())
+    iu, iv = result.us.long(), result.vs.long()
+    gt_id = ideps2[0][iv, iu]
+    rel = (torch.abs(result.idepth - gt_id) / gt_id)[good]
+    med_rel = float(rel.median()) if n_good else float("nan")
+    print(f"[stereo_match] {W2}x{H2}: {n_sel} selected, {n_good} good, median relative "
+          f"inverse-depth error {med_rel:.5f}, over 0.2: {float((rel > 0.2).float().mean()):.4f}; "
+          f"ms/call median {float(np.median(match_ms)):.1f} (of 5, synchronized); "
+          f"kernel launches {launches['stereo_match']}")
+    if launches["stereo_match"][1] < 2:
+        fail("stereo_match did not go through the slab kernel")
+    if launches["stereo_match"][0] != 0:
+        fail("stereo_match launched the resident kernel on an image over the gate")
+    if n_good < MATCH_GOOD_MIN:
+        fail(f"stereo_match: {n_good} good points < {MATCH_GOOD_MIN}")
+    if not med_rel < MATCH_REL_MAX:
+        fail(f"stereo_match: median relative inverse-depth error {med_rel} >= {MATCH_REL_MAX}")
+    if not bool((result.idepth_min[good] <= result.idepth_max[good]).all()):
+        fail("stereo_match: idepth_min > idepth_max on an accepted point")
+    if not bool((imap[iv[good], iu[good], 0] == result.idepth[good]).all()):
+        fail("stereo_match: the map does not hold the estimates at the selected pixels")
+    if not bool(torch.isfinite(imap).all()) or imap.shape != (H2, W2, 3):
+        fail("stereo_match: map not finite or of the wrong shape")
+
+    # ---- 7. the main path: FullSystem bootstrap, freeze, GraphSystem ----
+    torch.cuda.reset_peak_memory_stats()
+    fs = FullSystem(calib, settings, device=dev)
+    for i in range(BOOT):
+        fs.add_frame(lefts[i], rights[i], i, timestamp=0.1 * i)
+    gs = tgs.GraphSystem.from_full_system(fs)
+    kfs_boot = len(gs.kf_shells)
+    tk.reset_launches()
+    tgs.reset_host_reads()
+    PROF.reset()
+
+    t_all = time.perf_counter()
+    frame_ms, prof = run_odometry(
+        lambda i: gs.add_frame(lefts[i], rights[i], i, timestamp=0.1 * i),
+        BOOT, N_FRAMES, lambda: gs.is_lost, "graph", PROFILE_FRAMES)
+    gs.flush()
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t_all
+    launches["graph_system"] = (tk.LAUNCHES, tk.LAUNCHES_SLAB)
+    reads = tgs.HOST_READS
+    traj = gs.trajectory()
+    if gs.is_lost:
+        fail("graph: lost")
+    if len(traj) != N_FRAMES or not all(np.isfinite(T).all() for T in traj):
+        fail("graph: non-finite or missing poses")
+    ate = trajectory.ate_rmse(traj, gt)
+    kf_frames = [s.id for s in gs.kf_shells]
+    n_kf = len(kf_frames)
+    graph_kfs = [f for f in kf_frames if f >= BOOT]
+    steady = [(i, ms) for i, ms in zip(range(BOOT, N_FRAMES), frame_ms) if i >= BOOT + 2]
+    kf_ms = [ms for i, ms in steady if i in graph_kfs]
+    nonkf_ms = [ms for i, ms in steady if i not in graph_kfs]
+    print(f"[graph] bootstrap {BOOT} + {N_FRAMES - BOOT} graph frames in {total_s:.1f} s; ms/frame "
+          f"median {float(np.median([m for _, m in steady])):.1f} mean "
+          f"{float(np.mean([m for _, m in steady])):.1f} (frames {BOOT + 2}..{N_FRAMES - 1}); "
+          f"non-KF median {float(np.median(nonkf_ms)):.1f}, KF frames "
+          f"{[round(m, 1) for m in kf_ms]} ms")
+    print(f"[graph] KFs {n_kf} at frames {kf_frames} ({len(graph_kfs)} by the graph path), "
+          f"ATE {ate:.5f} m, frames marginalized by the graph path {gs.n_frame_marginalizations}, kernel "
+          f"launches {launches['graph_system']}, host reads of the frame program "
+          f"{reads} ({reads / (N_FRAMES - BOOT):.2f}/frame), "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    if PROF.enabled:
+        print_profile(prof, sum(frame_ms[-PROFILE_FRAMES:]))
+    if launches["graph_system"][0] <= 0:
+        fail("graph: the epipolar kernel was not launched")
+    if launches["graph_system"][1] != 0:
+        fail("graph: the slab kernel ran on an image under the gate")
+    if n_kf <= kfs_boot:
+        fail("graph: no keyframe was decided by the graph path")
+    if gs.n_frame_marginalizations < 1:
+        fail("graph: no frame was marginalized by the graph path")
+    if not GRAPH_KF_RANGE[0] <= n_kf <= GRAPH_KF_RANGE[1]:
+        fail(f"graph: KF count {n_kf} outside {GRAPH_KF_RANGE}")
+    if not ate <= GRAPH_ATE_MAX:
+        fail(f"graph: ATE {ate} > {GRAPH_ATE_MAX}")
+
+    # ---- report: each kernel at the shape its main path gives it ----
+    def row(name, source, replaces, key, col):
+        k_ms, p_ms = timing[key]
+        b_ms, b_by = bounds[key]
+        by_path = {path: n[col] for path, n in launches.items()}
+        if sum(by_path.values()) <= 0:
+            fail(f"{name} was launched by no path")
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max_err[name], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,  # no single PyTorch call computes the search
+            "shape": " ".join(key[1:]),
+            "times": {" ".join(k[1:]): {"ms": v[0], "plain_ms": v[1], "bound_ms": bounds[k][0]}
+                      for k, v in timing.items() if k[0] == name},
+        }
+
+    report = {"kernels": [
+        row("epipolar_search", "stereo_dso_g2o_tpu_torch/csrc/epipolar_search.cu",
+            "stereo_dso_g2o_tpu/ops/trace_pallas.py:449",
+            ("epipolar_search", f"{W_}x{H_}", "temporal N=5120"), 0),
+        row("epipolar_search_slab", "stereo_dso_g2o_tpu_torch/csrc/epipolar_search_slab.cu",
+            "stereo_dso_g2o_tpu/ops/trace_pallas.py:194",
+            ("epipolar_search_slab", f"{W2}x{H2}", f"stereo L->R N={N_MATCH}"), 1),
+    ]}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,19 +20,23 @@ def _set_row(x, idx, val):
     return out
 
 
-def insert_frame(win: W.Window, slot: int, T_w2c, aff, exposure: float,
+def insert_frame(win: W.Window, slot: int, T_w2c, aff, exposure,
                  frame_id: int, energy_th: float = 8 * 12.0 * 12.0) -> W.Window:
     """Insert a keyframe at `slot` with FEJ pose T_w2c (setEvalPT_scaled:
-    pose part of the state zero, ab part set, state_zero = state)."""
+    pose part of the state zero, ab part set, state_zero = state). T_w2c,
+    aff and exposure are host values (numpy, floats) or tensors on the
+    window's device; tensors are not read back."""
     state = torch.zeros(8, dtype=win.state.dtype, device=win.device)
-    state[6] = float(aff[0]) / SCALE_A
-    state[7] = float(aff[1]) / SCALE_B
+    state[6] = aff[0] / SCALE_A
+    state[7] = aff[1] / SCALE_B
+    if not isinstance(T_w2c, torch.Tensor):
+        T_w2c = np.asarray(T_w2c, np.float32)
     return win.replace(
         frame_valid=_set_row(win.frame_valid, slot, True),
-        evalPT=_set_row(win.evalPT, slot, np.asarray(T_w2c, np.float32)),
+        evalPT=_set_row(win.evalPT, slot, T_w2c),
         state=_set_row(win.state, slot, state),
         state_zero=_set_row(win.state_zero, slot, state),
-        ab_exposure=_set_row(win.ab_exposure, slot, float(exposure)),
+        ab_exposure=_set_row(win.ab_exposure, slot, exposure),
         frame_energy_th=_set_row(win.frame_energy_th, slot, float(energy_th)),
         frame_id=_set_row(win.frame_id, slot, int(frame_id)),
     )

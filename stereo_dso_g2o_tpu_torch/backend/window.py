@@ -123,7 +123,7 @@ class Window:
         return self.state_zero[:, 6:8] * self.state_scale()[None, 6:8]
 
 
-def empty_window(F: int, NP: int, c_value, dtype=torch.float32, device="cpu") -> Window:
+def empty_window(F: int, NP: int, c_value, device, dtype=torch.float32) -> Window:
     D = CPARS + 8 * F
 
     def z(shape, dt=dtype):

@@ -3,7 +3,8 @@
 The caller turns the JAX pytrees into plain numpy (`np.asarray` over the
 leaves, e.g. `{f.name: np.asarray(getattr(win, f.name)) for f in
 dataclasses.fields(win)}`); this module never sees jax. With it, parity
-tests run BA and the keyframe branch on real warmed state.
+tests run BA and the keyframe branch on real warmed state. Every function
+here takes `device=None`, the GPU; the CPU tests pass `device="cpu"`.
 """
 
 from __future__ import annotations
@@ -15,9 +16,11 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from stereo_dso_g2o_tpu_torch import default_device
 from stereo_dso_g2o_tpu_torch.backend.window import Window
 from stereo_dso_g2o_tpu_torch.config import Settings
 from stereo_dso_g2o_tpu_torch.frontend.full_system import FrameShell, FullSystem
+from stereo_dso_g2o_tpu_torch.frontend.graph_system import GraphShell, GraphState, GraphSystem
 from stereo_dso_g2o_tpu_torch.frontend.immature import ImmatureSet
 from stereo_dso_g2o_tpu_torch.models.camera import Calib
 
@@ -28,7 +31,7 @@ def _tensor(x, device):
         a = a.astype(np.float32)
     elif a.dtype == np.int64:
         a = a.astype(np.int32)
-    return torch.as_tensor(np.ascontiguousarray(a), device=device)
+    return torch.as_tensor(np.array(a, order="C"), device=device)  # keeps 0-d arrays 0-d
 
 
 def settings_from_fields(fields: Dict[str, Any]) -> Settings:
@@ -38,7 +41,8 @@ def settings_from_fields(fields: Dict[str, Any]) -> Settings:
     return Settings(**{k: v for k, v in fields.items() if k in names})
 
 
-def calib_from_numpy(c, baseline, w: int, h: int, n_levels: int, device="cpu") -> Calib:
+def calib_from_numpy(c, baseline, w: int, h: int, n_levels: int, device=None) -> Calib:
+    device = default_device(device)
     return Calib(
         c=_tensor(np.asarray(c, np.float32), device),
         baseline=_tensor(np.float32(baseline), device),
@@ -47,18 +51,20 @@ def calib_from_numpy(c, baseline, w: int, h: int, n_levels: int, device="cpu") -
     )
 
 
-def window_from_numpy(arrays: Dict[str, np.ndarray], device="cpu") -> Window:
+def window_from_numpy(arrays: Dict[str, np.ndarray], device=None) -> Window:
+    device = default_device(device)
     return Window(**{f.name: _tensor(arrays[f.name], device) for f in dataclasses.fields(Window)})
 
 
-def immature_from_numpy(arrays: Dict[str, np.ndarray], device="cpu") -> ImmatureSet:
+def immature_from_numpy(arrays: Dict[str, np.ndarray], device=None) -> ImmatureSet:
+    device = default_device(device)
     return ImmatureSet(
         **{f.name: _tensor(arrays[f.name], device) for f in dataclasses.fields(ImmatureSet)}
     )
 
 
 def full_system_from_snapshot(snap: Dict[str, Any], calib: Calib, settings: Settings,
-                              device="cpu", uniform=None) -> FullSystem:
+                              device=None, uniform=None) -> FullSystem:
     """A port FullSystem carrying the JAX FullSystem's state.
 
     snap keys: `win`, `imm` (numpy field dicts), `tracker_ref` (per-level
@@ -70,6 +76,7 @@ def full_system_from_snapshot(snap: Dict[str, Any], calib: Calib, settings: Sett
     `slot_meta`, `kf_out_count`, `current_min_act_dist`,
     `last_coarse_rmse`, `next_kf_id`, `initialized`, `is_lost`,
     `init_failed`, `selector_potential`, `selector_calls`."""
+    device = default_device(device)
     fs = FullSystem(calib, settings, device=device, uniform=uniform)
     fs.win = window_from_numpy(snap["win"], device)
     fs.imm = immature_from_numpy(snap["imm"], device)
@@ -98,3 +105,43 @@ def full_system_from_snapshot(snap: Dict[str, Any], calib: Calib, settings: Sett
     fs.selector.current_potential = int(snap["selector_potential"])
     fs.selector._calls = int(snap["selector_calls"])
     return fs
+
+
+def graph_state_from_numpy(snap: Dict[str, Any], device=None) -> GraphState:
+    """A port GraphState from the JAX GraphState given as numpy: `win`,
+    `imm` (field dicts), `ref` (per-level 5-tuples), `dI0_slots`
+    (F, H, W, 3) and `scalars` (every other GraphState field by name)."""
+    device = default_device(device)
+    sc = {k: _tensor(v, device) for k, v in snap["scalars"].items()}
+    return GraphState(
+        win=window_from_numpy(snap["win"], device),
+        imm=immature_from_numpy(snap["imm"], device),
+        ref=tuple(tuple(_tensor(x, device) for x in lvl) for lvl in snap["ref"]),
+        dI0_slots=_tensor(snap["dI0_slots"], device),
+        **sc,
+    )
+
+
+def graph_system_from_snapshot(snap: Dict[str, Any], calib: Calib, settings: Settings,
+                               device=None, uniform=None) -> GraphSystem:
+    """A port GraphSystem carrying the JAX GraphSystem's state. snap keys:
+    those of `graph_state_from_numpy`, plus `history` (GraphShell field
+    dicts with `is_kf` and `T_cw`), `kf_shells` (the same, by keyframe id:
+    the JAX system keeps them apart from `history`), `slot_frame_id`, `pot`,
+    `is_lost`."""
+    device = default_device(device)
+
+    def shell(h):
+        g = GraphShell(h["id"], h["timestamp"], np.array(h["T_cam_to_ref"]), h["ref_kf_id"],
+                       np.array(h["aff"]))
+        g.is_kf = bool(h["is_kf"])
+        g.T_cw = None if h["T_cw"] is None else np.array(h["T_cw"])
+        return g
+
+    gs = GraphSystem(
+        calib, settings, graph_state_from_numpy(snap, device),
+        [shell(h) for h in snap["history"]], [shell(h) for h in snap["kf_shells"]],
+        snap["slot_frame_id"], pot=int(snap["pot"]), uniform=uniform,
+    )
+    gs.is_lost = bool(snap["is_lost"])
+    return gs

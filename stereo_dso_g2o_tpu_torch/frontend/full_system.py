@@ -25,6 +25,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from stereo_dso_g2o_tpu_torch import default_device
 from stereo_dso_g2o_tpu_torch.backend import ba, builder
 from stereo_dso_g2o_tpu_torch.backend import window as W
 from stereo_dso_g2o_tpu_torch.config import Settings, default_settings
@@ -55,6 +56,17 @@ class FrameShell:
     T_cw: Optional[np.ndarray] = None  # camToWorld (KFs: updated after BA)
 
 
+def device_image(x, device):
+    """An (H, W) image (numpy or tensor, uint8 or float) as a tensor on
+    `device`; numpy floats become float32."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    x = np.asarray(x)
+    if x.dtype != np.uint8:
+        x = x.astype(np.float32)
+    return torch.as_tensor(x, device=device)
+
+
 def _f32(x, device):
     return torch.tensor(float(x), dtype=torch.float32, device=device)
 
@@ -62,9 +74,9 @@ def _f32(x, device):
 class FullSystem:
     def __init__(self, calib: Calib, settings: Settings = default_settings(),
                  device=None, uniform: Optional[Callable] = None):
-        """device: where every tensor lives (defaults to calib.c's device);
-        uniform: the selector's thinning draw (see ops/selector.py)."""
-        self.device = torch.device(device) if device is not None else calib.device
+        """device: where every tensor lives (None: the GPU; calib moves
+        there); uniform: the selector's thinning draw (see ops/selector.py)."""
+        self.device = default_device(device)
         if calib.device != self.device:
             calib = dataclasses.replace(
                 calib, c=calib.c.to(self.device), baseline=calib.baseline.to(self.device)
@@ -109,14 +121,6 @@ class FullSystem:
             for s in range(self.win.F)
         ])
 
-    def _image(self, x):
-        if isinstance(x, torch.Tensor):
-            return x.to(self.device)
-        x = np.asarray(x)
-        if x.dtype != np.uint8:
-            x = x.astype(np.float32)
-        return torch.as_tensor(x, device=self.device)
-
     def add_frame(self, left, right, frame_id: int, timestamp: float = 0.0,
                   exposure: float = 1.0, exposure_right: float = 1.0):
         """FullSystem::addActiveFrame. left/right: (H, W) uint8 or float
@@ -124,8 +128,8 @@ class FullSystem:
         if self.is_lost:
             return
         n_lvl = self.n_levels
-        left_dev = self._image(left)
-        right_dev = self._image(right)
+        left_dev = device_image(left, self.device)
+        right_dev = device_image(right, self.device)
 
         if not self.initialized:
             dIpL, asgL = build_pyramid(left_dev.to(torch.float32), n_lvl)
@@ -657,3 +661,29 @@ class FullSystem:
         """camToWorld per frame, composed through the final keyframe poses
         (printResult, FullSystem.cpp:236-285)."""
         return [self._shell_T_cw(shell) for shell in self.history]
+
+
+def window_point_cloud(win, calib, slot_frame_id):
+    """World-space 3D positions of a window's active points (shared by
+    FullSystem and GraphSystem; KeyFrameDisplay.cpp:102-173). numpy dict:
+    xyz (n, 3), idepth (n,), host_kf_id (n,)."""
+    from stereo_dso_g2o_tpu_torch.config import SCALE_IDEPTH
+
+    def host(x, dtype=None):
+        return np.asarray(x.cpu().numpy(), dtype)
+
+    sel = host(win.pt_status) == W.PT_ACTIVE
+    if not sel.any():
+        return {"xyz": np.zeros((0, 3)), "idepth": np.zeros(0), "host_kf_id": np.zeros(0, int)}
+    u = host(win.pt_u, np.float64)[sel]
+    v = host(win.pt_v, np.float64)[sel]
+    idp = host(win.pt_idepth, np.float64)[sel] * SCALE_IDEPTH
+    hosts = host(win.pt_host)[sel]
+    ok = idp > 1e-6
+    u, v, idp, hosts = u[ok], v[ok], idp[ok], hosts[ok]
+    fx, fy, cx, cy = host(calib.c, np.float64)
+    Xc = np.stack([(u - cx) / fx / idp, (v - cy) / fy / idp, 1.0 / idp], -1)
+    c2w = np.linalg.inv(host(win.w2c(), np.float64))
+    xyz = np.einsum("nij,nj->ni", c2w[hosts][:, :3, :3], Xc) + c2w[hosts][:, :3, 3]
+    kf_ids = np.array([slot_frame_id.get(int(s_), -1) for s_ in hosts], int)
+    return {"xyz": xyz, "idepth": idp, "host_kf_id": kf_ids}

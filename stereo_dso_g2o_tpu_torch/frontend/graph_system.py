@@ -1,0 +1,839 @@
+"""The whole per-frame SLAM step as one frame program, keyframes included.
+
+Port of `stereo_dso_g2o_tpu/frontend/graph_system.py`. The JAX package
+jits `frame_auto` into one XLA program whose keyframe decision is a
+`lax.cond`; here the same program is a plain function that launches torch
+ops (and the epipolar kernels) eagerly, and the cond is a host branch on
+`need_kf`:
+
+  track (pyramids + cascade + retry ladder + speculative depth refinement)
+  ->  keyframe decision (FullSystem.cpp:1127-1152)
+  ->  non-KF: keep the speculative refinement (makeNonKeyFrame)
+      KF:     trace-on-KF, flagFramesForMarginalization policy
+              (FullSystemMarginalize.cpp:59-145), window insertion,
+              activation gate + 1-dof LM + insertion, windowed BA, final
+              linearization / flag / marginalize points, tracking-reference
+              rebuild, pixel selection + immature seeding, flagged-frame
+              marginalization.
+
+All state of a running sequence is one `GraphState` of tensors on one
+device; the policies (`kf_decision`, `flag_frames`, `motion_tries`, the
+activation-distance controller) are tensor code with no host read. The
+frame program itself reads the host where the modules under it take Python
+ints: the tracking reference's slot before tracking, `need_kf` after it,
+and on a keyframe one packed read of (free slot, keyframe id, selector
+salt, flagged frames). `HOST_READS` counts these.
+
+Deviations from the reference, as in the JAX module: one selection pass at
+the potential adapted from the previous keyframe's yield plus the random
+thinning; the saturation cutoff-repeat runs inside `tracker_ops.lm_level`;
+initialization stays on the host `FullSystem`, and
+`GraphSystem.from_full_system` freezes a warmed system into graph state.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from stereo_dso_g2o_tpu_torch.backend import ba, builder
+from stereo_dso_g2o_tpu_torch.backend import window as W
+from stereo_dso_g2o_tpu_torch.config import Settings, default_settings
+from stereo_dso_g2o_tpu_torch.frontend import frame_step as FS
+from stereo_dso_g2o_tpu_torch.frontend import immature as IMM
+from stereo_dso_g2o_tpu_torch.frontend.coarse_tracker import level_caps
+from stereo_dso_g2o_tpu_torch.frontend.full_system import device_image, window_point_cloud
+from stereo_dso_g2o_tpu_torch.models.camera import Calib
+from stereo_dso_g2o_tpu_torch.ops import selector as SEL
+from stereo_dso_g2o_tpu_torch.ops import tracker_ops
+from stereo_dso_g2o_tpu_torch.ops.pyramid import build_pyramid
+from stereo_dso_g2o_tpu_torch.utils import se3
+from stereo_dso_g2o_tpu_torch.utils.timing import PROF
+
+HOST_READS = 0  # device->host reads made by the frame program itself
+
+
+def reset_host_reads():
+    global HOST_READS
+    HOST_READS = 0
+
+
+def _host(x: torch.Tensor):
+    """One device->host read (a synchronization point); nested list/scalar."""
+    global HOST_READS
+    HOST_READS += 1
+    return x.tolist()
+
+
+class GraphState(NamedTuple):
+    """All device state of one running sequence (fixed shapes)."""
+
+    win: W.Window
+    imm: IMM.ImmatureSet
+    ref: Tuple  # tracker reference: per-level (u, v, idepth, color, ok)
+    ref_slot: torch.Tensor  # () int32 window slot of the tracking reference
+    ref_aff: torch.Tensor  # (2,)
+    ref_exposure: torch.Tensor  # ()
+    dI0_slots: torch.Tensor  # (F, H, W, 3) level-0 pyramids of the window KFs
+    last_rmse0: torch.Tensor  # () previous finest-level coarse RMSE
+    first_rmse: torch.Tensor  # () first KF-pair RMSE (KF-decision gate)
+    kf_out_count: torch.Tensor  # (F,) marginalized-point counters per slot
+    min_act_dist: torch.Tensor  # () activation distance controller
+    next_kf_id: torch.Tensor  # () int32
+    salt: torch.Tensor  # () int32 selector randomization counter
+    last_c2w: torch.Tensor  # (4, 4) camToWorld of the previous frame (frozen)
+    prev_c2w: torch.Tensor  # (4, 4) camToWorld of the frame before that
+    last_aff: torch.Tensor  # (2,) previous frame's affine estimate
+    # camToRef + reference identity of the two previous frames: the motion
+    # model recomposes their camToWorld with the CURRENT (post-BA) window
+    # pose of the reference instead of the frozen composite above
+    # (FullSystem.cpp:305-312)
+    last_rel: torch.Tensor  # (4, 4) camToRef of the previous frame
+    last_slot: torch.Tensor  # () its reference's window slot
+    last_fid: torch.Tensor  # () its reference's frame id (slot-reuse guard)
+    prev_rel: torch.Tensor  # (4, 4)
+    prev_slot: torch.Tensor  # ()
+    prev_fid: torch.Tensor  # ()
+
+
+class FrameBundle(NamedTuple):
+    """Small per-frame fetch: everything the host bookkeeping needs."""
+
+    T: torch.Tensor  # (4, 4) refToNew at the PRE-KF tracking reference
+    aff: torch.Tensor  # (2,)
+    residuals: torch.Tensor  # (L,)
+    flow: torch.Tensor  # (3,)
+    ok: torch.Tensor  # ()
+    sat_frac0: torch.Tensor  # ()
+    need_kf: torch.Tensor  # ()
+    slot: torch.Tensor  # () inserted window slot (-1 if non-KF)
+    flagged: torch.Tensor  # (F,) frames marginalized this step
+    w2c: torch.Tensor  # (F, 4, 4) post-step window poses
+    aff_all: torch.Tensor  # (F, 2)
+    frame_valid: torch.Tensor  # (F,)
+    frame_id: torch.Tensor  # (F,) per-slot KF ids
+    energy: torch.Tensor  # () BA energy (nan-able)
+    nres: torch.Tensor  # ()
+    sel_num: torch.Tensor  # () selector yield (for host pot adaptation)
+    n_active: torch.Tensor  # ()
+    # per-KF point-lifecycle stats (FullSystem.cpp:1646-1687): activated,
+    # immature alive, marginalized, dropped; zero on non-KF frames
+    n_activated: torch.Tensor  # ()
+    n_imm: torch.Tensor  # ()
+    n_marg: torch.Tensor  # ()
+    n_dropped: torch.Tensor  # ()
+    # keyframe-decision inputs (FullSystem.cpp:1127-1152): the weighted
+    # flow/affine score (KF when > 1) and the rmse-vs-firstCoarseRMSE pair
+    kf_delta: torch.Tensor  # ()
+    kf_rmse: torch.Tensor  # () level-0 coarse RMSE of this frame
+    kf_first_rmse: torch.Tensor  # () firstCoarseRMSE of the current ref
+
+
+# ---------------------------------------------------------------------------
+# policies (tensor code, no host read)
+# ---------------------------------------------------------------------------
+
+
+def kf_decision(track: FS.TrackOut, ref_aff, ref_exposure, new_exposure,
+                first_rmse, wh: float, settings: Settings):
+    """FullSystem::makeKeyFrame decision (FullSystem.cpp:1127-1152)."""
+    s = settings
+    a_rel = (
+        torch.exp(track.aff[0] - ref_aff[0]) * new_exposure
+        / torch.clamp(ref_exposure, min=1e-9)
+    )
+
+    def shift(k):
+        return torch.sqrt(torch.clamp(track.flow[k], min=0.0)) / wh
+
+    delta = (
+        s.kf_global_weight * s.max_shift_weight_t * shift(0)
+        + s.kf_global_weight * s.max_shift_weight_r * shift(1)
+        + s.kf_global_weight * s.max_shift_weight_rt * shift(2)
+        + s.kf_global_weight * s.max_affine_weight
+        * torch.abs(torch.log(torch.clamp(a_rel, min=1e-9)))
+    )
+    need = (delta > 1.0) | (2.0 * first_rmse < track.residuals[0])
+    return need, delta
+
+
+def flag_frames(win: W.Window, imm_valid, kf_out_count, settings: Settings):
+    """flagFramesForMarginalization (FullSystemMarginalize.cpp:59-145) on
+    tensors. Returns (F,) bool: candidates in frame-id order bounded by
+    (n_kfs - min_frames), then the distance-score rule when the window would
+    overflow."""
+    s = settings
+    F = win.F
+    dev = win.device
+    valid = win.frame_valid
+    fid = torch.where(valid, win.frame_id, torch.full_like(win.frame_id, 2**31 - 1))
+    n_kfs = torch.sum(valid)
+
+    active = win.pt_status == W.PT_ACTIVE
+    n_in = torch.zeros(F, dtype=torch.int32, device=dev).index_add_(
+        0, win.pt_host.long(), active.to(torch.int32)
+    ) + torch.sum(imm_valid, dim=1).to(torch.int32)
+    n_out = kf_out_count.to(torch.int32)
+
+    # affine gap vs the newest window KF (frameHessians.back())
+    back = torch.argmax(torch.where(valid, win.frame_id, torch.full_like(win.frame_id, -1)))
+    aff_all = win.aff_g2l()
+    exps = win.ab_exposure
+    a_rel = torch.exp(aff_all[:, 0] - aff_all[back, 0]) * exps / torch.clamp(exps[back], min=1e-9)
+    drop = (n_in < s.min_points_remaining * (n_in + n_out)) | (
+        torch.abs(torch.log(torch.clamp(a_rel, min=1e-12))) > s.max_log_aff_fac_in_window
+    )
+    candidate = valid & drop
+
+    # greedy in frame-id order, at most max(n_kfs - min_frames, 0) flags
+    order = torch.argsort(fid, stable=True)
+    cand_sorted = candidate[order]
+    rank = torch.cumsum(cand_sorted.to(torch.int32), 0) - 1  # rank among cands
+    allow = cand_sorted & (rank < torch.clamp(n_kfs - s.min_frames, min=0))
+    flagged = torch.zeros(F, dtype=torch.bool, device=dev)
+    flagged[order] = allow
+    n_flagged = torch.sum(flagged)
+
+    # distance-score rule when the window is (over)full; +1 for the incoming
+    need_dist = (n_kfs + 1 - n_flagged) >= (s.max_frames + 1)
+    w2c = win.w2c()
+    latest = back
+    latest_id = win.frame_id[latest]
+    rel = torch.einsum("tij,sjk->stik", w2c, torch.linalg.inv(w2c))  # [s,t]
+    d = torch.linalg.norm(rel[..., :3, 3], dim=-1)  # (F_s, F_t)
+    t_ok = valid & ~(win.frame_id > latest_id - s.min_frame_age + 1)
+    eye = torch.eye(F, dtype=torch.bool, device=dev)
+    contrib = torch.where(t_ok[None, :] & ~eye, 1.0 / (1e-5 + d), torch.zeros_like(d))
+    score = -torch.sqrt(torch.clamp(d[:, latest], min=1e-12)) * torch.sum(contrib, 1)
+    s_ok = valid & (win.frame_id <= latest_id - s.min_frame_age) & (win.frame_id != 0)
+    score = torch.where(s_ok, score, torch.full_like(score, float("inf")))
+    best_slot = torch.argmin(score)
+    flag_dist = need_dist & torch.isfinite(score[best_slot])
+    return flagged | ((torch.arange(F, device=dev) == best_slot) & flag_dist)
+
+
+def _free_slot(win: W.Window):
+    return torch.argmin(win.frame_valid.to(torch.int32)).to(torch.int32)
+
+
+def _rigid_inv(T):
+    """SE(3) inverse without a linear solve."""
+    R = T[:3, :3]
+    t = T[:3, 3]
+    Ti = torch.eye(4, dtype=T.dtype, device=T.device)
+    Ti[:3, :3] = R.T
+    Ti[:3, 3] = -R.T @ t
+    return Ti
+
+
+def motion_tries(last_c2w, prev_c2w, ref_c2w, dtype=torch.float32):
+    """The 5 pose hypotheses lastF->fh (FullSystem.cpp:349-377): constant
+    motion, double, half, last-frame pose, zero-from-KF."""
+    slast_2_sprelast = _rigid_inv(prev_c2w) @ last_c2w
+    lastF_2_slast = _rigid_inv(last_c2w) @ ref_c2w
+    fh_2_slast = slast_2_sprelast  # constant velocity
+    fh_inv = _rigid_inv(fh_2_slast)
+    half = se3.se3_exp(0.5 * se3.se3_log(fh_2_slast))
+    eye = torch.eye(4, dtype=dtype, device=last_c2w.device)
+    tries = torch.stack(
+        [
+            fh_inv @ lastF_2_slast,
+            fh_inv @ fh_inv @ lastF_2_slast,
+            _rigid_inv(half) @ lastF_2_slast,
+            lastF_2_slast,
+            eye,
+        ]
+    ).to(dtype)
+    # non-finite guards (uninitialized history): fall back to identity
+    ok = torch.isfinite(tries).all(dim=2).all(dim=1)[:, None, None]
+    return torch.where(ok, tries, eye)
+
+
+def _update_min_act_dist(min_act_dist, n_active, density):
+    """The activation distance controller (FullSystem.cpp:808-824)."""
+    d = density
+    n = n_active.to(torch.float32)
+    w = torch.where
+    delta = w(n < d * 0.66, -0.8, 0.0)
+    delta = delta + w(n < d * 0.8, -0.5, w(n < d * 0.9, -0.2, w(n < d, -0.1, 0.0)))
+    delta = delta + w(n > d * 1.5, 0.8, 0.0)
+    delta = delta + w(n > d * 1.3, 0.5, w(n > d * 1.15, 0.2, w(n > d, 0.1, 0.0)))
+    return torch.clamp(min_act_dist + delta, 0.0, 4.0)
+
+
+# ---------------------------------------------------------------------------
+# the frame program
+# ---------------------------------------------------------------------------
+
+
+def _levels(calib: Calib):
+    return calib.n_levels
+
+
+class TrackAux(NamedTuple):
+    """Everything the keyframe program needs beyond the pre-state."""
+
+    dIpL: Tuple  # full left pyramid (n_levels tensors)
+    dIpR0: torch.Tensor  # right level-0 pyramid
+    track: FS.TrackOut
+    T_best: torch.Tensor
+    aff_best: torch.Tensor
+    flow: torch.Tensor
+    ok_eff: torch.Tensor
+    new_last: torch.Tensor
+    new_first: torch.Tensor
+    need_kf: torch.Tensor
+    kf_inputs: torch.Tensor  # (3,) decision-audit inputs (delta, rmse, first)
+
+
+def _track_common(state: GraphState, left, right, calib_c, baseline, new_exposure,
+                  settings: Settings, n_levels: int, n_tries: int, w0: int, h0: int):
+    """Shared front half of every frame: pyramids + cascade + retry ladder +
+    speculative non-KF refinement + the keyframe decision. Returns the
+    speculative immature set and a TrackAux."""
+    s = settings
+    win = state.win
+    ref_slot = int(_host(state.ref_slot))
+    w2c_pre0 = win.w2c()
+    ref_c2w = _rigid_inv(w2c_pre0[ref_slot])
+
+    def fresh_c2w(comp, rel, slot, fid):
+        slot = slot.long()
+        ok = win.frame_valid[slot] & (win.frame_id[slot] == fid)
+        fresh = _rigid_inv(w2c_pre0[slot]) @ rel
+        return torch.where(ok, fresh, comp)
+
+    last_c2w = fresh_c2w(state.last_c2w, state.last_rel, state.last_slot, state.last_fid)
+    prev_c2w = fresh_c2w(state.prev_c2w, state.prev_rel, state.prev_slot, state.prev_fid)
+    T_tries = motion_tries(last_c2w, prev_c2w, ref_c2w)[:n_tries]
+    aff_init = state.last_aff
+
+    last_rmse = torch.where(
+        torch.isfinite(state.last_rmse0), state.last_rmse0,
+        torch.full_like(state.last_rmse0, 1e30),
+    )
+    (dIpL, dIpR), imm_spec, track, _ = FS.frame_step_full(
+        left, right, state.ref, win, state.imm, calib_c, baseline, ref_slot,
+        T_tries, aff_init, state.ref_aff, state.ref_exposure, new_exposure,
+        last_rmse, settings=s, n_levels=n_levels, n_tries=n_tries,
+    )
+    # track failure: take the predicted pose and hope (FullSystem.cpp:503-508)
+    rmse0 = track.residuals[0]
+    ok_eff = track.ok & torch.isfinite(rmse0) & (track.sat_frac0 <= 0.6)
+    T_best = torch.where(ok_eff, track.T, T_tries[0])
+    aff_best = torch.where(ok_eff, track.aff, aff_init)
+    flow = torch.where(ok_eff, track.flow, torch.zeros_like(track.flow))
+    new_last = torch.where(ok_eff & torch.isfinite(rmse0), rmse0, state.last_rmse0)
+    new_first = torch.where(
+        state.first_rmse < 0, torch.where(ok_eff, rmse0, state.first_rmse),
+        state.first_rmse,
+    )
+
+    track_eff = track._replace(T=T_best, aff=aff_best, flow=flow)
+    need_kf, kf_delta = kf_decision(
+        track_eff, state.ref_aff, state.ref_exposure, new_exposure,
+        new_first, float(w0 + h0), s,
+    )
+    aux = TrackAux(
+        dIpL=dIpL, dIpR0=dIpR[0], track=track, T_best=T_best, aff_best=aff_best,
+        flow=flow, ok_eff=ok_eff, new_last=new_last, new_first=new_first,
+        need_kf=need_kf, kf_inputs=torch.stack([kf_delta, rmse0, new_first]),
+    )
+    return imm_spec, aux
+
+
+def _i32(x, device):
+    return torch.tensor(int(x), dtype=torch.int32, device=device)
+
+
+def _nonkf_branch(state: GraphState, imm_spec, aux: TrackAux):
+    win = state.win
+    dev = win.device
+    F = win.F
+    w2c_pre0 = win.w2c()
+    ref_slot = state.ref_slot.long()
+    st = state._replace(
+        imm=imm_spec, last_rmse0=aux.new_last, first_rmse=aux.new_first,
+        last_c2w=_rigid_inv(aux.T_best @ w2c_pre0[ref_slot]),
+        prev_c2w=state.last_c2w,
+        last_aff=aux.aff_best,
+        last_rel=_rigid_inv(aux.T_best),
+        last_slot=state.ref_slot,
+        last_fid=win.frame_id[ref_slot],
+        prev_rel=state.last_rel,
+        prev_slot=state.last_slot,
+        prev_fid=state.last_fid,
+    )
+    zero = _i32(0, dev)
+    bundle = FrameBundle(
+        T=aux.T_best, aff=aux.aff_best, residuals=aux.track.residuals, flow=aux.flow,
+        ok=aux.ok_eff, sat_frac0=aux.track.sat_frac0, need_kf=aux.need_kf,
+        slot=_i32(-1, dev),
+        flagged=torch.zeros(F, dtype=torch.bool, device=dev),
+        w2c=w2c_pre0, aff_all=win.aff_g2l(),
+        frame_valid=win.frame_valid, frame_id=win.frame_id,
+        energy=torch.tensor(float("nan"), dtype=torch.float32, device=dev),
+        nres=zero, sel_num=zero,
+        n_active=torch.sum(win.pt_status == W.PT_ACTIVE).to(torch.int32),
+        n_activated=zero,
+        n_imm=torch.sum(imm_spec.valid).to(torch.int32),
+        n_marg=zero, n_dropped=zero,
+        kf_delta=aux.kf_inputs[0], kf_rmse=aux.kf_inputs[1], kf_first_rmse=aux.kf_inputs[2],
+    )
+    return st, bundle
+
+
+def _kf_branch(state: GraphState, aux: TrackAux, calib_c, baseline, new_exposure,
+               settings: Settings, n_levels: int, pot: int, caps: Tuple[int, ...],
+               w0: int, h0: int, imm_cap: int, uniform: Optional[Callable] = None):
+    """The whole keyframe pipeline (makeKeyFrame) from the PRE-frame state +
+    the tracking result, in the JAX branch's order of operations."""
+    s = settings
+    win, imm = state.win, state.imm
+    dev = win.device
+    F = win.F
+    dIpL, T_best, aff_best = aux.dIpL, aux.T_best, aux.aff_best
+    T_new_w2c = T_best @ win.w2c()[state.ref_slot.long()]
+
+    # STEP 1: trace all immature points onto the incoming KF
+    with PROF.section("graph.kf.trace", True):
+        imm = FS.kf_trace_step(
+            win, imm, dIpL[0], calib_c, baseline, T_new_w2c, aff_best, new_exposure,
+            settings=s, n_levels=n_levels,
+        )
+
+    # STEP 2: flagging policy (pre-insertion window); the modules below take
+    # the slots as Python ints, so this is the keyframe's one packed read
+    flagged = flag_frames(win, imm.valid, state.kf_out_count, s)
+    packed = _host(torch.cat([
+        torch.stack([_free_slot(win), state.next_kf_id.to(torch.int32),
+                     state.salt.to(torch.int32), state.ref_slot.to(torch.int32)]),
+        flagged.to(torch.int32),
+    ]))
+    slot, kf_id, salt, ref_slot = packed[:4]
+    flagged_host = np.asarray(packed[4:], dtype=bool)
+
+    # STEP 3: insert the KF. Its level-0 pyramid goes into the slot's row of
+    # the (F, H, W, 3) stack IN PLACE (41 MB at 1216x352: not cloned per
+    # keyframe). The row belonged to no valid frame, so the pre-frame state,
+    # which shares the stack, still reads what it read before.
+    win = builder.insert_frame(
+        win, slot, T_new_w2c, (aff_best[0], aff_best[1]), new_exposure, kf_id
+    )
+    dI0 = state.dI0_slots
+    dI0[slot] = dIpL[0]
+
+    # STEP 4: residuals from active points to the new KF
+    active_pts = win.pt_status == W.PT_ACTIVE
+    res_exists = win.res_exists.clone()
+    res_state = win.res_state.clone()
+    res_lin = win.res_linearized.clone()
+    res_exists[:, slot] = active_pts
+    res_state[:, slot] = W.RES_IN
+    res_lin[:, slot] = False
+    win = win.replace(res_exists=res_exists, res_state=res_state, res_linearized=res_lin)
+
+    # STEP 5: activation (distance controller + gate + LM + insertion)
+    n_active = torch.sum(active_pts).to(torch.int32)
+    mad = _update_min_act_dist(state.min_act_dist, n_active, s.desired_point_density)
+    with PROF.section("graph.kf.activate", True):
+        cand_flat, delete = IMM.activation_gate(
+            win, imm, slot, mad, calib_c, settings=s, h1=h0 >> 1, w1=w0 >> 1
+        )
+        imm = imm.replace(valid=imm.valid & ~delete)
+        pre = W.precalc(win)
+        act = IMM.optimize_immature(
+            imm, cand_flat, pre["RTll"], pre["tTll"], pre["aff"], win.frame_valid,
+            dI0, win.c_value, settings=s,
+        )
+        win, imm, n_activated = IMM.insert_activated(win, imm, act, settings=s)
+
+    # STEP 6: windowed BA (steady-state window: standard iteration cap)
+    with PROF.section("graph.kf.ba", True):
+        win, energy, nres = ba.optimize_fused(win, dI0, settings=s, max_its=s.max_opt_iterations)
+
+    # STEPS 7-8: final linearization, outlier removal, tracking-ref inputs,
+    # point flagging + marginalization
+    with PROF.section("graph.kf.finalize", True):
+        win, ref_inputs, gone, w2c_post, aff_all, _, (n_marg, n_drop) = FS.kf_finalize(
+            win, dI0, dIpL[0], aux.dIpR0, slot, flagged, ref_slot, calib_c, baseline,
+            settings=s, n_levels=n_levels,
+        )
+    kf_out = state.kf_out_count + torch.zeros(F, dtype=torch.int32, device=dev).index_add_(
+        0, win.pt_host.long(), gone.to(torch.int32)
+    )
+
+    # tracking reference rebuild (makeCoarseDepthL0 STEP2-5)
+    us_r, vs_r, id_r, wt_r, sel_r = ref_inputs
+    with PROF.section("graph.kf.ref", True):
+        id_maps, valid_maps, color_maps = tracker_build_ref(
+            us_r, vs_r, id_r, wt_r, sel_r, dIpL, n_levels
+        )
+        new_ref = tuple(
+            SEL_compact(id_maps[l], valid_maps[l], color_maps[l], caps[l])
+            for l in range(n_levels)
+        )
+
+    # STEP 9: seed new immature points (one selection pass at the
+    # host-adapted potential, with the reference's random thinning)
+    with PROF.section("graph.kf.new_traces", True):
+        asg = build_pyramid(dIpL[0][..., 0], 3)[1]
+        ths = SEL.block_thresholds(asg[0], s)
+        selm = SEL.select(dIpL[0], asg[0], asg[1], asg[2], ths, pot, 1.0, salt, s)
+        num_have = torch.sum(selm.counts)
+        quotia = s.desired_immature_density / torch.clamp(num_have.to(torch.float64), min=1.0)
+        draw = SEL.torch_uniform if uniform is None else uniform
+        u = torch.as_tensor(draw(salt, tuple(selm.status_map.shape), dev), device=dev)
+        thin = (quotia < 0.95) & ~(u < quotia)
+        status = torch.where(thin, torch.zeros_like(selm.status_map), selm.status_map)
+        us, vs, types, sel_valid = SEL.map_to_points(status, imm_cap)
+        imm = IMM.seed_slot(imm, slot, dIpL[0], us, vs, types, sel_valid, settings=s)
+
+    # STEP 10: marginalize flagged frames
+    with PROF.section("graph.kf.marg_frames", True):
+        win = ba.marginalize_frames_masked(win, flagged_host, settings=s)
+        imm = imm.replace(valid=imm.valid & ~flagged[:, None])
+
+    slot_t = _i32(slot, dev)
+    kf_id_t = _i32(kf_id, dev)
+    st = GraphState(
+        win=win,
+        imm=imm,
+        ref=new_ref,
+        ref_slot=slot_t,
+        ref_aff=aff_all[slot],
+        ref_exposure=new_exposure,
+        dI0_slots=dI0,
+        last_rmse0=aux.new_last,
+        # firstCoarseRMSE is per tracking reference: reset on every new KF
+        # (CoarseTracker.cpp:803,823); the next frame's RMSE against the new
+        # reference becomes "first"
+        first_rmse=torch.tensor(-1.0, dtype=torch.float32, device=dev),
+        kf_out_count=kf_out,
+        min_act_dist=mad,
+        next_kf_id=_i32(kf_id + 1, dev),
+        salt=_i32(salt + 1, dev),
+        last_c2w=_rigid_inv(w2c_post[slot]),
+        prev_c2w=state.last_c2w,
+        last_aff=aff_all[slot].to(state.last_aff.dtype),
+        last_rel=torch.eye(4, dtype=state.last_rel.dtype, device=dev),
+        last_slot=slot_t,
+        last_fid=kf_id_t,
+        prev_rel=state.last_rel,
+        prev_slot=state.last_slot,
+        prev_fid=state.last_fid,
+    )
+    bundle = FrameBundle(
+        T=T_best, aff=aff_best, residuals=aux.track.residuals, flow=aux.flow,
+        ok=aux.ok_eff, sat_frac0=aux.track.sat_frac0, need_kf=aux.need_kf,
+        slot=slot_t,
+        flagged=flagged,
+        w2c=win.w2c(), aff_all=win.aff_g2l(),
+        frame_valid=win.frame_valid, frame_id=win.frame_id,
+        energy=energy.to(torch.float32), nres=nres.to(torch.int32),
+        sel_num=num_have.to(torch.int32),
+        n_active=n_active,
+        n_activated=_i32(n_activated, dev),
+        n_imm=torch.sum(imm.valid).to(torch.int32),
+        n_marg=n_marg, n_dropped=n_drop,
+        kf_delta=aux.kf_inputs[0], kf_rmse=aux.kf_inputs[1], kf_first_rmse=aux.kf_inputs[2],
+    )
+    return st, bundle
+
+
+def frame_auto(state: GraphState, left, right, calib_c, baseline, new_exposure,
+               settings: Settings = default_settings(), n_levels: int = 6,
+               n_tries: int = 5, pot: int = 3, caps: Tuple[int, ...] = (),
+               w0: int = 0, h0: int = 0, imm_cap: int = 2048,
+               uniform: Optional[Callable] = None):
+    """One full frame: track, then (host branch on `need_kf`) the whole
+    keyframe pipeline or the speculative non-KF update.
+
+    left/right: (H, W) raw images on the state's device. Pose hypotheses
+    (constant-velocity motion model, FullSystem.cpp:349-377) and the affine
+    init come from GraphState. `uniform(salt, shape, device)` is the
+    selector's thinning draw (default: a torch.Generator seeded from the
+    salt). Returns (GraphState, FrameBundle)."""
+    with PROF.section("graph.track", True):
+        imm_spec, aux = _track_common(
+            state, left, right, calib_c, baseline, new_exposure, settings,
+            n_levels, n_tries, w0, h0,
+        )
+    if _host(aux.need_kf):
+        with PROF.section("graph.kf", True):
+            return _kf_branch(
+                state, aux, calib_c, baseline, new_exposure, settings, n_levels,
+                pot, caps, w0, h0, imm_cap, uniform,
+            )
+    return _nonkf_branch(state, imm_spec, aux)
+
+
+def frame_track(state: GraphState, left, right, calib_c, baseline, new_exposure,
+                settings: Settings = default_settings(), n_levels: int = 6,
+                n_tries: int = 5, w0: int = 0, h0: int = 0):
+    """Track-only half: always applies the speculative non-KF update and
+    returns the aux needed to run the keyframe pipeline from the pre-state
+    when `need_kf` comes back true (makeKeyFrame vs makeNonKeyFrame
+    dispatch, FullSystem.cpp:1168-1221). Returns (state, bundle, aux)."""
+    imm_spec, aux = _track_common(
+        state, left, right, calib_c, baseline, new_exposure, settings,
+        n_levels, n_tries, w0, h0,
+    )
+    st, bundle = _nonkf_branch(state, imm_spec, aux)
+    return st, bundle, aux
+
+
+def frame_kf(state_pre: GraphState, aux: TrackAux, calib_c, baseline, new_exposure,
+             settings: Settings = default_settings(), n_levels: int = 6,
+             pot: int = 3, caps: Tuple[int, ...] = (), w0: int = 0, h0: int = 0,
+             imm_cap: int = 2048, uniform: Optional[Callable] = None):
+    """The keyframe pipeline from the PRE-frame state + frame_track's aux:
+    the same function as frame_auto's keyframe branch."""
+    return _kf_branch(
+        state_pre, aux, calib_c, baseline, new_exposure, settings, n_levels,
+        pot, caps, w0, h0, imm_cap, uniform,
+    )
+
+
+def tracker_build_ref(us, vs, idepths, weights, valid, dI_ref, n_levels):
+    return tracker_ops.build_ref_maps(
+        us, vs, idepths, weights, valid, n_levels=n_levels, dI_ref=dI_ref
+    )
+
+
+def SEL_compact(id_map, valid_map, color_map, cap):
+    return tracker_ops.compact_ref_level(id_map, valid_map, color_map, cap)
+
+
+# ---------------------------------------------------------------------------
+# host wrapper
+# ---------------------------------------------------------------------------
+
+
+class GraphShell:
+    __slots__ = ("id", "timestamp", "T_cam_to_ref", "ref_kf_id", "aff", "is_kf", "T_cw")
+
+    def __init__(self, fid, ts, T_cam_to_ref, ref_kf_id, aff):
+        self.id = fid
+        self.timestamp = ts
+        self.T_cam_to_ref = T_cam_to_ref
+        self.ref_kf_id = ref_kf_id
+        self.aff = aff
+        self.is_kf = False
+        self.T_cw = None
+
+
+class GraphSystem:
+    """Steady-state odometry on the frame program.
+
+    Bootstrap through the host FullSystem (initialization + first
+    keyframes), then `GraphSystem.from_full_system(fs)` continues from its
+    state, on its device. Host state is bookkeeping only: trajectory shells,
+    keyframe shells, selector-potential adaptation."""
+
+    def __init__(self, calib: Calib, settings: Settings, state: GraphState,
+                 history, kf_shells, slot_frame_id, pot: int = 3,
+                 uniform: Optional[Callable] = None):
+        self.calib = calib
+        self.settings = settings
+        self.state = state
+        self.device = state.win.device
+        self.history: List[GraphShell] = history
+        self.kf_shells = kf_shells
+        self.slot_frame_id = dict(slot_frame_id)
+        self.pot = pot
+        self.uniform = uniform
+        self.caps = tuple(level_caps(calib))
+        self.is_lost = False
+        self.n_frame_marginalizations = 0  # by this system, as FullSystem counts its own
+        self.init_failed = False  # initialization is always host-side; kept
+        # for interface parity with FullSystem (CLI reset logic)
+        self._pending_q = []  # [(FrameBundle (device), frame_id, ts), ...]
+
+    # -- construction ------------------------------------------------------
+    @classmethod
+    def from_full_system(cls, fs, uniform: Optional[Callable] = None) -> "GraphSystem":
+        """Freeze a warmed FullSystem into graph state on the FullSystem's
+        device. `uniform`: the thinning draw of the keyframe branch."""
+        dev = fs.device
+        F = fs.win.F
+        H, Wd = fs.calib.h[0], fs.calib.w[0]
+        zeros_im = torch.zeros((H, Wd, 3), dtype=torch.float32, device=dev)
+        dI0 = torch.stack([
+            fs.dI_slots[s_][0] if fs.dI_slots[s_] is not None else zeros_im
+            for s_ in range(F)
+        ])
+
+        def shell_rel(sh):
+            """(camToRef, ref window slot, ref frame id) for the motion
+            model's at-use recomposition; (-1 fid) disables it when the
+            reference already left the window."""
+            kf_id_of_slot = fs.slot_frame_id  # {slot: kf_id}
+            if sh.is_kf:
+                # the shell IS a keyframe: find its own slot
+                own_id = next(k for k, kf in enumerate(fs.kf_shells) if kf is sh)
+                for s_, kid in kf_id_of_slot.items():
+                    if kid == own_id:
+                        return np.eye(4), s_, kid
+                # fall through if already marginalized
+            if sh.ref_kf_id >= 0:
+                for s_, kid in kf_id_of_slot.items():
+                    if kid == sh.ref_kf_id:
+                        return np.asarray(sh.T_cam_to_ref), s_, kid
+            return np.eye(4), 0, -1  # fallback: frozen composite only
+
+        def f32(x):
+            return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+        def i32(x):
+            return torch.as_tensor(np.asarray(x, np.int32), device=dev)
+
+        rel_l, slot_l, fid_l = shell_rel(fs.history[-1])
+        rel_p, slot_p, fid_p = shell_rel(fs.history[-2])
+        rmse0 = fs.last_coarse_rmse[0]
+        state = GraphState(
+            win=fs.win,
+            imm=fs.imm,
+            ref=tuple(fs.tracker.ref),
+            ref_slot=i32(fs.kf_slots[-1]),
+            ref_aff=fs.tracker.ref_aff.to(torch.float32),
+            ref_exposure=f32(fs.tracker.ref_exposure),
+            dI0_slots=dI0,
+            last_rmse0=f32(rmse0 if np.isfinite(rmse0) else 1e30),
+            first_rmse=f32(fs.tracker.first_coarse_rmse),
+            kf_out_count=i32(fs.kf_out_count),
+            min_act_dist=f32(fs.current_min_act_dist),
+            next_kf_id=i32(fs.next_kf_id),
+            salt=i32(1000 * (1 + len(fs.kf_shells))),
+            last_c2w=f32(fs._shell_T_cw(fs.history[-1])),
+            prev_c2w=f32(fs._shell_T_cw(fs.history[-2])),
+            last_aff=f32(fs.history[-1].aff),
+            last_rel=f32(rel_l),
+            last_slot=i32(slot_l),
+            last_fid=i32(fid_l),
+            prev_rel=f32(rel_p),
+            prev_slot=i32(slot_p),
+            prev_fid=i32(fid_p),
+        )
+        history = [
+            GraphShell(sh.id, sh.timestamp, sh.T_cam_to_ref, sh.ref_kf_id, sh.aff)
+            for sh in fs.history
+        ]
+        for g, sh in zip(history, fs.history):
+            g.is_kf = sh.is_kf
+            g.T_cw = sh.T_cw
+        # as in the JAX module, the keyframe list keeps the FullSystem's own
+        # shells: a later BA refresh moves the poses that non-keyframes
+        # compose through, while the bootstrap keyframes' entries in
+        # `history` keep the pose they had at the freeze
+        return cls(
+            fs.calib, fs.settings, state, history, list(fs.kf_shells),
+            fs.slot_frame_id, pot=fs.selector.current_potential, uniform=uniform,
+        )
+
+    # -- stepping ----------------------------------------------------------
+    #
+    # The JAX package dispatches frame i+1 without waiting on frame i and
+    # drains the small FrameBundle `fetch_lag` frames behind. Here the frame
+    # program reads `need_kf` on the host every frame, so the lag hides
+    # nothing; the interface is kept (add_frame returns the bundle of
+    # `fetch_lag` frames earlier, `flush`, `trajectory` flushes) because
+    # bench-style callers and the batched runner depend on it.
+    fetch_lag = 2
+
+    def add_frame(self, left, right, frame_id: int, timestamp: float = 0.0,
+                  exposure: float = 1.0):
+        s = self.settings
+        state, bundle = frame_auto(
+            self.state, device_image(left, self.device), device_image(right, self.device),
+            self.calib.c, self.calib.baseline,
+            torch.tensor(float(exposure), dtype=torch.float32, device=self.device),
+            settings=s, n_levels=self.calib.n_levels, n_tries=5,
+            pot=self.pot, caps=self.caps,
+            w0=self.calib.w[0], h0=self.calib.h[0],
+            imm_cap=s.immature_cap, uniform=self.uniform,
+        )
+        self.state = state
+        self._pending_q.append((bundle, frame_id, timestamp))
+        drained = None
+        while len(self._pending_q) > self.fetch_lag:
+            drained = self._drain_one()
+        return drained
+
+    def _drain_one(self):
+        global HOST_READS
+        bundle, frame_id, timestamp = self._pending_q.pop(0)
+        HOST_READS += 1  # one wait for the frame; the copies after it find it done
+        b = FrameBundle(*[x.cpu().numpy() for x in bundle])
+        ref_kf_id = len(self.kf_shells) - 1
+        self.apply_bundle(b, frame_id, timestamp, ref_kf_id)
+        return b
+
+    def flush(self):
+        """Drain all pending frame results into the host bookkeeping."""
+        while self._pending_q:
+            self._drain_one()
+
+    def apply_bundle(self, b, frame_id: int, timestamp: float, ref_kf_id: int):
+        """Host bookkeeping from a fetched FrameBundle (numpy leaves)."""
+        s = self.settings
+        shell = GraphShell(
+            frame_id, timestamp, np.linalg.inv(np.asarray(b.T, np.float64)),
+            ref_kf_id, np.asarray(b.aff, np.float64),
+        )
+        self.history.append(shell)
+
+        if bool(b.need_kf):
+            shell.is_kf = True
+            self.n_frame_marginalizations += int(np.sum(b.flagged))
+            self.slot_frame_id = {
+                int(s_): int(f_)
+                for s_, f_ in enumerate(np.asarray(b.frame_id))
+                if bool(np.asarray(b.frame_valid)[s_])
+            }
+            self.kf_shells.append(shell)
+            # refresh all in-window KF poses from the BA result
+            w2c = np.asarray(b.w2c, np.float64)
+            aff_all = np.asarray(b.aff_all, np.float64)
+            for s_, f_ in self.slot_frame_id.items():
+                self.kf_shells[f_].T_cw = np.linalg.inv(w2c[s_])
+                self.kf_shells[f_].aff = aff_all[s_]
+            # selector potential adaptation (stale-by-one, PixelSelector2)
+            num_have = float(b.sel_num)
+            quotia = s.desired_immature_density / max(num_have, 1.0)
+            K = num_have * (self.pot + 1) ** 2
+            ideal = max(int(np.sqrt(K / s.desired_immature_density) - 1), 1)
+            if quotia > 1.25 and self.pot > 1:
+                self.pot = SEL.snap_pot(max(min(ideal, self.pot - 1), 1))
+            elif quotia < 0.25:
+                self.pot = SEL.snap_pot(max(ideal, self.pot + 1))
+            else:
+                self.pot = SEL.snap_pot(max(ideal, 1))
+            if not np.isfinite(float(b.energy)) or int(b.nres) == 0:
+                # non-finite BA energy, or a window with zero surviving
+                # residuals: the map is dead; surface it like tracking loss
+                self.is_lost = True
+        return b
+
+    # -- host helpers --------------------------------------------------
+    def slot_frame_id_of_ref(self):
+        # the tracking reference is always the newest keyframe
+        return len(self.kf_shells) - 1
+
+    def _shell_T_cw(self, shell: GraphShell):
+        if shell.is_kf and shell.T_cw is not None:
+            return shell.T_cw
+        if shell.ref_kf_id < 0:
+            return shell.T_cam_to_ref
+        return self.kf_shells[shell.ref_kf_id].T_cw @ shell.T_cam_to_ref
+
+    def trajectory(self):
+        self.flush()
+        return [self._shell_T_cw(sh) for sh in self.history]
+
+    def point_cloud(self):
+        """Window point cloud for a viewer feed (KeyFrameDisplay.cpp:102-173)."""
+        self.flush()
+        return window_point_cloud(self.state.win, self.calib, self.slot_frame_id)

@@ -45,7 +45,7 @@ class ImmatureSet:
         return dataclasses.replace(self, **kw)
 
 
-def empty(F: int, cap: int, device="cpu") -> ImmatureSet:
+def empty(F: int, cap: int, device) -> ImmatureSet:
     def z(*shape):
         return torch.zeros(shape, dtype=torch.float32, device=device)
 

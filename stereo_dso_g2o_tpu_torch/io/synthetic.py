@@ -20,6 +20,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from stereo_dso_g2o_tpu_torch import default_device
+
 
 def smooth_texture(rng: np.random.Generator, size: int = 512, octaves: int = 5) -> np.ndarray:
     """Multi-octave smooth random texture in [20, 235] (float32, square)."""
@@ -309,9 +311,11 @@ def _device_pack(scene: MultiScene, device):
 
 def render_multi_batch(
     scene: MultiScene, K: np.ndarray, w: int, h: int, poses: np.ndarray,
-    supersample: int = 2, device="cpu",
+    supersample: int = 2, device=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Render poses (B,4,4) -> (imgs (B,h,w) float32, idepths (B,h,w))."""
+    """Render poses (B,4,4) -> (imgs (B,h,w) float32, idepths (B,h,w)) on
+    `device` (None: the GPU)."""
+    device = default_device(device)
     pack = _device_pack(scene, device)
     kinvs = torch.as_tensor(_supersample_kinvs(K, supersample), device=device)
     n = supersample
@@ -334,12 +338,13 @@ def render_stereo_sequence_fast(
     poses_cw: List[np.ndarray],
     exposures: Optional[np.ndarray] = None,
     supersample: int = 2,
-    device="cpu",
+    device=None,
 ):
-    """Render a stereo sequence on `device`.
+    """Render a stereo sequence on `device` (None: the GPU).
 
     Returns (lefts (N,h,w) uint8, rights (N,h,w) uint8) tensors on `device`;
     exposure is applied before the uint8 clip."""
+    device = default_device(device)
     N = len(poses_cw)
     expo = np.ones(N) if exposures is None else np.asarray(exposures)
     pack = _device_pack(scene, device)

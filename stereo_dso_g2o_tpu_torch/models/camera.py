@@ -12,6 +12,8 @@ from typing import Tuple
 
 import torch
 
+from stereo_dso_g2o_tpu_torch import default_device
+
 
 @dataclasses.dataclass
 class Calib:
@@ -80,7 +82,9 @@ def calib_from_c(c: torch.Tensor, baseline, w0: int, h0: int, n_levels: int) -> 
 
 
 def make_calib(fx, fy, cx, cy, baseline, w: int, h: int, n_levels: int = 6,
-               device="cpu") -> Calib:
+               device=None) -> Calib:
+    """device=None: the GPU (`default_device`); "cpu" asks for the CPU."""
+    device = default_device(device)
     ws = tuple(w >> lvl for lvl in range(n_levels))
     hs = tuple(h >> lvl for lvl in range(n_levels))
     for lvl in range(1, n_levels):

@@ -9,9 +9,13 @@ ImmaturePoint::traceStereo) over the whole point set:
   4. error bound from the gradient-vs-epipolar angle, interval update,
      status state machine (GOOD/OOB/OUTLIER/SKIPPED/BADCONDITION)
 
-Steps 2-3 run in `trace_cuda.epipolar_search` (the CUDA kernel on the GPU,
-its plain PyTorch version on the CPU); everything else is torch ops.
-Everything is masked fixed-shape, as in the JAX package.
+Steps 2-3 run in one of the two kernels of `ops/trace_cuda.py` (a CUDA
+kernel on the GPU, its plain PyTorch version on the CPU): the resident one,
+or the slab one for images over the JAX package's 6 MB gate
+(`trace_cuda.uses_slab_route`). `route="resident"` / `route="slab"` on
+`trace_batch`, `trace` and `trace_stereo` forces either, for tests and
+debugging; None means the gate. Everything else is torch ops, masked
+fixed-shape, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -92,9 +96,15 @@ def extract_point_data(dI0, u, v, settings: Settings):
 
 
 def _search(dI, ptx, pty, dx, dy, num_steps, aff_a, aff_b, color, weights,
-            patx, paty, pre_masked, S, settings: Settings, edge):
+            patx, paty, pre_masked, S, settings: Settings, edge, route=None):
     """Run the epipolar kernel on sanitized lanes: masked lanes get position
     0 and zero steps (their outputs are discarded by the status machine)."""
+    if route not in (None, "resident", "slab"):
+        raise ValueError(f"route must be None, 'resident' or 'slab', got {route!r}")
+    if route is None:
+        route = "slab" if tk.uses_slab_route(dI.shape[0], dI.shape[1]) else "resident"
+    search = tk.epipolar_search_slab if route == "slab" else tk.epipolar_search
+
     def safe(x):
         return torch.where(pre_masked | ~torch.isfinite(x), torch.zeros_like(x), x)
 
@@ -104,7 +114,7 @@ def _search(dI, ptx, pty, dx, dy, num_steps, aff_a, aff_b, color, weights,
          aff_a, aff_b, torch.zeros_like(ptx)],
         dim=1,
     ).contiguous()
-    return tk.epipolar_search(
+    return search(
         dI.contiguous(), scal, color.contiguous(), weights.contiguous(),
         patx.contiguous(), paty.contiguous(), S=S,
         huber_th=float(settings.huber_th),
@@ -116,7 +126,7 @@ def _search(dI, ptx, pty, dx, dy, num_steps, aff_a, aff_b, color, weights,
 
 def trace_batch(u, v, idepth_min, idepth_max, color, weights, gradH, energy_th,
                 quality, status, KRKi, Kt, aff, dI_target,
-                settings: Settings = default_settings()) -> TraceResult:
+                settings: Settings = default_settings(), route=None) -> TraceResult:
     """Trace every point's epipolar interval onto the target image, with
     per-point KRKi (N,3,3), Kt (N,3), aff (N,2) (traceOn)."""
     H, W = dI_target.shape[:2]
@@ -209,7 +219,7 @@ def trace_batch(u, v, idepth_min, idepth_max, color, weights, gradH, energy_th,
     out = _search(
         dI_target, ptx, pty, dx, dy, num_steps, aff[:, 0], aff[:, 1], color,
         weights, rot_pat[:, :, 0], rot_pat[:, :, 1], pre_masked, S, settings,
-        tk.EDGE_CLAMP,
+        tk.EDGE_CLAMP, route,
     )
     best_u = out[:, tk.OUT_BEST_U]
     best_v = out[:, tk.OUT_BEST_V]
@@ -299,14 +309,14 @@ def trace_batch(u, v, idepth_min, idepth_max, color, weights, gradH, energy_th,
 
 def trace(u, v, idepth_min, idepth_max, color, weights, gradH, energy_th,
           quality, status, KRKi, Kt, aff, dI_target,
-          settings: Settings = default_settings()) -> TraceResult:
+          settings: Settings = default_settings(), route=None) -> TraceResult:
     """Single host->target trace: KRKi (3,3), Kt (3,), aff (2,) shared by all
     points. Thin wrapper over trace_batch."""
     N = u.shape[0]
     return trace_batch(
         u, v, idepth_min, idepth_max, color, weights, gradH, energy_th,
         quality, status, KRKi.expand(N, 3, 3), Kt.expand(N, 3), aff.expand(N, 2),
-        dI_target, settings=settings,
+        dI_target, settings=settings, route=route,
     )
 
 
@@ -378,7 +388,7 @@ def _stereo_finish(
 def trace_stereo(u_stereo, v_stereo, idepth_min_stereo, idepth_max_stereo,
                  color, weights, gradH, energy_th, quality, status, K, baseline,
                  dI_target, mode_right: bool = True,
-                 settings: Settings = default_settings()):
+                 settings: Settings = default_settings(), route=None):
     """Static stereo trace (ImmaturePoint.cpp:94-457).
 
     mode_right=True matches left->right (bl = (-baseline,0,0)); False is the
@@ -443,7 +453,7 @@ def trace_stereo(u_stereo, v_stereo, idepth_min_stereo, idepth_max_stereo,
         dI_target, ptx, v, torch.full_like(ptx, dirx), torch.zeros_like(ptx),
         num_steps, torch.ones_like(ptx), torch.zeros_like(ptx), color, weights,
         pat[None, :, 0].expand(n, 8), pat[None, :, 1].expand(n, 8), pre_masked,
-        S, settings, tk.EDGE_ZERO,
+        S, settings, tk.EDGE_ZERO, route,
     )
     best_u = out[:, tk.OUT_BEST_U]
     best_energy_search = out[:, tk.OUT_E_SEARCH]

@@ -1,4 +1,12 @@
-"""The epipolar-search kernel (CUDA, sm_90a) and its plain PyTorch version.
+"""The epipolar-search kernels (CUDA, sm_90a) and their plain PyTorch versions.
+
+Two kernels compute the same function, as the JAX package's two Pallas
+bodies do: `epipolar_search` (csrc/epipolar_search.cu, the resident body:
+every tap read from the (H, W, 3) image in global memory / L2) and
+`epipolar_search_slab` (csrc/epipolar_search_slab.cu, the slab body: each
+lane's window of the intensity plane staged in shared memory, gradients by
+central differences of that window). `uses_slab_route` is the JAX
+package's gate between them.
 
 `epipolar_search` runs, for each of N lanes (immature points), the part of
 ImmaturePoint::traceOn / traceStereo that the JAX package's Pallas kernel
@@ -29,8 +37,15 @@ Sampling rules follow the JAX "xla" backend exactly:
   - Gauss-Newton always samples with `interp.bilinear` (clamped).
 Non-finite ptx/pty/dx/dy are read as 0 (callers mask those lanes).
 
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
-it runs `epipolar_search_ref`. `LAUNCHES` counts kernel launches.
+`epipolar_search_slab` takes the same arguments and returns the same lanes;
+it reads only channel 0 of dI and takes the Gauss-Newton gradients as
+0.5 * (I(x+1, y) - I(x-1, y)) (zero on the image's border row/column), the
+pyramid's rule, so both kernels sample the same values.
+
+On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
+it runs its plain version (`epipolar_search_ref`,
+`epipolar_search_slab_ref`). `LAUNCHES` / `LAUNCHES_SLAB` count kernel
+launches.
 """
 
 from __future__ import annotations
@@ -57,20 +72,27 @@ OUT_BEST_IDX = 5
 EDGE_CLAMP = 0
 EDGE_ZERO = 1
 
-MAX_STEPS = 128  # 4 steps per thread of a 32-thread warp
+MAX_STEPS = 128  # resident kernel: 4 steps per thread of a 32-thread warp
+SMEM_MAX = 232448  # dynamic shared memory one block may use on sm_90
+WINDOW_MARGIN = 16  # pattern extent + bilinear + gradient taps + GN travel
 
-LAUNCHES = 0  # kernel launches since the last reset_launches()
+LAUNCHES = 0  # resident-kernel launches since the last reset_launches()
+LAUNCHES_SLAB = 0  # slab-kernel launches since the last reset_launches()
 
 _PKG = Path(__file__).resolve().parent.parent
-_SRC = _PKG / "csrc" / "epipolar_search.cu"
+SOURCES = {
+    "epipolar_search": _PKG / "csrc" / "epipolar_search.cu",
+    "epipolar_search_slab": _PKG / "csrc" / "epipolar_search_slab.cu",
+}
 BUILD_DIR = _PKG / "_build"
-_LIB = None
-BUILD_SECONDS = None  # wall time of the build this process ran, if any
+_LIBS = {}
+BUILD_SECONDS = {}  # kernel name -> wall time of the nvcc run this process made
 
 
 def reset_launches():
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_SLAB
     LAUNCHES = 0
+    LAUNCHES_SLAB = 0
 
 
 def _nvcc() -> str:
@@ -83,50 +105,65 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def build() -> Path:
-    """Compile csrc/epipolar_search.cu for sm_90a into _build/ (once per
-    source version). Returns the shared library's path."""
-    global BUILD_SECONDS
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src).hexdigest()[:16]
-    out = BUILD_DIR / f"libepipolar_search_{tag}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-        "-o", str(tmp), str(_SRC),
-    ]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    BUILD_SECONDS = time.perf_counter() - t0
-    (BUILD_DIR / "ptxas.log").write_text(proc.stdout + proc.stderr)
+def build(names=None) -> dict:
+    """Compile the named kernels (default: all of SOURCES) for sm_90a into
+    _build/, once per source version, one nvcc process per source, all
+    started together. Returns {name: shared library path}; the compiler's
+    output (-Xptxas -v) goes to _build/ptxas_<name>.log."""
+    names = list(SOURCES) if names is None else list(names)
+    out, running = {}, []
+    for name in names:
+        src = SOURCES[name]
+        tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+        lib = BUILD_DIR / f"lib{name}_{tag}.so"
+        out[name] = lib
+        if lib.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [
+            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+            "-O3", "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+            "-o", str(tmp), str(src),
+        ]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((name, lib, tmp, proc, time.perf_counter()))
+    failed = []
+    for name, lib, tmp, proc, t0 in running:
+        log, _ = proc.communicate()
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+        (BUILD_DIR / f"ptxas_{name}.log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {SOURCES[name].name} ({proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return out
 
 
-def _load():
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.sdso_epipolar_search
-        fn.argtypes = [ctypes.c_void_p] * 6 + [  # dI scal color weights patx paty
-            ctypes.c_void_p,  # out
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # H W N S
-            ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-            ctypes.c_int,  # edge
-            ctypes.c_void_p,  # stream
-        ]
+_PTR = ctypes.c_void_p
+_ARGTYPES = [_PTR] * 6 + [  # image scal color weights patx paty
+    _PTR,  # out
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # H W N S
+    ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+    ctypes.c_int,  # edge
+]
+
+
+def _load(name: str):
+    """The kernel's C entry point `sdso_<name>`, built at first use."""
+    if name not in _LIBS:
+        lib = ctypes.CDLL(str(build([name])[name]))
+        fn = getattr(lib, f"sdso_{name}")
+        extra = [ctypes.c_int, ctypes.c_int, ctypes.c_int] if name == "epipolar_search_slab" else []
+        fn.argtypes = _ARGTYPES + extra + [_PTR]  # (window rows, cols, bytes,) stream
         fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+        _LIBS[name] = fn
+    return _LIBS[name]
 
 
-def _check(dI, scal, color, weights, patx, paty, S):
+def _check(dI, scal, color, weights, patx, paty, edge):
     if dI.dim() != 3 or dI.shape[2] != 3:
         raise ValueError(f"dI must be (H, W, 3), got {tuple(dI.shape)}")
     N = scal.shape[0]
@@ -142,10 +179,31 @@ def _check(dI, scal, color, weights, patx, paty, S):
             raise ValueError(f"{name} is on {t.device}, dI on {dI.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if not 1 <= S <= MAX_STEPS:
-        raise ValueError(f"S must be in [1, {MAX_STEPS}], got {S}")
     if dI.shape[0] < 2 or dI.shape[1] < 2:
         raise ValueError("image must be at least 2x2")
+    if edge not in (EDGE_CLAMP, EDGE_ZERO):
+        raise ValueError(f"unknown edge rule {edge}")
+    if dI.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dI.device}")
+
+
+def _launch(name, image, scal, color, weights, patx, paty, H, W, S, huber_th,
+            gn_iters, gn_threshold, radius, edge, extra=()):
+    """Launch kernel `name` on the image's current stream; (N, 8) float32."""
+    N = scal.shape[0]
+    out = torch.empty((N, 8), dtype=torch.float32, device=image.device)
+    fn = _load(name)
+    with torch.cuda.device(image.device):
+        stream = torch.cuda.current_stream(image.device).cuda_stream
+        rc = fn(
+            image.data_ptr(), scal.data_ptr(), color.data_ptr(), weights.data_ptr(),
+            patx.data_ptr(), paty.data_ptr(), out.data_ptr(),
+            H, W, N, int(S), float(huber_th), int(gn_iters), float(gn_threshold),
+            int(radius), int(edge), *extra, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    return out
 
 
 def epipolar_search(dI, scal, color, weights, patx, paty, *, S: int,
@@ -153,38 +211,93 @@ def epipolar_search(dI, scal, color, weights, patx, paty, *, S: int,
                     radius: int, edge: int):
     """Discrete epipolar search + GN refinement per lane; (N, 8) float32."""
     global LAUNCHES
-    _check(dI, scal, color, weights, patx, paty, S)
-    if edge not in (EDGE_CLAMP, EDGE_ZERO):
-        raise ValueError(f"unknown edge rule {edge}")
+    _check(dI, scal, color, weights, patx, paty, edge)
+    if not 1 <= S <= MAX_STEPS:
+        raise ValueError(f"S must be in [1, {MAX_STEPS}], got {S}")
     if dI.device.type == "cpu":
         return epipolar_search_ref(
             dI, scal, color, weights, patx, paty, S=S, huber_th=huber_th,
             gn_iters=gn_iters, gn_threshold=gn_threshold, radius=radius, edge=edge,
         )
-    if dI.device.type != "cuda":
-        raise ValueError(f"unsupported device {dI.device}")
-    N = scal.shape[0]
-    out = torch.empty((N, 8), dtype=torch.float32, device=dI.device)
-    if N == 0:
-        return out
-    lib = _load()
-    H, W = dI.shape[0], dI.shape[1]
-    with torch.cuda.device(dI.device):
-        stream = torch.cuda.current_stream(dI.device).cuda_stream
-        rc = lib.sdso_epipolar_search(
-            dI.data_ptr(), scal.data_ptr(), color.data_ptr(), weights.data_ptr(),
-            patx.data_ptr(), paty.data_ptr(), out.data_ptr(),
-            H, W, N, int(S), float(huber_th), int(gn_iters), float(gn_threshold),
-            int(radius), int(edge), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"epipolar_search kernel launch failed: cudaError {rc}")
+    if scal.shape[0] == 0:
+        return torch.empty((0, 8), dtype=torch.float32, device=dI.device)
+    out = _launch("epipolar_search", dI, scal, color, weights, patx, paty,
+                  dI.shape[0], dI.shape[1], S, huber_th, gn_iters, gn_threshold,
+                  radius, edge)
     LAUNCHES += 1
     return out
 
 
 # ---------------------------------------------------------------------------
-# plain PyTorch version (the CPU path; the kernel is held against it)
+# the slab route
+# ---------------------------------------------------------------------------
+
+
+def uses_slab_route(H: int, W: int) -> bool:
+    """The JAX package's gate between its two kernel bodies
+    (ops/trace.py:318,826): the slab body when the image, padded as
+    `pad_image_for_search` pads it (8 + 64 rows to a multiple of 8, 128 +
+    256 columns to a multiple of 128), exceeds 6 MB of float32."""
+    Hp = ((H + 8 + 64 + 7) // 8) * 8
+    Wp = ((W + 128 + 256 + 127) // 128) * 128
+    return Hp * Wp * 4 > 6 * 2**20
+
+
+def slab_window(S: int, edge: int):
+    """(rows, cols, dynamic shared memory bytes) of the slab kernel's
+    per-lane window: the S-step segment plus WINDOW_MARGIN in each
+    direction it can run; a stereo lane's segment is horizontal."""
+    cols = S + WINDOW_MARGIN
+    rows = WINDOW_MARGIN if edge == EDGE_ZERO else cols
+    return rows, cols, 4 * (rows * cols + 9 * S)  # + per-pixel and per-step energies
+
+
+_PLANES = []  # [(dI, dI._version, plane)], the two most recent images
+
+
+def intensity_plane(dI):
+    """Channel 0 of an (H, W, 3) image as a contiguous (H, W) plane, made
+    once per image: a caller traces the same image several times per frame
+    (immature.trace_on_nonkey), so the two most recent planes are kept,
+    keyed on the image tensor itself and its version counter."""
+    for img, version, plane in _PLANES:
+        if img is dI and version == dI._version:
+            return plane
+    plane = dI[..., 0].contiguous()
+    _PLANES.append((dI, dI._version, plane))
+    del _PLANES[:-2]
+    return plane
+
+
+def epipolar_search_slab(dI, scal, color, weights, patx, paty, *, S: int,
+                         huber_th: float, gn_iters: int, gn_threshold: float,
+                         radius: int, edge: int):
+    """`epipolar_search` through the slab kernel: same arguments, same
+    (N, 8) float32 lanes. Only dI[..., 0] is read."""
+    global LAUNCHES_SLAB
+    _check(dI, scal, color, weights, patx, paty, edge)
+    rows, cols, smem = slab_window(S, edge)
+    if S < 1 or smem > SMEM_MAX:
+        raise ValueError(
+            f"S={S}: a {rows}x{cols} window needs {smem} bytes of shared memory, "
+            f"the card gives a block {SMEM_MAX}"
+        )
+    if dI.device.type == "cpu":
+        return epipolar_search_slab_ref(
+            dI, scal, color, weights, patx, paty, S=S, huber_th=huber_th,
+            gn_iters=gn_iters, gn_threshold=gn_threshold, radius=radius, edge=edge,
+        )
+    if scal.shape[0] == 0:
+        return torch.empty((0, 8), dtype=torch.float32, device=dI.device)
+    out = _launch("epipolar_search_slab", intensity_plane(dI), scal, color, weights,
+                  patx, paty, dI.shape[0], dI.shape[1], S, huber_th, gn_iters,
+                  gn_threshold, radius, edge, extra=(rows, cols, smem))
+    LAUNCHES_SLAB += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (the CPU path; the kernels are held against them)
 # ---------------------------------------------------------------------------
 
 
@@ -244,13 +357,61 @@ def _sample_zero_rows(img, ix0, fu, iy0, fv, steps, dirx, patx_i, paty_i):
     return (1.0 - fu_) * row0 + fu_ * row1
 
 
-def epipolar_search_ref(dI, scal, color, weights, patx, paty, *, S: int,
-                        huber_th: float, gn_iters: int, gn_threshold: float,
-                        radius: int, edge: int):
-    """Plain PyTorch version of the kernel: the search + GN part of the JAX
-    "xla" branch (ops/trace.py:329-410 temporal, :852-963 stereo)."""
+def _sample3_plane(img, x, y):
+    """`interp.bilinear` of (I, dI/dx, dI/dy) at float coords, the gradients
+    taken from the intensity plane: 0.5 * (I(x+1, y) - I(x-1, y)), zero on
+    the image's border row/column (ops/pyramid._gradients). -> (..., 3)."""
+    H, W = img.shape
+    x = torch.clamp(x, 0.0, W - 1.001)
+    y = torch.clamp(y, 0.0, H - 1.001)
+    xf = torch.floor(x)
+    yf = torch.floor(y)
+    ix = torch.nan_to_num(xf).long()
+    iy = torch.nan_to_num(yf).long()
+    dx = (x - xf)[..., None]
+    dy = (y - yf)[..., None]
+
+    def corner(r, c):
+        inner_x = (c >= 1) & (c <= W - 2)
+        inner_y = (r >= 1) & (r <= H - 2)
+        gx = 0.5 * (img[r, torch.clamp(c + 1, max=W - 1)] - img[r, torch.clamp(c - 1, min=0)])
+        gy = 0.5 * (img[torch.clamp(r + 1, max=H - 1), c] - img[torch.clamp(r - 1, min=0), c])
+        zero = torch.zeros_like(gx)
+        return torch.stack(
+            [img[r, c], torch.where(inner_x, gx, zero), torch.where(inner_y, gy, zero)], dim=-1
+        )
+
+    dxdy = dx * dy
+    return (
+        dxdy * corner(iy + 1, ix + 1)
+        + (dy - dxdy) * corner(iy + 1, ix)
+        + (dx - dxdy) * corner(iy, ix + 1)
+        + (1.0 - dx - dy + dxdy) * corner(iy, ix)
+    )
+
+
+def epipolar_search_ref(dI, scal, color, weights, patx, paty, **kw):
+    """Plain PyTorch version of the resident kernel: the search + GN part of
+    the JAX "xla" branch (ops/trace.py:329-410 temporal, :852-963 stereo)."""
+    return _search_ref(dI[..., 0], lambda x, y: bilinear(dI, x, y),
+                       scal, color, weights, patx, paty, **kw)
+
+
+def epipolar_search_slab_ref(dI, scal, color, weights, patx, paty, **kw):
+    """Plain PyTorch version of the slab kernel: the same function with the
+    Gauss-Newton gradients differenced from the intensity plane."""
+    img = dI[..., 0]
+    return _search_ref(img, lambda x, y: _sample3_plane(img, x, y),
+                       scal, color, weights, patx, paty, **kw)
+
+
+def _search_ref(img, sample3, scal, color, weights, patx, paty, *, S: int,
+                huber_th: float, gn_iters: int, gn_threshold: float,
+                radius: int, edge: int):
+    """The search on the (H, W) plane `img`; `sample3(x, y)` gives the
+    (..., 3) bilinear sample of (I, dI/dx, dI/dy) for Gauss-Newton."""
     N = scal.shape[0]
-    dev = dI.device
+    dev = img.device
     f32 = torch.float32
     ptx = _finite_or_zero(scal[:, 0])
     pty = _finite_or_zero(scal[:, 1])
@@ -259,7 +420,6 @@ def epipolar_search_ref(dI, scal, color, weights, patx, paty, *, S: int,
     nsteps = scal[:, 4]
     aff_a = scal[:, 5]
     aff_b = scal[:, 6]
-    img = dI[..., 0]
     H, W = img.shape
     steps = torch.arange(S, dtype=f32, device=dev)
 
@@ -306,7 +466,7 @@ def epipolar_search_ref(dI, scal, color, weights, patx, paty, *, S: int,
         be = torch.full_like(bu, 1e5)
         done = torch.zeros(N, dtype=torch.bool, device=dev)
         for _ in range(gn_iters):
-            hit = bilinear(dI, bu[:, None] + patx, bv[:, None] + paty)  # (N,8,3)
+            hit = sample3(bu[:, None] + patx, bv[:, None] + paty)  # (N,8,3)
             r = hit[..., 0] - (aff_a[:, None] * color + aff_b[:, None])
             d_res = dx[:, None] * hit[..., 1] + dy[:, None] * hit[..., 2]
             hw, _ = _huber_energy(r, huber_th)

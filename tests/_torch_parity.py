@@ -64,3 +64,94 @@ def fs_snapshot(fs):
         selector_potential=fs.selector.current_potential,
         selector_calls=fs.selector._calls,
     )
+
+
+def jax_graph_uniform(salt, shape, device="cpu"):
+    """The thinning draw of the JAX graph_system's keyframe branch
+    (graph_system.py:492-495), for GraphSystem(uniform=) / frame_auto(uniform=)."""
+    key = jax.random.fold_in(jax.random.PRNGKey(17), np.uint32(salt))
+    return torch.from_numpy(np.array(jax.random.uniform(key, shape))).to(device)
+
+
+def _shell(h):
+    return dict(id=h.id, timestamp=h.timestamp, T_cam_to_ref=np.array(h.T_cam_to_ref),
+                ref_kf_id=h.ref_kf_id, aff=np.array(h.aff), is_kf=h.is_kf,
+                T_cw=None if h.T_cw is None else np.array(h.T_cw))
+
+
+def gs_snapshot(gs):
+    """Snapshot of a JAX GraphSystem for bridge.graph_system_from_snapshot."""
+    st = gs.state
+    scalars = {
+        k: np.array(getattr(st, k))
+        for k in st._fields if k not in ("win", "imm", "ref", "dI0_slots")
+    }
+    return dict(
+        win=fields(st.win),
+        imm=fields(st.imm),
+        ref=[tuple(np.array(x) for x in lvl) for lvl in st.ref],
+        dI0_slots=np.array(st.dI0_slots),
+        scalars=scalars,
+        history=[_shell(h) for h in gs.history],
+        kf_shells=[_shell(h) for h in gs.kf_shells],
+        slot_frame_id=dict(gs.slot_frame_id),
+        pot=gs.pot,
+        is_lost=gs.is_lost,
+    )
+
+
+def jax_graph_reference(w, h, base, n_boot, n_frames):
+    """The JAX package's bootstrap + GraphSystem run over the KITTI-settings
+    corridor that chip_smoke.py drives through the port (sequence 0 of
+    bench.py): KF frames and ATE, the bounds chip_smoke.py holds the port to.
+
+        JAX_PLATFORMS=cpu python tests/_torch_parity.py 1216 352 0.54 12 40
+    """
+    import time
+
+    from stereo_dso_g2o_tpu.config import Settings
+    from stereo_dso_g2o_tpu.frontend.full_system import FullSystem
+    from stereo_dso_g2o_tpu.frontend.graph_system import GraphSystem
+    from stereo_dso_g2o_tpu.io import synthetic, trajectory
+    from stereo_dso_g2o_tpu.models.camera import make_calib
+
+    step = 0.30
+    settings = Settings(
+        desired_point_density=2000.0, desired_immature_density=1500.0,
+        immature_cap=2048, active_cap=2048,
+        affine_opt_mode_a=0.0, affine_opt_mode_b=0.0,
+    )
+    K = synthetic.default_K(w, h, fov_deg=80.0)
+    scene = synthetic.corridor_scene(seed=100, length=step * n_frames + 40.0,
+                                     box_spacing=9.0, lateral=14.0)
+    poses_cw = synthetic.forward_trajectory(n_frames, step=step, yaw_amp=0.10,
+                                            yaw_period=80.0, seed=0)
+    expos = 1.0 + 0.12 * np.sin(0.25 * np.arange(n_frames))
+    lefts, rights = synthetic.render_stereo_sequence_fast(scene, K, w, h, base, poses_cw, expos)
+    calib = make_calib(K[0, 0], K[1, 1], K[0, 2], K[1, 2], base, w, h, n_levels=6)
+    fs = FullSystem(calib, settings)
+    t0 = time.perf_counter()
+    for i in range(n_boot):
+        fs.add_frame(lefts[i], rights[i], i, timestamp=0.1 * i)
+    print(f"bootstrap {n_boot} frames: {time.perf_counter() - t0:.1f} s, "
+          f"KFs {[s.id for s in fs.kf_shells]}", flush=True)
+    gs = GraphSystem.from_full_system(fs)
+    for i in range(n_boot, n_frames):
+        t1 = time.perf_counter()
+        gs.add_frame(lefts[i], rights[i], i, timestamp=0.1 * i)
+        print(f"frame {i}: {time.perf_counter() - t1:.1f} s", flush=True)
+    traj = gs.trajectory()
+    gt = [np.linalg.inv(T) for T in poses_cw]
+    out = dict(w=w, h=h, n_boot=n_boot, n_frames=n_frames, lost=bool(gs.is_lost),
+               kf_frames=[s.id for s in gs.kf_shells], n_kf=len(gs.kf_shells),
+               ate=float(trajectory.ate_rmse(traj, gt)),
+               seconds=round(time.perf_counter() - t0, 1))
+    print(out, flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    import sys
+
+    a = sys.argv[1:]
+    jax_graph_reference(int(a[0]), int(a[1]), float(a[2]), int(a[3]), int(a[4]))

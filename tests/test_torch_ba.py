@@ -49,7 +49,7 @@ def window():
     # side by ~3e-4
     jwin = jwin.replace(pt_has_prior=jwin.pt_status == 1)
     jdI = jdI.astype(jnp.float32)  # its zero padding is float64 under x64
-    return jwin, jdI, bridge.window_from_numpy(fields(jwin)), t(jdI)
+    return jwin, jdI, bridge.window_from_numpy(fields(jwin), device="cpu"), t(jdI)
 
 
 def test_bridge_round_trip(window):
@@ -75,7 +75,7 @@ def test_optimize_fused_matches(window):
     tw, te, tn = tba.optimize_fused(twin, tdI, settings=TSET, max_its=6)
     assert int(tn) == int(jn)
     np.testing.assert_allclose(float(te), float(je), rtol=RTOL)
-    want = bridge.window_from_numpy(fields(jw))
+    want = bridge.window_from_numpy(fields(jw), device="cpu")
     np.testing.assert_allclose(n(tw.w2c()), n(want.w2c()), atol=1e-5, rtol=0)
     np.testing.assert_allclose(n(tw.pt_idepth), n(want.pt_idepth), rtol=RTOL, atol=1e-6)
     np.testing.assert_array_equal(n(tw.res_state), n(want.res_state))
@@ -84,7 +84,7 @@ def test_optimize_fused_matches(window):
 def test_flag_and_marginalize_points_match(window):
     jwin, jdI, twin, tdI = window
     jw, _, _ = jba.optimize_fused(jwin, jdI, settings=JSET, max_its=4)
-    tw = bridge.window_from_numpy(fields(jw))
+    tw = bridge.window_from_numpy(fields(jw), device="cpu")
     marg = np.array([True, False, False, False])
     jf = jba.flag_points_for_removal(jw, jdI, jnp.asarray(marg), 2, 1, settings=JSET)
     tf = tba.flag_points_for_removal(tw, tdI, torch.from_numpy(marg), 2, 1, settings=TSET)
@@ -100,7 +100,7 @@ def test_flag_and_marginalize_points_match(window):
 def test_marginalize_frame_matches(window):
     jwin, jdI, twin, tdI = window
     jw, _, _ = jba.optimize_fused(jwin, jdI, settings=JSET, max_its=4)
-    tw = bridge.window_from_numpy(fields(jw))
+    tw = bridge.window_from_numpy(fields(jw), device="cpu")
     jd = jba.marginalize_frame(jba.drop_frame_refs(jw, 1), 1, settings=JSET)
     td = tba.marginalize_frame(tba.drop_frame_refs(tw, 1), 1, settings=TSET)
     np.testing.assert_array_equal(n(td.frame_valid), np.array(jd.frame_valid))

@@ -33,7 +33,8 @@ def _tset():
 
 
 def _tcalib(K):
-    return tmake_calib(K[0, 0], K[1, 1], K[0, 2], K[1, 2], BASE, W_, H_, n_levels=5)
+    return tmake_calib(K[0, 0], K[1, 1], K[0, 2], K[1, 2], BASE, W_, H_, n_levels=5,
+                       device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -103,12 +104,12 @@ def test_optimize_fused_matches_jax(jax_run):
     calls = jax_run["calls"]["ba"]
     assert len(calls) >= 2
     for c in calls:
-        win = bridge.window_from_numpy(c["win"])
+        win = bridge.window_from_numpy(c["win"], device="cpu")
         out, energy, nres = tba.optimize_fused(win, t(c["dI"]), settings=_tset(), max_its=c["max_its"])
         assert int(nres) == c["nres"]
         # energy: a sum of ~1e4 f32 Huber terms in another order
         assert abs(float(energy) - c["energy"]) <= 1e-4 * abs(c["energy"])
-        want = bridge.window_from_numpy(c["out_win"])
+        want = bridge.window_from_numpy(c["out_win"], device="cpu")
         np.testing.assert_allclose(n(out.w2c()), n(want.w2c()), atol=1e-5, rtol=0)
         np.testing.assert_allclose(n(out.pt_idepth), n(want.pt_idepth), rtol=1e-4, atol=1e-6)
 
@@ -117,8 +118,8 @@ def test_frame_step_full_matches_jax(jax_run):
     calls = jax_run["calls"]["step"]
     assert len(calls) >= 4
     for c in calls:
-        win = bridge.window_from_numpy(c["win"])
-        imm = bridge.immature_from_numpy(c["imm"])
+        win = bridge.window_from_numpy(c["win"], device="cpu")
+        imm = bridge.immature_from_numpy(c["imm"], device="cpu")
         ref = tuple(tuple(t(x) for x in lvl) for lvl in c["ref"])
         pyrs, imm_out, track, used = tfstep.frame_step_full(
             t(c["left"]), t(c["right"]), ref, win, imm, t(c["c"]), torch.tensor(c["b"]),
@@ -152,11 +153,12 @@ def test_keyframe_branch_from_snapshot_matches_jax(jax_run):
     lands where the JAX system did."""
     K, frames = jax_run["K"], jax_run["frames"]
     before, after = jax_run["snaps"][SNAP_AT], jax_run["snaps"][SNAP_AT + 1]
-    tfs = bridge.full_system_from_snapshot(before, _tcalib(K), _tset(), uniform=jax_uniform)
+    tfs = bridge.full_system_from_snapshot(before, _tcalib(K), _tset(), device="cpu",
+                                           uniform=jax_uniform)
     tfs.add_frame(*frames[SNAP_AT], SNAP_AT)
     assert tfs.kf_slots == after["kf_slots"]
     assert [s.id for s in tfs.kf_shells] == [h["id"] for h in after["history"] if h["is_kf"]]
-    want = bridge.window_from_numpy(after["win"])
+    want = bridge.window_from_numpy(after["win"], device="cpu")
     # point activation and outlier removal are threshold decisions on f32
     # values: the trace module's 99.9 % status target
     assert (n(tfs.win.pt_status) == n(want.pt_status)).mean() >= 0.999

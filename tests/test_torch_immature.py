@@ -39,7 +39,7 @@ def seeded():
     dI0 = jbuild_pyramid(jnp.asarray(left0, jnp.float32), 1)[0][0]
     dI1 = jbuild_pyramid(jnp.asarray(left1, jnp.float32), 1)[0][0]
     rng = np.random.default_rng(4)
-    jset, tset = jimm.empty(F, C), timm.empty(F, C)
+    jset, tset = jimm.empty(F, C), timm.empty(F, C, device="cpu")
     for slot in (0, 2):  # slot 1 stays empty
         us = rng.uniform(10, W_ - 11, C).astype(np.float32)
         vs = rng.uniform(10, H_ - 11, C).astype(np.float32)

@@ -128,19 +128,20 @@ def test_pyramid_matches():
 
 def test_camera_matches():
     jc = jcam.make_calib(700.0, 710.0, 607.5, 175.5, 0.54, 1216, 352, 6)
-    tc = tcam.make_calib(700.0, 710.0, 607.5, 175.5, 0.54, 1216, 352, 6)
+    tc = tcam.make_calib(700.0, 710.0, 607.5, 175.5, 0.54, 1216, 352, 6, device="cpu")
     assert jc.w == tc.w and jc.h == tc.h
     for lvl in range(6):
         np.testing.assert_allclose(n(tc.K(lvl)), np.array(jc.K(lvl)), atol=ATOL_UNIT, rtol=1e-6)
         np.testing.assert_allclose(n(tc.Ki(lvl)), np.array(jc.Ki(lvl)), atol=ATOL_UNIT, rtol=1e-6)
     assert float(tc.bf()) == pytest.approx(float(jc.bf()), rel=1e-6)
     # the state bridge builds the same calibration from the JAX one's arrays
-    bc = bridge.calib_from_numpy(np.array(jc.c), float(jc.baseline), jc.w[0], jc.h[0], 6)
+    bc = bridge.calib_from_numpy(np.array(jc.c), float(jc.baseline), jc.w[0], jc.h[0], 6,
+                                 device="cpu")
     assert bc.w == tc.w and bc.h == tc.h
     for lvl in range(6):
         np.testing.assert_array_equal(n(bc.K(lvl)), n(tc.K(lvl)))
     with pytest.raises(ValueError):
-        tcam.make_calib(700.0, 700.0, 600.0, 170.0, 0.5, 1000, 350, 6)
+        tcam.make_calib(700.0, 700.0, 600.0, 170.0, 0.5, 1000, 350, 6, device="cpu")
 
 
 @pytest.mark.parametrize("density", [0.0, 0.2, 0.9])

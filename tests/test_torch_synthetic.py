@@ -45,7 +45,7 @@ def test_raycast_matches_jax(sequence):
     occlusion edge can pick the other surface."""
     w, h, base, K, scene, poses, expos = sequence
     jl, jr = jsyn.render_stereo_sequence_fast(scene, K, w, h, base, poses, expos, chunk=3)
-    tl, tr = tsyn.render_stereo_sequence_fast(scene, K, w, h, base, poses, expos)
+    tl, tr = tsyn.render_stereo_sequence_fast(scene, K, w, h, base, poses, expos, device="cpu")
     for a, b in ((tl.numpy(), jl), (tr.numpy(), jr)):
         assert a.shape == b.shape == (3, h, w) and a.dtype == np.uint8
         d = np.abs(a.astype(np.int32) - np.asarray(b).astype(np.int32))
@@ -56,7 +56,7 @@ def test_raycast_matches_jax(sequence):
 def test_raycast_idepth_matches_jax(sequence):
     w, h, base, K, scene, poses, expos = sequence
     _, jid = jsyn.render_multi_batch(scene, K, w, h, np.stack(poses))
-    _, tid = tsyn.render_multi_batch(scene, K, w, h, np.stack(poses))
+    _, tid = tsyn.render_multi_batch(scene, K, w, h, np.stack(poses), device="cpu")
     jid = np.asarray(jid)
     # inverse depths in 1/m of surfaces 1-15 m away: f32 intersection roundoff
     np.testing.assert_allclose(tid.numpy(), jid, rtol=1e-5, atol=1e-6)

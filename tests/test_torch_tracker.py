@@ -59,7 +59,8 @@ def pair():
 
     tdref, _ = tbuild_pyramid(t(ref_img), N_LVL)
     tdnew, _ = tbuild_pyramid(t(new_img), N_LVL)
-    tcal = tmake_calib(K[0, 0], K[1, 1], K[0, 2], K[1, 2], 0.15, W_, H_, n_levels=N_LVL)
+    tcal = tmake_calib(K[0, 0], K[1, 1], K[0, 2], K[1, 2], 0.15, W_, H_, n_levels=N_LVL,
+                       device="cpu")
     ttr = tct.CoarseTracker(tcal, TSET)
     ttr.set_reference(tdref, t(us), t(vs), t(ids), t(weights), torch.from_numpy(valid))
     return dict(T_gt=T_gt, jcal=jcal, jtr=jtr, jdnew=jdnew, ttr=ttr, tdnew=tdnew)
