@@ -10,9 +10,13 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
   3. resident kernel vs plain: runs the kernel and its plain PyTorch
      version on a rendered 1216x352 stereo pair with seeded lanes at the
      slice's shapes (temporal N=5120, stereo N=2560 in both directions),
-     checks agreement and times both (CUDA events, median of 20
-     synchronized repetitions); the slab kernel is held against it and
-     timed on the same lanes;
+     checks agreement and times both (CUDA events; `cuda_ms` says how); the slab kernel is held against it and
+     timed on the same lanes; then both kernels on the edge lanes
+     (ops/trace_lanes.py: num_steps 0, 1, 2.5, S-1, > S, NaN; lines leaving
+     the image on each side; anchors beyond the clamp; NaN and inf
+     positions and directions; a NaN pattern entry), the slab kernel also
+     with its band cut to 8 pixels so that its taps fall back to global
+     memory; and the time of making the intensity plane;
   4. slice: renders 40 frames of the bench corridor (sequence 0) on the
      card, runs the port's FullSystem over them at the KITTI-resolution
      bench settings, and checks: not lost, finite poses, the kernel was
@@ -21,25 +25,34 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
   5. slab kernel vs plain, and vs the resident kernel, on a rendered
      2048x1024 pair (over the 6 MB gate) at max_pix_search 0.027 (S = 86):
      temporal N=5120, stereo N=2560 both ways, stereo N=8192 (what
-     stereo_match gives it); both kernels timed there;
+     stereo_match gives it); both kernels timed there; the edge lanes and
+     the plane's time as in phase 3;
   6. stereo_match on that pair: went through the slab kernel, enough good
      points, inverse depth against the renderer's ground truth;
   7. the main path as bench.py drives it: FullSystem over frames 0-11,
      GraphSystem.from_full_system, add_frame over frames 12-39: not lost,
      finite poses, the resident kernel launched, a keyframe and a frame
      marginalization decided by the graph path, KF count and ATE inside
-     the bounds recorded in PERF.md.
+     the bounds recorded in PERF.md;
+  8. main-path lanes: the operands of the real launches of one non-keyframe
+     and one keyframe of phase 7 (recorded through trace_cuda.CAPTURE),
+     both kernels held against the plain version and each other and timed
+     on them, with the lane count, the share of lanes without a valid step
+     and the mean valid steps of the others: the shape a bound is read at.
+     SDSO_SAVE_LANES=<file> also writes them (and the synthetic lanes) out
+     for kernel_steps.py.
 Every kernel launch counter is set to 0 just before a path is driven and
 read just after. The last two lines are the kernel report and the device
 report (JSON). With SDSO_PROFILE=1 the two odometry paths also print their
 per-section host times and a torch.profiler summary of their last frames
-(device busy share, top kernels).
+(device busy share, top kernels, the epipolar kernels' time inside a frame).
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -69,6 +82,9 @@ HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12
 KF_RANGE = (7, 13)
 ATE_MAX = 2 * 0.0334 + 0.01
 # kernel vs plain version (both f32, same op order; see PERF.md)
+# cuda_ms keeps the card busy this long while the host enqueues the timed
+# calls: 2.5e7 cycles are over 12 ms at any clock up to 2 GHz
+SLEEP_CYCLES, SLEEP_MIN_S = 25_000_000, 12e-3
 IDX_AGREE_MIN = 0.999
 PROFILE_FRAMES = 10
 UV_TOL_PX = 1e-3
@@ -90,18 +106,45 @@ def settings_kitti():
     )
 
 
-def cuda_ms(fn, reps=20):
+def cuda_ms(fn, reps=20, rounds=5):
+    """Device time of one call of `fn`, in ms. A call that takes the card
+    under a millisecond is shorter than what the host needs to enqueue it
+    (a wrapper's Python is tens of microseconds), so one call between two
+    events would time the host. Instead the card is kept busy
+    (`torch.cuda._sleep`) while the host enqueues an event, `reps` calls and
+    an event: the calls then run back to back, and the time between the
+    events over `reps` is the device's. Median of `rounds` such runs. A
+    longer `fn` (a plain version: hundreds of small kernels) is timed call by
+    call, median of `reps`, host gaps included, as its caller would see it."""
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    long_call = time.perf_counter() - t0 > 1e-3
     times = []
-    for _ in range(reps):
+    for _ in range(reps if long_call else rounds):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if long_call:
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+            continue
+        t0 = time.perf_counter()
+        torch.cuda._sleep(SLEEP_CYCLES)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
+        host_s = time.perf_counter() - t0
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        if host_s > SLEEP_MIN_S:
+            fail(f"cuda_ms: the host took {host_s * 1e3:.1f} ms to enqueue {reps} calls, longer "
+                 f"than the card was kept busy")
+        times.append(a.elapsed_time(b) / reps)
     times.sort()
     return times[len(times) // 2]
 
@@ -150,9 +193,18 @@ def make_lanes(settings, dI_host, dI_tgt, n, stereo, dirx, seed):
                 edge=tk.EDGE_ZERO if stereo else tk.EDGE_CLAMP)
 
 
-def compare(out_k, out_p, name):
+def compare(out_k, out_p, name, exact=False):
+    """Hold `out_k` to `out_p` within the kernel-vs-plain tolerances; with
+    `exact`, bit for bit (NaN equal to NaN)."""
     from stereo_dso_g2o_tpu_torch.ops import trace_cuda as tk
 
+    if exact:
+        same = (out_k == out_p) | (torch.isnan(out_k) & torch.isnan(out_p))
+        bad = int((~same.all(dim=1)).sum())
+        print(f"[kernel] {name}: bit-identical on {out_k.shape[0] - bad} of {out_k.shape[0]} lanes")
+        if bad:
+            fail(f"{name}: {bad} lanes differ")
+        return 0.0
     bidx_eq = out_k[:, tk.OUT_BEST_IDX] == out_p[:, tk.OUT_BEST_IDX]
     frac = float(bidx_eq.float().mean())
     m = bidx_eq
@@ -162,8 +214,8 @@ def compare(out_k, out_p, name):
     for lane in (tk.OUT_E_SEARCH, tk.OUT_SECOND_BEST, tk.OUT_E_GN):
         a, b = out_k[m][:, lane], out_p[m][:, lane]
         fin = torch.isfinite(a) & torch.isfinite(b)
-        if not bool((torch.isfinite(a) == torch.isfinite(b)).all()):
-            fail(f"{name}: finite/inf pattern of energy lane {lane} differs")
+        if not bool(((torch.isfinite(a) == torch.isfinite(b)) & (torch.isnan(a) == torch.isnan(b))).all()):
+            fail(f"{name}: finite/inf/NaN pattern of energy lane {lane} differs")
         if bool(fin.any()):
             rel = torch.abs(a[fin] - b[fin]) / torch.clamp(torch.abs(b[fin]), min=1e-6)
             e_rel = max(e_rel, float(rel.max()))
@@ -188,11 +240,20 @@ def bound_ms(H, W, channels, c, gn_iters):
     Huber energy (9): 30; per GN iteration and pixel: three such samples
     with differenced gradients and the step: 80."""
     n = c["scal"].shape[0]
-    steps = float(torch.clamp(c["scal"][:, 4], 0, c["S"]).sum())
+    steps = float(torch.ceil(torch.clamp(torch.nan_to_num(c["scal"][:, 4], nan=0.0), 0, c["S"])).sum())
     nbytes = 4 * (H * W * channels + 5 * n * 8 + n * 8)
     flops = 8 * (30 * steps + 80 * gn_iters * n)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
     return 1000.0 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def lane_stats(c):
+    """(lanes, share of lanes with no valid step, mean valid steps of the rest)."""
+    ns = torch.nan_to_num(c["scal"][:, 4], nan=0.0)
+    valid = torch.ceil(torch.clamp(ns, 0, c["S"]))
+    live = valid > 0
+    n = int(valid.numel())
+    return n, 1.0 - float(live.float().mean()), float(valid[live].mean()) if bool(live.any()) else 0.0
 
 
 def time_pair(kernel, plain):
@@ -240,6 +301,12 @@ def print_profile(prof, wall_ms):
     print(f"[profile] last {PROFILE_FRAMES} frames: wall {wall_ms:.1f} ms, device busy "
           f"{dev_ms:.1f} ms ({100.0 * dev_ms / wall_ms:.1f} %), {launches} kernels "
           f"({launches / PROFILE_FRAMES:.0f}/frame, {1000.0 * dev_ms / max(launches, 1):.2f} us each)")
+    for e in kernels:
+        if "epipolar_search" in e.key:
+            name = "epipolar_search_slab" if "epipolar_search_slab" in e.key else "epipolar_search"
+            print(f"[profile] inside the frames: {name}: {e.count} launches, "
+                  f"{e.self_device_time_total / 1000.0:.4f} ms in all, "
+                  f"{e.self_device_time_total / 1000.0 / max(e.count, 1):.4f} ms each")
     print(events.table(sort_by="self_device_time_total", row_limit=15, max_name_column_width=60))
 
 
@@ -326,16 +393,53 @@ def main() -> int:
                           f"{second.__name__} vs plain, {tag}")
             max_err[second.__name__] = max(max_err[second.__name__], err)
             compare(out[second.__name__], out[first.__name__],
-                    f"{second.__name__} vs {first.__name__}, {tag}")
+                    f"{second.__name__} vs {first.__name__}, {tag}", exact=True)
             for kern, ref in ((first, first_ref), (second, second_ref)):
                 k_ms, p_ms, raw = time_pair(lambda: kern(*args, **kw), lambda: ref(*args, **kw))
                 timing[(kern.__name__, f"{W}x{H}", name)] = (k_ms, p_ms)
                 channels = 3 if kern is tk.epipolar_search else 1
                 bounds[(kern.__name__, f"{W}x{H}", name)] = bound_ms(H, W, channels, c, gn["gn_iters"])
                 b_ms, b_by = bounds[(kern.__name__, f"{W}x{H}", name)]
-                print(f"[kernel] {kern.__name__} {tag}: S={c['S']} kernel {raw[0]:.4f}/{raw[1]:.4f} ms, "
-                      f"plain {raw[2]:.4f}/{raw[3]:.4f} ms (median of 20, order p,k,k,p); "
+                print(f"[kernel] {kern.__name__} {tag}: S={c['S']} mean valid steps "
+                      f"{lane_stats(c)[2]:.1f}, kernel {raw[0]:.4f}/{raw[1]:.4f} ms, "
+                      f"plain {raw[2]:.4f}/{raw[3]:.4f} ms (device time, order p,k,k,p); "
                       f"bound {b_ms:.5f} ms by {b_by}, share {100 * b_ms / k_ms:.1f} %")
+
+    def check_edges(size, S, dI, seed):
+        """Both kernels on the edge lanes: each against its plain version,
+        the two against each other bit for bit, and the slab kernel with a
+        band of 8 pixels (nearly every tap from global memory) likewise."""
+        from stereo_dso_g2o_tpu_torch.ops import trace_lanes
+
+        H, W = size
+        for stereo in (False, True):
+            lanes, labels = trace_lanes.edge_lanes(dI, S, stereo, seed=seed, reps=8)
+            args = (dI, lanes["scal"], lanes["color"], lanes["weights"], lanes["patx"], lanes["paty"])
+            kw = dict(S=S, edge=tk.EDGE_ZERO if stereo else tk.EDGE_CLAMP, **gn)
+            tag = f"{W}x{H} edge lanes {'stereo' if stereo else 'temporal'} N={len(labels)}"
+            k1, k2 = tk.epipolar_search(*args, **kw), tk.epipolar_search_slab(*args, **kw)
+            k2_cut = tk.epipolar_search_slab(*args, **kw, band_len=8)
+            torch.cuda.synchronize()
+            err = compare(k1, tk.epipolar_search_ref(*args, **kw), f"epipolar_search vs plain, {tag}")
+            max_err["epipolar_search"] = max(max_err["epipolar_search"], err)
+            err = compare(k2, tk.epipolar_search_slab_ref(*args, **kw),
+                          f"epipolar_search_slab vs plain, {tag}")
+            max_err["epipolar_search_slab"] = max(max_err["epipolar_search_slab"], err)
+            compare(k2, k1, f"epipolar_search_slab vs epipolar_search, {tag}", exact=True)
+            compare(k2_cut, k1, f"epipolar_search_slab (band of 8) vs epipolar_search, {tag}", exact=True)
+            ns = lanes["scal"][:, 4]
+            none = ~(ns > 0)
+            if not bool((k1[none, tk.OUT_BEST_IDX] == 0).all() and
+                        torch.isposinf(k1[none, tk.OUT_E_SEARCH]).all()):
+                fail(f"{tag}: a lane without a valid step does not report step 0 and +inf")
+
+    def plane_ms(size, dI):
+        """What `intensity_plane` costs when it has to make the plane: once
+        per image, against three or more searches of that image per frame."""
+        ms = cuda_ms(lambda: dI[..., 0].contiguous())
+        print(f"[kernel] {size[1]}x{size[0]}: making the intensity plane takes {ms:.4f} ms "
+              f"(device time)")
+        return ms
 
     cases = [
         ("temporal N=5120", make_lanes(settings, dIL, dIR, N_TEMPORAL, False, 0.0, 1)),
@@ -344,6 +448,8 @@ def main() -> int:
     ]
     check_and_time((H_, W_), cases, tk.epipolar_search, tk.epipolar_search_ref,
                    tk.epipolar_search_slab, tk.epipolar_search_slab_ref)
+    check_edges((H_, W_), cases[0][1]["S"], dIR, 21)
+    plane = {f"{W_}x{H_}": plane_ms((H_, W_), dIR)}
 
     # ---- 4. the slice: FullSystem over 40 frames ----
     from stereo_dso_g2o_tpu_torch.frontend import graph_system as tgs
@@ -415,6 +521,8 @@ def main() -> int:
     ]
     check_and_time((H2, W2), cases2, tk.epipolar_search_slab, tk.epipolar_search_slab_ref,
                    tk.epipolar_search, tk.epipolar_search_ref)
+    check_edges((H2, W2), cases2[0][1]["S"], dIR2, 22)
+    plane[f"{W2}x{H2}"] = plane_ms((H2, W2), dIR2)
 
     # ---- 6. stereo_match at full width ----
     from stereo_dso_g2o_tpu_torch.frontend.stereo_match import stereo_match
@@ -467,10 +575,19 @@ def main() -> int:
     tgs.reset_host_reads()
     PROF.reset()
 
+    captured = {}  # "non-keyframe" / "keyframe" -> the wrapper calls of one such frame
+
+    def graph_step(i):
+        record = i >= BOOT + 2 and len(captured) < 2
+        tk.CAPTURE = [] if record else None
+        gs.add_frame(lefts[i], rights[i], i, timestamp=0.1 * i)
+        calls, tk.CAPTURE = tk.CAPTURE, None
+        if calls:  # 3 searches a frame, more on a keyframe
+            captured.setdefault("keyframe" if len(calls) > 3 else "non-keyframe", calls)
+
     t_all = time.perf_counter()
-    frame_ms, prof = run_odometry(
-        lambda i: gs.add_frame(lefts[i], rights[i], i, timestamp=0.1 * i),
-        BOOT, N_FRAMES, lambda: gs.is_lost, "graph", PROFILE_FRAMES)
+    frame_ms, prof = run_odometry(graph_step, BOOT, N_FRAMES, lambda: gs.is_lost, "graph",
+                                  PROFILE_FRAMES)
     gs.flush()
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t_all
@@ -513,6 +630,51 @@ def main() -> int:
     if not ate <= GRAPH_ATE_MAX:
         fail(f"graph: ATE {ate} > {GRAPH_ATE_MAX}")
 
+    # ---- 8. the kernels on the main path's own lanes ----
+    if set(captured) != {"non-keyframe", "keyframe"}:
+        fail(f"graph: recorded the launches of {sorted(captured)} frames only")
+    main_path = []
+    for kind, calls in captured.items():
+        for j, (name, tensors, kw) in enumerate(calls):
+            if name != "epipolar_search":
+                fail(f"graph: a {kind} frame called {name}")
+            c = {"scal": tensors[1], "S": kw["S"]}
+            n_l, zero_share, mean_valid = lane_stats(c)
+            edge = "stereo" if kw["edge"] == tk.EDGE_ZERO else "temporal"
+            tag = f"main path {kind} launch {j} ({edge} N={n_l})"
+            k1, k2 = tk.epipolar_search(*tensors, **kw), tk.epipolar_search_slab(*tensors, **kw)
+            torch.cuda.synchronize()
+            err = compare(k1, tk.epipolar_search_ref(*tensors, **kw), f"epipolar_search vs plain, {tag}")
+            max_err["epipolar_search"] = max(max_err["epipolar_search"], err)
+            compare(k2, k1, f"epipolar_search_slab vs epipolar_search, {tag}", exact=True)
+            a1, b1, b2, a2 = (cuda_ms(lambda: tk.epipolar_search(*tensors, **kw)),
+                              cuda_ms(lambda: tk.epipolar_search_slab(*tensors, **kw)),
+                              cuda_ms(lambda: tk.epipolar_search_slab(*tensors, **kw)),
+                              cuda_ms(lambda: tk.epipolar_search(*tensors, **kw)))
+            b_ms, b_by = bound_ms(H_, W_, 3, c, kw["gn_iters"])
+            print(f"[kernel] {tag}: S={kw['S']}, {100 * zero_share:.1f} % of lanes without a valid "
+                  f"step, mean valid steps of the rest {mean_valid:.1f}; epipolar_search "
+                  f"{a1:.4f}/{a2:.4f} ms, epipolar_search_slab {b1:.4f}/{b2:.4f} ms (device time, "
+                  f"order k1,k2,k2,k1); bound {b_ms:.5f} ms by {b_by}, share "
+                  f"{100 * b_ms / min(a1, a2):.1f} %")
+            main_path.append({"frame": kind, "launch": j, "edge": edge, "lanes": n_l, "S": kw["S"],
+                              "share_without_valid_step": zero_share,
+                              "mean_valid_steps_of_live_lanes": mean_valid,
+                              "epipolar_search_ms": min(a1, a2),
+                              "epipolar_search_slab_ms": min(b1, b2),
+                              "bound_ms": b_ms, "bound_by": b_by})
+    if os.environ.get("SDSO_SAVE_LANES"):
+        torch.save({
+            "synthetic": {f"{W_}x{H_} {nm}": c for nm, c in cases}
+            | {f"{W2}x{H2} {nm}": c for nm, c in cases2},
+            "main_path": {f"{kind} launch {j}": dict(zip(("dI", "scal", "color", "weights", "patx", "paty"),
+                                                         tensors), **kw)
+                          for kind, calls in captured.items()
+                          for j, (_, tensors, kw) in enumerate(calls)},
+            "gn": gn,
+        }, os.environ["SDSO_SAVE_LANES"])
+        print(f"[kernel] lanes written to {os.environ['SDSO_SAVE_LANES']}")
+
     # ---- report: each kernel at the shape its main path gives it ----
     def row(name, source, replaces, key, col):
         k_ms, p_ms = timing[key]
@@ -529,6 +691,7 @@ def main() -> int:
             "shape": " ".join(key[1:]),
             "times": {" ".join(k[1:]): {"ms": v[0], "plain_ms": v[1], "bound_ms": bounds[k][0]}
                       for k, v in timing.items() if k[0] == name},
+            "plane_ms": plane, "main_path_lanes": main_path,
         }
 
     report = {"kernels": [

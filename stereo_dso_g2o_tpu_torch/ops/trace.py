@@ -113,10 +113,12 @@ def _search(dI, ptx, pty, dx, dy, num_steps, aff_a, aff_b, color, weights,
         [safe(ptx), safe(pty), safe(dx), safe(dy), ns.to(torch.float32),
          aff_a, aff_b, torch.zeros_like(ptx)],
         dim=1,
-    ).contiguous()
+    )
+    # patx / paty go as they are: slices of the rotated (N, 8, 2) pattern or
+    # one pattern broadcast over the lanes; the kernels read them by stride
     return search(
         dI.contiguous(), scal, color.contiguous(), weights.contiguous(),
-        patx.contiguous(), paty.contiguous(), S=S,
+        patx, paty, S=S,
         huber_th=float(settings.huber_th),
         gn_iters=int(settings.trace_gn_iterations),
         gn_threshold=float(settings.trace_gn_threshold),

@@ -2,11 +2,12 @@
 
 Two kernels compute the same function, as the JAX package's two Pallas
 bodies do: `epipolar_search` (csrc/epipolar_search.cu, the resident body:
-every tap read from the (H, W, 3) image in global memory / L2) and
+every tap read from the (H, W, 3) stack in global memory / L2) and
 `epipolar_search_slab` (csrc/epipolar_search_slab.cu, the slab body: each
-lane's window of the intensity plane staged in shared memory, gradients by
-central differences of that window). `uses_slab_route` is the JAX
-package's gate between them.
+lane's band of the intensity plane staged in shared memory, gradients by
+central differences of it). Both include csrc/epipolar_common.cuh, which
+holds the search itself. `uses_slab_route` is the JAX package's gate
+between them.
 
 `epipolar_search` runs, for each of N lanes (immature points), the part of
 ImmaturePoint::traceOn / traceStereo that the JAX package's Pallas kernel
@@ -21,10 +22,12 @@ ImmaturePoint::traceOn / traceStereo that the JAX package's Pallas kernel
      to +-0.5, halve-and-backtrack on a worse energy, stop below
      gn_threshold, energy weighted by weights^2).
 
-Inputs (all float32, contiguous, on one device):
-  dI      (H, W, 3) level-0 image + central-difference gradients
+Inputs (all float32, on one device):
+  dI      (H, W, 3) level-0 image + central-difference gradients, contiguous
   scal    (N, 8)    per lane: ptx, pty, dx, dy, num_steps, aff_a, aff_b, 0
-  color, weights, patx, paty  (N, 8)
+  color, weights  (N, 8), contiguous
+  patx, paty  (N, 8), any strides (a slice of a rotated (N, 8, 2) pattern
+              or one pattern broadcast over the lanes is read in place)
 Output (N, 8): best_u, best_v (after GN), e_search, second_best, e_gn,
 best_idx, 0, 0.
 
@@ -35,7 +38,8 @@ Sampling rules follow the JAX "xla" backend exactly:
     the image, vertical then horizontal lerp; it requires dx = +-1, dy = 0
     and an integer pattern, which `trace_stereo` guarantees;
   - Gauss-Newton always samples with `interp.bilinear` (clamped).
-Non-finite ptx/pty/dx/dy are read as 0 (callers mask those lanes).
+Non-finite ptx/pty/dx/dy are read as 0 (callers mask those lanes); a
+num_steps that is NaN or <= 0 masks every step (best_idx 0, +inf energies).
 
 `epipolar_search_slab` takes the same arguments and returns the same lanes;
 it reads only channel 0 of dI and takes the Gauss-Newton gradients as
@@ -45,7 +49,8 @@ pyramid's rule, so both kernels sample the same values.
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
 it runs its plain version (`epipolar_search_ref`,
 `epipolar_search_slab_ref`). `LAUNCHES` / `LAUNCHES_SLAB` count kernel
-launches.
+launches. While `CAPTURE` is a list, each wrapper call appends
+`(kernel name, the six tensors, the keyword arguments)` to it.
 """
 
 from __future__ import annotations
@@ -72,18 +77,25 @@ OUT_BEST_IDX = 5
 EDGE_CLAMP = 0
 EDGE_ZERO = 1
 
-MAX_STEPS = 128  # resident kernel: 4 steps per thread of a 32-thread warp
 SMEM_MAX = 232448  # dynamic shared memory one block may use on sm_90
-WINDOW_MARGIN = 16  # pattern extent + bilinear + gradient taps + GN travel
+WARPS = 8  # resident kernel: lanes per block, a warp per lane
+# ... and a block keeps S per-step energies per warp in the 48 KB of shared
+# memory a launch gets without asking for more
+MAX_STEPS = 48 * 1024 // (4 * WARPS)
+SLAB_WARPS = 4  # slab kernel: lanes per block
+BAND_CROSS = 16  # ... pixels staged across the line
+BAND_EXTRA = 20  # ... and along it, beyond S: pattern, bilinear, gradient, GN travel, alignment
 
 LAUNCHES = 0  # resident-kernel launches since the last reset_launches()
 LAUNCHES_SLAB = 0  # slab-kernel launches since the last reset_launches()
+CAPTURE = None  # a list to record wrapper calls into, else None
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {
     "epipolar_search": _PKG / "csrc" / "epipolar_search.cu",
     "epipolar_search_slab": _PKG / "csrc" / "epipolar_search_slab.cu",
 }
+HEADERS = [_PKG / "csrc" / "epipolar_common.cuh"]  # included by every source
 BUILD_DIR = _PKG / "_build"
 _LIBS = {}
 BUILD_SECONDS = {}  # kernel name -> wall time of the nvcc run this process made
@@ -105,34 +117,44 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def build(names=None) -> dict:
+def nvcc_command(src, lib, defines=()) -> list:
+    """The compiler call that makes shared library `lib` from `src`."""
+    return [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+        "-O3", "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+        *[f"-D{d}" for d in defines], "-o", str(lib), str(src),
+    ]
+
+
+def build(names=None, defines=()) -> dict:
     """Compile the named kernels (default: all of SOURCES) for sm_90a into
-    _build/, once per source version, one nvcc process per source, all
-    started together. Returns {name: shared library path}; the compiler's
-    output (-Xptxas -v) goes to _build/ptxas_<name>.log."""
+    _build/, once per version of the source, its headers and `defines`
+    (-D switches, for measuring a design variant), one nvcc process per
+    source, all started together. Returns {name: shared library path}; the
+    compiler's output (-Xptxas -v) goes to _build/ptxas_<name>.log."""
     names = list(SOURCES) if names is None else list(names)
+    defines = tuple(defines)
     out, running = {}, []
     for name in names:
         src = SOURCES[name]
-        tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-        lib = BUILD_DIR / f"lib{name}_{tag}.so"
+        version = hashlib.sha256(src.read_bytes())
+        for dep in HEADERS:
+            version.update(dep.read_bytes())
+        version.update(" ".join(defines).encode())
+        lib = BUILD_DIR / f"lib{name}_{version.hexdigest()[:16]}.so"
         out[name] = lib
         if lib.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [
-            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-            "-o", str(tmp), str(src),
-        ]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        proc = subprocess.Popen(nvcc_command(src, tmp, defines), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running.append((name, lib, tmp, proc, time.perf_counter()))
     failed = []
     for name, lib, tmp, proc, t0 in running:
         log, _ = proc.communicate()
         BUILD_SECONDS[name] = time.perf_counter() - t0
-        (BUILD_DIR / f"ptxas_{name}.log").write_text(log)
+        tag = "".join(f"_{d}" for d in defines)
+        (BUILD_DIR / f"ptxas_{name}{tag}.log").write_text(log)
         if proc.returncode != 0:
             failed.append(f"nvcc failed on {SOURCES[name].name} ({proc.returncode}):\n{log}")
         else:
@@ -143,24 +165,31 @@ def build(names=None) -> dict:
 
 
 _PTR = ctypes.c_void_p
-_ARGTYPES = [_PTR] * 6 + [  # image scal color weights patx paty
+_LANES = [_PTR] * 5 + [ctypes.c_longlong] * 2  # scal color weights patx paty, pattern strides
+_TAIL = [
     _PTR,  # out
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # H W N S
     ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
     ctypes.c_int,  # edge
 ]
+_ARGTYPES = {
+    "epipolar_search": [_PTR, _PTR] + _LANES + _TAIL + [_PTR],  # (plane,) dI ... stream
+    "epipolar_search_slab": [_PTR] + _LANES + _TAIL + [ctypes.c_int, ctypes.c_int, _PTR],
+}  # slab: plane ... band length, block's shared memory bytes, stream
 
 
-def _load(name: str):
+def _load(name: str, defines=()):
     """The kernel's C entry point `sdso_<name>`, built at first use."""
-    if name not in _LIBS:
-        lib = ctypes.CDLL(str(build([name])[name]))
+    key = (name, tuple(defines))
+    if key not in _LIBS:
+        lib = ctypes.CDLL(str(build([name], defines)[name]))
         fn = getattr(lib, f"sdso_{name}")
-        extra = [ctypes.c_int, ctypes.c_int, ctypes.c_int] if name == "epipolar_search_slab" else []
-        fn.argtypes = _ARGTYPES + extra + [_PTR]  # (window rows, cols, bytes,) stream
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-        _LIBS[name] = fn
-    return _LIBS[name]
+        if name == "epipolar_search_slab":
+            fn.warps = lib.sdso_epipolar_search_slab_warps()
+        _LIBS[key] = fn
+    return _LIBS[key]
 
 
 def _check(dI, scal, color, weights, patx, paty, edge):
@@ -177,7 +206,7 @@ def _check(dI, scal, color, weights, patx, paty, edge):
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.device != dI.device:
             raise ValueError(f"{name} is on {t.device}, dI on {dI.device}")
-        if not t.is_contiguous():
+        if name not in ("patx", "paty") and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if dI.shape[0] < 2 or dI.shape[1] < 2:
         raise ValueError("image must be at least 2x2")
@@ -187,19 +216,26 @@ def _check(dI, scal, color, weights, patx, paty, edge):
         raise ValueError(f"unsupported device {dI.device}")
 
 
-def _launch(name, image, scal, color, weights, patx, paty, H, W, S, huber_th,
-            gn_iters, gn_threshold, radius, edge, extra=()):
-    """Launch kernel `name` on the image's current stream; (N, 8) float32."""
+def _launch(name, images, scal, color, weights, patx, paty, H, W, S, huber_th,
+            gn_iters, gn_threshold, radius, edge, band_len=None, defines=()):
+    """Launch kernel `name` on the image's current stream; (N, 8) float32.
+    `images`: the tensors the kernel reads pixels from, in its order (None:
+    a null pointer, for an image this build of the kernel does not read)."""
     N = scal.shape[0]
-    out = torch.empty((N, 8), dtype=torch.float32, device=image.device)
-    fn = _load(name)
-    with torch.cuda.device(image.device):
-        stream = torch.cuda.current_stream(image.device).cuda_stream
+    if patx.stride() != paty.stride():  # the kernel takes one pair of strides
+        patx, paty = patx.contiguous(), paty.contiguous()
+    out = torch.empty((N, 8), dtype=torch.float32, device=scal.device)
+    fn = _load(name, defines)
+    extra = ()
+    if name == "epipolar_search_slab":
+        extra = (int(band_len), fn.warps * slab_window(S, band_len)[2])
+    with torch.cuda.device(scal.device):
+        stream = torch.cuda.current_stream(scal.device).cuda_stream
         rc = fn(
-            image.data_ptr(), scal.data_ptr(), color.data_ptr(), weights.data_ptr(),
-            patx.data_ptr(), paty.data_ptr(), out.data_ptr(),
-            H, W, N, int(S), float(huber_th), int(gn_iters), float(gn_threshold),
-            int(radius), int(edge), *extra, stream,
+            *[None if im is None else im.data_ptr() for im in images], scal.data_ptr(), color.data_ptr(),
+            weights.data_ptr(), patx.data_ptr(), paty.data_ptr(), *patx.stride(),
+            out.data_ptr(), H, W, N, int(S), float(huber_th), int(gn_iters),
+            float(gn_threshold), int(radius), int(edge), *extra, stream,
         )
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
@@ -214,16 +250,17 @@ def epipolar_search(dI, scal, color, weights, patx, paty, *, S: int,
     _check(dI, scal, color, weights, patx, paty, edge)
     if not 1 <= S <= MAX_STEPS:
         raise ValueError(f"S must be in [1, {MAX_STEPS}], got {S}")
+    kw = dict(S=S, huber_th=huber_th, gn_iters=gn_iters, gn_threshold=gn_threshold,
+              radius=radius, edge=edge)
+    if CAPTURE is not None:
+        CAPTURE.append(("epipolar_search", (dI, scal, color, weights, patx, paty), kw))
     if dI.device.type == "cpu":
-        return epipolar_search_ref(
-            dI, scal, color, weights, patx, paty, S=S, huber_th=huber_th,
-            gn_iters=gn_iters, gn_threshold=gn_threshold, radius=radius, edge=edge,
-        )
+        return epipolar_search_ref(dI, scal, color, weights, patx, paty, **kw)
     if scal.shape[0] == 0:
         return torch.empty((0, 8), dtype=torch.float32, device=dI.device)
-    out = _launch("epipolar_search", dI, scal, color, weights, patx, paty,
-                  dI.shape[0], dI.shape[1], S, huber_th, gn_iters, gn_threshold,
-                  radius, edge)
+    out = _launch("epipolar_search", (None, dI), scal, color, weights,
+                  patx, paty, dI.shape[0], dI.shape[1], S, huber_th, gn_iters,
+                  gn_threshold, radius, edge)
     LAUNCHES += 1
     return out
 
@@ -243,13 +280,15 @@ def uses_slab_route(H: int, W: int) -> bool:
     return Hp * Wp * 4 > 6 * 2**20
 
 
-def slab_window(S: int, edge: int):
-    """(rows, cols, dynamic shared memory bytes) of the slab kernel's
-    per-lane window: the S-step segment plus WINDOW_MARGIN in each
-    direction it can run; a stereo lane's segment is horizontal."""
-    cols = S + WINDOW_MARGIN
-    rows = WINDOW_MARGIN if edge == EDGE_ZERO else cols
-    return rows, cols, 4 * (rows * cols + 9 * S)  # + per-pixel and per-step energies
+def slab_window(S: int, band_len=None):
+    """(pixels across the line, pixels along it, shared-memory bytes) of
+    the band the slab kernel stages for one lane: BAND_CROSS pixels across
+    at each of `band_len` major coordinates (default: the S-step segment
+    plus BAND_EXTRA, rounded up to a multiple of 4), and the lane's S
+    per-step energies. A block holds SLAB_WARPS lanes."""
+    if band_len is None:
+        band_len = (S + BAND_EXTRA + 3) // 4 * 4
+    return BAND_CROSS, band_len, 4 * (BAND_CROSS * band_len + (S + 3) // 4 * 4)
 
 
 _PLANES = []  # [(dI, dI._version, plane)], the two most recent images
@@ -271,27 +310,32 @@ def intensity_plane(dI):
 
 def epipolar_search_slab(dI, scal, color, weights, patx, paty, *, S: int,
                          huber_th: float, gn_iters: int, gn_threshold: float,
-                         radius: int, edge: int):
+                         radius: int, edge: int, band_len=None):
     """`epipolar_search` through the slab kernel: same arguments, same
-    (N, 8) float32 lanes. Only dI[..., 0] is read."""
+    (N, 8) float32 lanes. Only dI[..., 0] is read. `band_len` caps the
+    staged band's length (a multiple of 4; default from S): taps beyond it
+    read global memory, so it changes the time and never the answer."""
     global LAUNCHES_SLAB
     _check(dI, scal, color, weights, patx, paty, edge)
-    rows, cols, smem = slab_window(S, edge)
-    if S < 1 or smem > SMEM_MAX:
+    if band_len is not None and (band_len < 4 or band_len % 4):
+        raise ValueError(f"band_len must be a positive multiple of 4, got {band_len}")
+    cross, band_len, smem = slab_window(S, band_len)
+    if S < 1 or SLAB_WARPS * smem > SMEM_MAX:
         raise ValueError(
-            f"S={S}: a {rows}x{cols} window needs {smem} bytes of shared memory, "
-            f"the card gives a block {SMEM_MAX}"
+            f"S={S}: {SLAB_WARPS} bands of {cross}x{band_len} need {SLAB_WARPS * smem} bytes of "
+            f"shared memory, the card gives a block {SMEM_MAX}"
         )
+    kw = dict(S=S, huber_th=huber_th, gn_iters=gn_iters, gn_threshold=gn_threshold,
+              radius=radius, edge=edge)
+    if CAPTURE is not None:
+        CAPTURE.append(("epipolar_search_slab", (dI, scal, color, weights, patx, paty), kw))
     if dI.device.type == "cpu":
-        return epipolar_search_slab_ref(
-            dI, scal, color, weights, patx, paty, S=S, huber_th=huber_th,
-            gn_iters=gn_iters, gn_threshold=gn_threshold, radius=radius, edge=edge,
-        )
+        return epipolar_search_slab_ref(dI, scal, color, weights, patx, paty, **kw)
     if scal.shape[0] == 0:
         return torch.empty((0, 8), dtype=torch.float32, device=dI.device)
-    out = _launch("epipolar_search_slab", intensity_plane(dI), scal, color, weights,
+    out = _launch("epipolar_search_slab", (intensity_plane(dI),), scal, color, weights,
                   patx, paty, dI.shape[0], dI.shape[1], S, huber_th, gn_iters,
-                  gn_threshold, radius, edge, extra=(rows, cols, smem))
+                  gn_threshold, radius, edge, band_len=band_len)
     LAUNCHES_SLAB += 1
     return out
 

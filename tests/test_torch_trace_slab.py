@@ -242,12 +242,12 @@ def test_slab_wrapper_dispatch_and_checks():
         tk.epipolar_search_slab(dI, scal[:, :7].contiguous(), *args[2:], **kw)
     with pytest.raises(ValueError):
         tk.epipolar_search_slab(*args, **{**kw, "edge": 7})
-    # the window follows S: S = 86 (2048x1024) and the trace_max_steps cap
-    # fit a block's shared memory, S = 300 cannot
-    assert tk.slab_window(86, tk.EDGE_CLAMP)[2] < tk.slab_window(100, tk.EDGE_CLAMP)[2] < tk.SMEM_MAX
-    assert tk.slab_window(86, tk.EDGE_ZERO)[:2] == (16, 102)
+    # the band follows S: S = 86 (2048x1024) and the trace_max_steps cap fit
+    # a block's shared memory four lanes at a time, S = 1000 cannot
+    assert tk.slab_window(86)[2] < tk.slab_window(100)[2] < tk.SMEM_MAX // tk.SLAB_WARPS
+    assert tk.slab_window(86)[:2] == (16, 108)
     with pytest.raises(ValueError, match="shared memory"):
-        tk.epipolar_search_slab(*args, **{**kw, "S": 300})
+        tk.epipolar_search_slab(*args, **{**kw, "S": 1000})
 
 
 def test_intensity_plane_is_made_once_per_image():
