@@ -12,7 +12,7 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
      slice's shapes (temporal N=5120, stereo N=2560 in both directions),
      checks agreement and times both (CUDA events; `cuda_ms` says how); the slab kernel is held against it and
      timed on the same lanes; then both kernels on the edge lanes
-     (ops/trace_lanes.py: num_steps 0, 1, 2.5, S-1, > S, NaN; lines leaving
+     (tests/_torch_trace_lanes.py: num_steps 0, 1, 2.5, S-1, > S, NaN; lines leaving
      the image on each side; anchors beyond the clamp; NaN and inf
      positions and directions; a NaN pattern entry), the slab kernel also
      with its band cut to 8 pixels so that its taps fall back to global
@@ -35,8 +35,8 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
      marginalization decided by the graph path, KF count and ATE inside
      the bounds recorded in PERF.md;
   8. main-path lanes: the operands of the real launches of one non-keyframe
-     and one keyframe of phase 7 (recorded through trace_cuda.CAPTURE),
-     both kernels held against the plain version and each other and timed
+     and one keyframe of phase 7 (recorded by a wrapper set on the module
+     for those frames), both kernels held against the plain version and each other and timed
      on them, with the lane count, the share of lanes without a valid step
      and the mean valid steps of the others: the shape a bound is read at.
      SDSO_SAVE_LANES=<file> also writes them (and the synthetic lanes) out
@@ -63,6 +63,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 PKG = ROOT / "stereo_dso_g2o_tpu_torch"
+sys.path.insert(0, str(ROOT / "tests"))  # _torch_trace_lanes: the edge lanes the tests use
 
 W_, H_, BASE, N_FRAMES, STEP = 1216, 352, 0.54, 40, 0.30
 N_TEMPORAL, N_STEREO = 5120, 2560
@@ -230,18 +231,26 @@ def compare(out_k, out_p, name, exact=False):
     return uv_err
 
 
-def bound_ms(H, W, channels, c, gn_iters):
-    """The least time the card could take for one search on these inputs:
-    bytes (the image the kernel's function needs, the five (N, 8) operands
-    and the (N, 8) output, each once) over the memory rate, against the
-    operations these lanes need (their valid steps, not S) over the f32
-    peak. Per (step, pixel): 2 adds for the position, a 4-tap bilinear (2
-    floors, 2 subs, 8 mul/add for the weights, 7 for the sum), residual and
-    Huber energy (9): 30; per GN iteration and pixel: three such samples
-    with differenced gradients and the step: 80."""
+def bound_ms(H, W, c, gn_iters):
+    """The least time the card could take for one search on these inputs,
+    the same for both kernels (they compute one function). Bytes, each
+    once, over the memory rate: the five (N, 8) operands, the (N, 8) output
+    and the pixels of the intensity plane these lanes need, which is what
+    the search reads (the gradients Gauss-Newton uses are differences of
+    it). A lane needs the band under its valid steps (not S): along the
+    line its steps plus 7 pixels (the pattern's 5, the bilinear neighbour,
+    the gradient's step to each side less the shared one), 8 across (the
+    same); a lane without a valid step needs only that 7 x 8 patch, for
+    Gauss-Newton at step 0. Lanes overlap, so the sum is capped at the
+    plane. Against the operations over the f32 peak. Per (step, pixel): 2
+    adds for the position, a 4-tap bilinear (2 floors, 2 subs, 8 mul/add
+    for the weights, 7 for the sum), residual and Huber energy (9): 30; per
+    GN iteration and pixel: three such samples with differenced gradients
+    and the step: 80."""
     n = c["scal"].shape[0]
     steps = float(torch.ceil(torch.clamp(torch.nan_to_num(c["scal"][:, 4], nan=0.0), 0, c["S"])).sum())
-    nbytes = 4 * (H * W * channels + 5 * n * 8 + n * 8)
+    pixels = min(H * W, 8 * (steps + 7 * n))
+    nbytes = 4 * (pixels + 5 * n * 8 + n * 8)
     flops = 8 * (30 * steps + 80 * gn_iters * n)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
     return 1000.0 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -397,8 +406,7 @@ def main() -> int:
             for kern, ref in ((first, first_ref), (second, second_ref)):
                 k_ms, p_ms, raw = time_pair(lambda: kern(*args, **kw), lambda: ref(*args, **kw))
                 timing[(kern.__name__, f"{W}x{H}", name)] = (k_ms, p_ms)
-                channels = 3 if kern is tk.epipolar_search else 1
-                bounds[(kern.__name__, f"{W}x{H}", name)] = bound_ms(H, W, channels, c, gn["gn_iters"])
+                bounds[(kern.__name__, f"{W}x{H}", name)] = bound_ms(H, W, c, gn["gn_iters"])
                 b_ms, b_by = bounds[(kern.__name__, f"{W}x{H}", name)]
                 print(f"[kernel] {kern.__name__} {tag}: S={c['S']} mean valid steps "
                       f"{lane_stats(c)[2]:.1f}, kernel {raw[0]:.4f}/{raw[1]:.4f} ms, "
@@ -409,11 +417,11 @@ def main() -> int:
         """Both kernels on the edge lanes: each against its plain version,
         the two against each other bit for bit, and the slab kernel with a
         band of 8 pixels (nearly every tap from global memory) likewise."""
-        from stereo_dso_g2o_tpu_torch.ops import trace_lanes
+        import _torch_trace_lanes
 
         H, W = size
         for stereo in (False, True):
-            lanes, labels = trace_lanes.edge_lanes(dI, S, stereo, seed=seed, reps=8)
+            lanes, labels = _torch_trace_lanes.edge_lanes(dI, S, stereo, seed=seed, reps=8)
             args = (dI, lanes["scal"], lanes["color"], lanes["weights"], lanes["patx"], lanes["paty"])
             kw = dict(S=S, edge=tk.EDGE_ZERO if stereo else tk.EDGE_CLAMP, **gn)
             tag = f"{W}x{H} edge lanes {'stereo' if stereo else 'temporal'} N={len(labels)}"
@@ -576,12 +584,24 @@ def main() -> int:
     PROF.reset()
 
     captured = {}  # "non-keyframe" / "keyframe" -> the wrapper calls of one such frame
+    wrappers = {name: getattr(tk, name) for name in ("epipolar_search", "epipolar_search_slab")}
+
+    def recording(name, calls):
+        def call(*tensors, **kw):
+            calls.append((name, tensors, kw))
+            return wrappers[name](*tensors, **kw)
+        return call
 
     def graph_step(i):
-        record = i >= BOOT + 2 and len(captured) < 2
-        tk.CAPTURE = [] if record else None
+        """One frame; until a non-keyframe and a keyframe are recorded, with
+        the module's wrappers replaced by ones that note their operands."""
+        calls = []
+        if i >= BOOT + 2 and len(captured) < 2:
+            for name in wrappers:
+                setattr(tk, name, recording(name, calls))
         gs.add_frame(lefts[i], rights[i], i, timestamp=0.1 * i)
-        calls, tk.CAPTURE = tk.CAPTURE, None
+        for name, fn in wrappers.items():
+            setattr(tk, name, fn)
         if calls:  # 3 searches a frame, more on a keyframe
             captured.setdefault("keyframe" if len(calls) > 3 else "non-keyframe", calls)
 
@@ -651,7 +671,7 @@ def main() -> int:
                               cuda_ms(lambda: tk.epipolar_search_slab(*tensors, **kw)),
                               cuda_ms(lambda: tk.epipolar_search_slab(*tensors, **kw)),
                               cuda_ms(lambda: tk.epipolar_search(*tensors, **kw)))
-            b_ms, b_by = bound_ms(H_, W_, 3, c, kw["gn_iters"])
+            b_ms, b_by = bound_ms(H_, W_, c, kw["gn_iters"])
             print(f"[kernel] {tag}: S={kw['S']}, {100 * zero_share:.1f} % of lanes without a valid "
                   f"step, mean valid steps of the rest {mean_valid:.1f}; epipolar_search "
                   f"{a1:.4f}/{a2:.4f} ms, epipolar_search_slab {b1:.4f}/{b2:.4f} ms (device time, "

@@ -1,27 +1,29 @@
 #!/usr/bin/env python3
-"""Time the design steps of the two epipolar-search kernels against each
-other, and against an earlier commit's kernels, on one NVIDIA GPU.
+"""Time the two epipolar-search kernels of the working tree against those of
+another checkout of this repository, on the same lanes, on one NVIDIA GPU.
 
     SDSO_SAVE_LANES=_checkout/lanes.pt python3 chip_smoke.py
     python3 kernel_steps.py _checkout/lanes.pt [_checkout/parent [report.json]]
 
 The first command writes the lanes `chip_smoke.py` times the kernels on (the
 synthetic ones at both image sizes, and the operands of the real launches of
-one non-keyframe and one keyframe of the graph path). This script builds the
-kernels of the working tree in their variants (the -D switches at the top of
-each .cu), and, given the root of an unpacked earlier commit
-(`git archive <commit> | tar -x -C _checkout/parent`), that commit's two
-kernels and its resident kernel patched to skip invalid steps. Every variant
-runs on every case: its output is held to the working tree's resident
-kernel (best_idx, best_u/v, energies), then all are timed with CUDA events
-(chip_smoke.cuda_ms: device time), once in the listed order and once in reverse, the lower of
-the two kept. It prints a table and writes the report (default:
-kernel_steps.json beside the lanes file).
+one non-keyframe and one keyframe of the graph path). This script calls the
+working tree's wrappers `trace_cuda.epipolar_search` and
+`epipolar_search_slab` on every case, the slab kernel also with its band cut
+to 4 pixels (every tap from global memory), and, given the root of another
+checkout (`git archive <commit> | tar -x -C _checkout/parent`), that
+checkout's own two wrappers, loaded from its own `ops/trace_cuda.py`, which
+builds its own sources into its own `_build/`. Every output is held to the
+working tree's resident kernel (best_idx, best_u/v, energies), then all are
+timed with CUDA events (chip_smoke.cuda_ms: device time), once in the listed
+order and once in reverse, the lower of the two kept, and set beside the
+bound `chip_smoke.bound_ms` gives the case. It prints a table and writes the
+report (default: kernel_steps.json beside the lanes file).
 """
 
 from __future__ import annotations
 
-import ctypes
+import importlib.util
 import json
 import subprocess
 import sys
@@ -32,66 +34,18 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import cuda_ms, lane_stats  # noqa: E402
+from chip_smoke import bound_ms, cuda_ms, lane_stats  # noqa: E402
 from stereo_dso_g2o_tpu_torch.ops import trace_cuda as tk  # noqa: E402
 
-# the earlier resident kernel sampled every step s < S and masked afterwards;
-# this makes it sample a step only where (float)s < num_steps
-SKIP_PATCH = ("    float e = 0.f;\n    if (edge == 0) {",
-              "    float e = 0.f;\n    if (!(sf < nsteps)) {\n    } else if (edge == 0) {")
 
-
-def new_kernel(name, defines=(), band_len=None):
-    """A launcher of the working tree's kernel `name` built with `defines`."""
-    def run(dI, scal, color, weights, patx, paty, S, **kw):
-        plane = tk.intensity_plane(dI)
-        images = (plane, dI) if name == "epipolar_search" else (plane,)
-        bl = tk.slab_window(S, band_len)[1] if name == "epipolar_search_slab" else None
-        return tk._launch(name, images, scal, color, weights, patx, paty, dI.shape[0], dI.shape[1],
-                          S, kw["huber_th"], kw["gn_iters"], kw["gn_threshold"], kw["radius"],
-                          kw["edge"], band_len=bl, defines=defines)
-    tk._load(name, defines)  # build now, not inside the first timed call
-    return run
-
-
-def old_kernel(src: Path, name, tag, patch=None):
-    """A launcher of an earlier commit's kernel: its C interface took the
-    image, five contiguous (N, 8) operands and, for the slab kernel, the
-    window's rows, columns and shared-memory bytes."""
-    text = src.read_text()
-    if patch is not None:
-        if patch[0] not in text:
-            raise SystemExit(f"kernel_steps: {src} has no line {patch[0]!r} to patch")
-        text = text.replace(*patch)
-    tk.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    patched = tk.BUILD_DIR / f"{tag}_{src.name}"
-    patched.write_text(text)
-    lib_path = tk.BUILD_DIR / f"lib{tag}_{name}.so"
-    done = subprocess.run(tk.nvcc_command(patched, lib_path), capture_output=True, text=True)
-    if done.returncode != 0:
-        raise SystemExit(f"kernel_steps: nvcc failed on {patched}:\n{done.stdout}{done.stderr}")
-    fn = getattr(ctypes.CDLL(str(lib_path)), f"sdso_{name}")
-    slab = name == "epipolar_search_slab"
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P] * 7 + [I, I, I, I, F, I, F, I, I] + ([I, I, I] if slab else []) + [P]
-    fn.restype = I
-
-    def run(dI, scal, color, weights, patx, paty, S, **kw):
-        image = tk.intensity_plane(dI) if slab else dI
-        extra = ()
-        if slab:
-            cols = S + 16
-            rows = 16 if kw["edge"] == tk.EDGE_ZERO else cols
-            extra = (rows, cols, 4 * (rows * cols + 9 * S))
-        out = torch.empty((scal.shape[0], 8), dtype=torch.float32, device=dI.device)
-        rc = fn(image.data_ptr(), scal.data_ptr(), color.data_ptr(), weights.data_ptr(),
-                patx.data_ptr(), paty.data_ptr(), out.data_ptr(), dI.shape[0], dI.shape[1],
-                scal.shape[0], S, kw["huber_th"], kw["gn_iters"], kw["gn_threshold"], kw["radius"],
-                kw["edge"], *extra, torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"{tag} {name}: cudaError {rc}")
-        return out
-    return run
+def other_wrappers(root: Path):
+    """The `trace_cuda` module of the checkout at `root`, under a name of
+    its own: its kernels build from its csrc/ into its _build/."""
+    path = root / "stereo_dso_g2o_tpu_torch" / "ops" / "trace_cuda.py"
+    spec = importlib.util.spec_from_file_location("other_trace_cuda", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def main() -> int:
@@ -114,33 +68,33 @@ def main() -> int:
             cases[f"{group}: {name}"] = (tensors, kw)
 
     variants = {
-        "K1": new_kernel("epipolar_search"),
-        "K1, search taps from the (H,W) plane": new_kernel(
-            "epipolar_search", ("SDSO_K1_SEARCH_FROM_PLANE=1",)),
-        "K1, 4 warps a block": new_kernel("epipolar_search", ("SDSO_K1_WARPS=4",)),
-        "K1, 16 warps a block": new_kernel("epipolar_search", ("SDSO_K1_WARPS=16",)),
-        "K2": new_kernel("epipolar_search_slab"),
-        "K2, 8 warps a block": new_kernel("epipolar_search_slab", ("SDSO_K2_WARPS=8",)),
-        "K2, band of 4 (taps from global memory)": new_kernel("epipolar_search_slab", band_len=4),
+        "K1": tk.epipolar_search,
+        "K2": tk.epipolar_search_slab,
+        "K2, band of 4 (taps from global memory)":
+            lambda *a, **kw: tk.epipolar_search_slab(*a, **kw, band_len=4),
     }
+    builds = [tk]
     if len(sys.argv) > 2:
-        csrc = Path(sys.argv[2]) / "stereo_dso_g2o_tpu_torch" / "csrc"
-        variants["parent K1"] = old_kernel(csrc / "epipolar_search.cu", "epipolar_search", "parent")
-        variants["parent K1 + valid steps only"] = old_kernel(
-            csrc / "epipolar_search.cu", "epipolar_search", "parent_skip", SKIP_PATCH)
-        variants["parent K2"] = old_kernel(
-            csrc / "epipolar_search_slab.cu", "epipolar_search_slab", "parent")
-    for log in sorted(tk.BUILD_DIR.glob("ptxas_*.log")):
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {log.stem}: {line.strip()}")
+        other = other_wrappers(Path(sys.argv[2]))
+        variants["other K1"] = other.epipolar_search
+        variants["other K2"] = other.epipolar_search_slab
+        builds.append(other)
+    for module in builds:
+        module.build()  # now, not inside the first timed call
+        for log in sorted(module.BUILD_DIR.glob("ptxas_*.log")):
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"[build] {'working tree' if module is tk else 'other'} {log.stem}: "
+                          f"{line.strip()}")
 
     report = {"card": smi, "cases": {}}
     for case, (tensors, kw) in cases.items():
         c = {"scal": tensors[1], "S": kw["S"]}
         n_l, zero_share, mean_valid = lane_stats(c)
+        b_ms, b_by = bound_ms(tensors[0].shape[0], tensors[0].shape[1], c, kw["gn_iters"])
         print(f"\n== {case}: N={n_l}, S={kw['S']}, {100 * zero_share:.1f} % of lanes without a "
-              f"valid step, mean valid steps of the rest {mean_valid:.1f}")
+              f"valid step, mean valid steps of the rest {mean_valid:.1f}; bound {b_ms:.5f} ms "
+              f"by {b_by}")
         want = variants["K1"](*tensors, **kw)
         for name, run in variants.items():
             got = run(*tensors, **kw)
@@ -156,9 +110,11 @@ def main() -> int:
         bwd = {name: cuda_ms(runs[name]) for name in reversed(list(runs))}
         row = {name: min(fwd[name], bwd[name]) for name in runs}
         for name, ms in row.items():
-            print(f"  {name:45s} {ms:.4f} ms   ({fwd[name]:.4f} / {bwd[name]:.4f})")
+            print(f"  {name:45s} {ms:.4f} ms   ({fwd[name]:.4f} / {bwd[name]:.4f})   "
+                  f"bound / time {100 * b_ms / ms:.1f} %")
         report["cases"][case] = {"lanes": n_l, "S": kw["S"], "share_without_valid_step": zero_share,
-                                 "mean_valid_steps_of_live_lanes": mean_valid, "ms": row}
+                                 "mean_valid_steps_of_live_lanes": mean_valid,
+                                 "bound_ms": b_ms, "bound_by": b_by, "ms": row}
     out = Path(sys.argv[3]) if len(sys.argv) > 3 else Path(sys.argv[1]).with_name("kernel_steps.json")
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=1))

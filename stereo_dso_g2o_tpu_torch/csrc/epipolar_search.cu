@@ -24,14 +24,15 @@
 //   - a warp per lane, work items (step, pattern pixel) strided over the 32
 //     threads, 16 independent taps per thread in flight per pass, no branch
 //     between them;
-//   - 8 warps a block: lanes of very different cost share a block and the
-//     block's slots free up as its warps finish (4 and 16 were measured:
-//     within +-10 %, neither better on every shape);
+//   - the caller picks the warps of a block (ops/trace_cuda.py: 8): lanes
+//     of very different cost share a block and the block's slots free up as
+//     its warps finish (4 and 16 were measured: within +-10 %, neither
+//     better on every shape);
 //   - taps come from channel 0 of the (H, W, 3) stack. Reading a separate
-//     (H, W) intensity plane instead (the SDSO_K1_SEARCH_FROM_PLANE build)
-//     cuts the sectors a lane touches to a third and was measured 3-7 %
-//     faster on dense lanes and equal on the main path's lanes, less than
-//     the copy that makes the plane costs per image, so it stays a switch;
+//     (H, W) intensity plane instead cuts the sectors a lane touches to a
+//     third and was measured 3-7 % faster on dense lanes and equal on the
+//     main path's lanes: less than the copy that makes the plane costs per
+//     image, so it was left out;
 //   - Gauss-Newton reads the three channels of the stack (12 loads a thread
 //     and iteration; it is a latency chain either way).
 // Nothing of the image is staged in shared memory: epipolar_search_slab.cu
@@ -54,34 +55,18 @@ namespace {
 
 using namespace sdso;
 
-// Two switches for measuring the design's steps against each other
-// (kernel_steps.py builds the variants); the defaults are the kernel.
-#ifndef SDSO_K1_WARPS
-#define SDSO_K1_WARPS 8
-#endif
-#ifndef SDSO_K1_SEARCH_FROM_PLANE
-#define SDSO_K1_SEARCH_FROM_PLANE 0  // 1: search taps from the (H, W) plane
-#endif
-
-constexpr int kWarpsPerBlock = SDSO_K1_WARPS;
+constexpr int kMaxWarpsPerBlock = 8;
 
 struct GlobalTap {
-  const float* __restrict__ plane;  // (H, W) intensity; read only by the PLANE variant
-  const float* __restrict__ dI;     // (H, W, 3) intensity and gradients
+  const float* __restrict__ dI;  // (H, W, 3) intensity and gradients
   int H, W;
 
-#if SDSO_K1_SEARCH_FROM_PLANE
-  static constexpr int kStride = 1;
-  __device__ __forceinline__ const float* search_image() const { return plane; }
-#else
-  static constexpr int kStride = 3;  // channel 0 of the stack
-  __device__ __forceinline__ const float* search_image() const { return dI; }
-#endif
+  static constexpr int kStride = 3;  // the search reads channel 0 of the stack
 
   // Pixels (iy, ix), (iy, ix+1), (iy+1, ix), (iy+1, ix+1), all inside the image.
   __device__ __forceinline__ void quad(int iy, int ix, float& i00, float& i01,
                                        float& i10, float& i11) const {
-    const float* p = search_image() + ((size_t)iy * W + ix) * kStride;
+    const float* p = dI + ((size_t)iy * W + ix) * kStride;
     i00 = __ldg(p);
     i01 = __ldg(p + kStride);
     i10 = __ldg(p + (size_t)W * kStride);
@@ -90,7 +75,7 @@ struct GlobalTap {
 
   __device__ __forceinline__ float tap_zero(int r, int c) const {
     return ((unsigned)r < (unsigned)H && (unsigned)c < (unsigned)W)
-               ? __ldg(search_image() + ((size_t)r * W + c) * kStride)
+               ? __ldg(dI + ((size_t)r * W + c) * kStride)
                : 0.f;
   }
 
@@ -128,9 +113,8 @@ struct GlobalTap {
 };
 
 // Dynamic shared memory: S floats (the per-step energies) for each warp.
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-epipolar_search_kernel(const float* __restrict__ plane,
-                       const float* __restrict__ dI,
+__global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
+epipolar_search_kernel(const float* __restrict__ dI,
                        const float* __restrict__ scal,
                        const float* __restrict__ color,
                        const float* __restrict__ weights,
@@ -141,33 +125,32 @@ epipolar_search_kernel(const float* __restrict__ plane,
                        float gn_threshold, int radius, int edge) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5;
-  const int i = blockIdx.x * kWarpsPerBlock + warp;
+  const int i = blockIdx.x * (blockDim.x >> 5) + warp;
   if (i >= N) return;  // whole warps exit together; no block-wide barrier follows
   const Lane L = load_lane(scal, color, patx, paty, ps0, ps1, i, S);
-  const GlobalTap g{plane, dI, H, W};
+  const GlobalTap g{dI, H, W};
   search_and_refine(g, L, weights, i, smem + warp * S, out, H, W, S, huber_th,
                     gn_iters, gn_threshold, radius, edge);
 }
 
 }  // namespace
 
-// `plane` is channel 0 of `dI` as a contiguous (H, W) array, read only by
-// the SDSO_K1_SEARCH_FROM_PLANE build (else it may be null). `patx`/`paty`
-// are (N, 8) views with element strides (ps0, ps1).
-extern "C" int sdso_epipolar_search(const float* plane, const float* dI,
-                                    const float* scal, const float* color,
-                                    const float* weights, const float* patx,
-                                    const float* paty, long long ps0,
-                                    long long ps1, float* out, int H, int W,
-                                    int N, int S, float huber_th, int gn_iters,
-                                    float gn_threshold, int radius, int edge,
-                                    cudaStream_t stream) {
+// `patx`/`paty` are (N, 8) views with element strides (ps0, ps1); `warps`
+// is the number of lanes (warps) a block takes.
+extern "C" int sdso_epipolar_search(const float* dI, const float* scal,
+                                    const float* color, const float* weights,
+                                    const float* patx, const float* paty,
+                                    long long ps0, long long ps1, float* out,
+                                    int H, int W, int N, int S, float huber_th,
+                                    int gn_iters, float gn_threshold, int radius,
+                                    int edge, int warps, cudaStream_t stream) {
   if (N <= 0) return 0;
-  const int smem_bytes = kWarpsPerBlock * S * (int)sizeof(float);
+  if (warps < 1 || warps > kMaxWarpsPerBlock) return (int)cudaErrorInvalidValue;
+  const int smem_bytes = warps * S * (int)sizeof(float);
   if (S < 1 || smem_bytes > 48 * 1024) return (int)cudaErrorInvalidValue;
-  const int blocks = (N + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  epipolar_search_kernel<<<blocks, kWarpsPerBlock * 32, smem_bytes, stream>>>(
-      plane, dI, scal, color, weights, patx, paty, ps0, ps1, out, H, W, N, S,
-      huber_th, gn_iters, gn_threshold, radius, edge);
+  const int blocks = (N + warps - 1) / warps;
+  epipolar_search_kernel<<<blocks, warps * 32, smem_bytes, stream>>>(
+      dI, scal, color, weights, patx, paty, ps0, ps1, out, H, W, N, S, huber_th,
+      gn_iters, gn_threshold, radius, edge);
   return (int)cudaGetLastError();
 }

@@ -26,7 +26,8 @@
 //     cross extent plus bilinear, gradient and rounding margins. 16 x
 //     (S + 20) floats, 6.9 KB at S = 86, where the bounding box of a
 //     diagonal line took 44.7 KB: the copy shrinks with it;
-//   - a warp per lane, 4 lanes a block (8 measured 3-8 % slower), each
+//   - a warp per lane, the caller picks the lanes of a block
+//     (ops/trace_cuda.py: 4; 8 measured 3-8 % slower), each
 //     warp with its own band in dynamic shared memory: no block-wide
 //     barrier, nobody idles while one warp runs its Gauss-Newton tail, 7
 //     blocks an SM at S = 86;
@@ -71,11 +72,7 @@ namespace {
 
 using namespace sdso;
 
-#ifndef SDSO_K2_WARPS
-#define SDSO_K2_WARPS 4  // a switch for kernel_steps.py
-#endif
-
-constexpr int kWarpsPerBlock = SDSO_K2_WARPS;
+constexpr int kMaxWarpsPerBlock = 4;
 constexpr int kBandCross = 16;  // pixels staged across the line
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -431,7 +428,7 @@ __device__ __forceinline__ void stage_band(const BandTap& g, float* band, int ve
 
 // Dynamic shared memory, per warp: the band (kBandCross * band_len floats)
 // and the per-step energies (S rounded up to a multiple of 4).
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+__global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
 epipolar_search_slab_kernel(const float* __restrict__ img,
                             const float* __restrict__ scal,
                             const float* __restrict__ color,
@@ -444,7 +441,7 @@ epipolar_search_slab_kernel(const float* __restrict__ img,
                             int band_len, int vec) {
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x >> 5;
-  const int i = blockIdx.x * kWarpsPerBlock + warp;
+  const int i = blockIdx.x * (blockDim.x >> 5) + warp;
   if (i >= N) return;  // whole warps exit together; no block-wide barrier follows
   const int per_warp = kBandCross * band_len + ((S + 3) & ~3);
   float* band = smem + warp * per_warp;
@@ -476,14 +473,11 @@ epipolar_search_slab_kernel(const float* __restrict__ img,
 
 }  // namespace
 
-// Lanes (warps) per block: the wrapper sizes a block's shared memory by it.
-extern "C" int sdso_epipolar_search_slab_warps() { return kWarpsPerBlock; }
-
 // `img` is the (H, W) intensity plane; `band_len` (a multiple of 4) is the
-// band length the launch reserves per lane and `smem_bytes` the dynamic
-// shared memory of one block: warps * 4 * (16 * band_len + S rounded up to
-// a multiple of 4). `patx`/`paty` are (N, 8) views with element strides
-// (ps0, ps1).
+// band length the launch reserves per lane and `warps` the lanes (warps) a
+// block takes: its dynamic shared memory is warps * 4 * (16 * band_len + S
+// rounded up to a multiple of 4) bytes. `patx`/`paty` are (N, 8) views with
+// element strides (ps0, ps1).
 extern "C" int sdso_epipolar_search_slab(const float* img, const float* scal,
                                          const float* color, const float* weights,
                                          const float* patx, const float* paty,
@@ -491,18 +485,18 @@ extern "C" int sdso_epipolar_search_slab(const float* img, const float* scal,
                                          int H, int W, int N, int S, float huber_th,
                                          int gn_iters, float gn_threshold,
                                          int radius, int edge, int band_len,
-                                         int smem_bytes, cudaStream_t stream) {
+                                         int warps, cudaStream_t stream) {
   if (N <= 0) return 0;
-  const int need = kWarpsPerBlock * 4 * (kBandCross * band_len + ((S + 3) & ~3));
-  if (S < 1 || band_len < 4 || (band_len & 3) || smem_bytes < need)
+  if (S < 1 || band_len < 4 || (band_len & 3) || warps < 1 || warps > kMaxWarpsPerBlock)
     return (int)cudaErrorInvalidValue;
+  const int smem_bytes = warps * 4 * (kBandCross * band_len + ((S + 3) & ~3));
   cudaError_t err = cudaFuncSetAttribute(
       epipolar_search_slab_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const int vec = (W % 4 == 0) && (((size_t)img & 15) == 0);
-  const int blocks = (N + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  epipolar_search_slab_kernel<<<blocks, kWarpsPerBlock * 32, smem_bytes, stream>>>(
+  const int blocks = (N + warps - 1) / warps;
+  epipolar_search_slab_kernel<<<blocks, warps * 32, smem_bytes, stream>>>(
       img, scal, color, weights, patx, paty, ps0, ps1, out, H, W, N, S, huber_th,
       gn_iters, gn_threshold, radius, edge, band_len, vec);
   return (int)cudaGetLastError();

@@ -49,8 +49,7 @@ pyramid's rule, so both kernels sample the same values.
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
 it runs its plain version (`epipolar_search_ref`,
 `epipolar_search_slab_ref`). `LAUNCHES` / `LAUNCHES_SLAB` count kernel
-launches. While `CAPTURE` is a list, each wrapper call appends
-`(kernel name, the six tensors, the keyword arguments)` to it.
+launches.
 """
 
 from __future__ import annotations
@@ -78,17 +77,17 @@ EDGE_CLAMP = 0
 EDGE_ZERO = 1
 
 SMEM_MAX = 232448  # dynamic shared memory one block may use on sm_90
-WARPS = 8  # resident kernel: lanes per block, a warp per lane
-# ... and a block keeps S per-step energies per warp in the 48 KB of shared
+# Lanes per block, a warp per lane; the kernels take the number at launch.
+WARPS = 8  # resident kernel
+# ... whose block keeps S per-step energies per warp in the 48 KB of shared
 # memory a launch gets without asking for more
 MAX_STEPS = 48 * 1024 // (4 * WARPS)
-SLAB_WARPS = 4  # slab kernel: lanes per block
+SLAB_WARPS = 4  # slab kernel
 BAND_CROSS = 16  # ... pixels staged across the line
 BAND_EXTRA = 20  # ... and along it, beyond S: pattern, bilinear, gradient, GN travel, alignment
 
 LAUNCHES = 0  # resident-kernel launches since the last reset_launches()
 LAUNCHES_SLAB = 0  # slab-kernel launches since the last reset_launches()
-CAPTURE = None  # a list to record wrapper calls into, else None
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {
@@ -117,44 +116,41 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def nvcc_command(src, lib, defines=()) -> list:
+def nvcc_command(src, lib) -> list:
     """The compiler call that makes shared library `lib` from `src`."""
     return [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
         "-O3", "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-        *[f"-D{d}" for d in defines], "-o", str(lib), str(src),
+        "-o", str(lib), str(src),
     ]
 
 
-def build(names=None, defines=()) -> dict:
+def build(names=None) -> dict:
     """Compile the named kernels (default: all of SOURCES) for sm_90a into
-    _build/, once per version of the source, its headers and `defines`
-    (-D switches, for measuring a design variant), one nvcc process per
-    source, all started together. Returns {name: shared library path}; the
-    compiler's output (-Xptxas -v) goes to _build/ptxas_<name>.log."""
+    _build/, once per version of the source and its headers, one nvcc
+    process per source, all started together. Returns {name: shared library
+    path}; the compiler's output (-Xptxas -v) goes to
+    _build/ptxas_<name>.log."""
     names = list(SOURCES) if names is None else list(names)
-    defines = tuple(defines)
     out, running = {}, []
     for name in names:
         src = SOURCES[name]
         version = hashlib.sha256(src.read_bytes())
         for dep in HEADERS:
             version.update(dep.read_bytes())
-        version.update(" ".join(defines).encode())
         lib = BUILD_DIR / f"lib{name}_{version.hexdigest()[:16]}.so"
         out[name] = lib
         if lib.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.Popen(nvcc_command(src, tmp, defines), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        proc = subprocess.Popen(nvcc_command(src, tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running.append((name, lib, tmp, proc, time.perf_counter()))
     failed = []
     for name, lib, tmp, proc, t0 in running:
         log, _ = proc.communicate()
         BUILD_SECONDS[name] = time.perf_counter() - t0
-        tag = "".join(f"_{d}" for d in defines)
-        (BUILD_DIR / f"ptxas_{name}{tag}.log").write_text(log)
+        (BUILD_DIR / f"ptxas_{name}.log").write_text(log)
         if proc.returncode != 0:
             failed.append(f"nvcc failed on {SOURCES[name].name} ({proc.returncode}):\n{log}")
         else:
@@ -172,24 +168,21 @@ _TAIL = [
     ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
     ctypes.c_int,  # edge
 ]
-_ARGTYPES = {
-    "epipolar_search": [_PTR, _PTR] + _LANES + _TAIL + [_PTR],  # (plane,) dI ... stream
-    "epipolar_search_slab": [_PTR] + _LANES + _TAIL + [ctypes.c_int, ctypes.c_int, _PTR],
-}  # slab: plane ... band length, block's shared memory bytes, stream
+_WARPS_STREAM = [ctypes.c_int, _PTR]
+_ARGTYPES = {  # image, lanes, tail, (slab: band length,) warps per block, stream
+    "epipolar_search": [_PTR] + _LANES + _TAIL + _WARPS_STREAM,
+    "epipolar_search_slab": [_PTR] + _LANES + _TAIL + [ctypes.c_int] + _WARPS_STREAM,
+}
 
 
-def _load(name: str, defines=()):
+def _load(name: str):
     """The kernel's C entry point `sdso_<name>`, built at first use."""
-    key = (name, tuple(defines))
-    if key not in _LIBS:
-        lib = ctypes.CDLL(str(build([name], defines)[name]))
-        fn = getattr(lib, f"sdso_{name}")
+    if name not in _LIBS:
+        fn = getattr(ctypes.CDLL(str(build([name])[name])), f"sdso_{name}")
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-        if name == "epipolar_search_slab":
-            fn.warps = lib.sdso_epipolar_search_slab_warps()
-        _LIBS[key] = fn
-    return _LIBS[key]
+        _LIBS[name] = fn
+    return _LIBS[name]
 
 
 def _check(dI, scal, color, weights, patx, paty, edge):
@@ -216,23 +209,19 @@ def _check(dI, scal, color, weights, patx, paty, edge):
         raise ValueError(f"unsupported device {dI.device}")
 
 
-def _launch(name, images, scal, color, weights, patx, paty, H, W, S, huber_th,
-            gn_iters, gn_threshold, radius, edge, band_len=None, defines=()):
-    """Launch kernel `name` on the image's current stream; (N, 8) float32.
-    `images`: the tensors the kernel reads pixels from, in its order (None:
-    a null pointer, for an image this build of the kernel does not read)."""
+def _launch(name, image, scal, color, weights, patx, paty, H, W, S, huber_th,
+            gn_iters, gn_threshold, radius, edge, *extra):
+    """Launch kernel `name` on the current stream of `image` (the tensor it
+    reads pixels from); `extra`: its arguments after `edge`. (N, 8) float32."""
     N = scal.shape[0]
     if patx.stride() != paty.stride():  # the kernel takes one pair of strides
         patx, paty = patx.contiguous(), paty.contiguous()
     out = torch.empty((N, 8), dtype=torch.float32, device=scal.device)
-    fn = _load(name, defines)
-    extra = ()
-    if name == "epipolar_search_slab":
-        extra = (int(band_len), fn.warps * slab_window(S, band_len)[2])
+    fn = _load(name)
     with torch.cuda.device(scal.device):
         stream = torch.cuda.current_stream(scal.device).cuda_stream
         rc = fn(
-            *[None if im is None else im.data_ptr() for im in images], scal.data_ptr(), color.data_ptr(),
+            image.data_ptr(), scal.data_ptr(), color.data_ptr(),
             weights.data_ptr(), patx.data_ptr(), paty.data_ptr(), *patx.stride(),
             out.data_ptr(), H, W, N, int(S), float(huber_th), int(gn_iters),
             float(gn_threshold), int(radius), int(edge), *extra, stream,
@@ -252,15 +241,13 @@ def epipolar_search(dI, scal, color, weights, patx, paty, *, S: int,
         raise ValueError(f"S must be in [1, {MAX_STEPS}], got {S}")
     kw = dict(S=S, huber_th=huber_th, gn_iters=gn_iters, gn_threshold=gn_threshold,
               radius=radius, edge=edge)
-    if CAPTURE is not None:
-        CAPTURE.append(("epipolar_search", (dI, scal, color, weights, patx, paty), kw))
     if dI.device.type == "cpu":
         return epipolar_search_ref(dI, scal, color, weights, patx, paty, **kw)
     if scal.shape[0] == 0:
         return torch.empty((0, 8), dtype=torch.float32, device=dI.device)
-    out = _launch("epipolar_search", (None, dI), scal, color, weights,
-                  patx, paty, dI.shape[0], dI.shape[1], S, huber_th, gn_iters,
-                  gn_threshold, radius, edge)
+    out = _launch("epipolar_search", dI, scal, color, weights, patx, paty,
+                  dI.shape[0], dI.shape[1], S, huber_th, gn_iters, gn_threshold,
+                  radius, edge, WARPS)
     LAUNCHES += 1
     return out
 
@@ -327,15 +314,13 @@ def epipolar_search_slab(dI, scal, color, weights, patx, paty, *, S: int,
         )
     kw = dict(S=S, huber_th=huber_th, gn_iters=gn_iters, gn_threshold=gn_threshold,
               radius=radius, edge=edge)
-    if CAPTURE is not None:
-        CAPTURE.append(("epipolar_search_slab", (dI, scal, color, weights, patx, paty), kw))
     if dI.device.type == "cpu":
         return epipolar_search_slab_ref(dI, scal, color, weights, patx, paty, **kw)
     if scal.shape[0] == 0:
         return torch.empty((0, 8), dtype=torch.float32, device=dI.device)
-    out = _launch("epipolar_search_slab", (intensity_plane(dI),), scal, color, weights,
+    out = _launch("epipolar_search_slab", intensity_plane(dI), scal, color, weights,
                   patx, paty, dI.shape[0], dI.shape[1], S, huber_th, gn_iters,
-                  gn_threshold, radius, edge, band_len=band_len)
+                  gn_threshold, radius, edge, band_len, SLAB_WARPS)
     LAUNCHES_SLAB += 1
     return out
 

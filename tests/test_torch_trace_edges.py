@@ -1,14 +1,31 @@
-"""The epipolar search on edge lanes (`ops/trace_lanes.edge_lanes`): lanes
+"""The epipolar search on edge lanes (`_torch_trace_lanes.edge_lanes`): lanes
 with num_steps of 0, 1, a fraction, S - 1, more than S and NaN, lines that
 leave the image on each side, stereo anchors beyond the clamp, non-finite
 positions and directions, a pattern with a NaN entry. The CUDA kernels skip
 invalid steps and masked lanes; what they must reproduce there is pinned
-here by the JAX package: both plain versions against the "xla" backend's
-search, assembled from the package's own `_pattern_energy` and `bilinear`
-exactly as `ops/trace.py:329-410` (temporal) and `:852-963` (stereo strip)
-assemble it inside `trace_batch` / `trace_stereo`, which take no raw lanes.
-Non-finite positions and directions go to the JAX side as 0, as the JAX
-"pallas" branch and the port's `_search` sanitize them.
+here by the JAX package, twice.
+
+Against the two Pallas bodies (`trace_pallas.epipolar_search`, resident and
+slab, in interpret mode), the package's only entry point that takes raw
+(N, 8) lanes, prepared with its own `pad_image_for_search` and
+`slab_origins` as `trace_batch` prepares them. That is the function the
+kernels replace, but not to the last bit and not at every border: its taps
+are bf16 split dots, it edge-pads the image (8 rows above, 128 columns to
+the left) where the "xla" search clamps coordinates, and its stereo search
+edge-pads too where the "xla" strip reads zeros. So it holds the masking
+rules, best_idx and the search energy on every geometry it can take, and
+best_u/v and all energies where no tap leaves the image.
+
+Against the "xla" backend's search, to tight tolerances on every geometry.
+`trace_batch` / `trace_stereo` build their lanes inside and take none, and
+cannot be made to produce a num_steps of NaN or over S or a non-finite
+direction, so the search is assembled here from the package's own
+`_pattern_energy` and `bilinear` as `ops/trace.py:329-410` (temporal) and
+`:852-963` (stereo strip) assemble it; the argmin and Gauss-Newton lines
+around them (`_finish`, `_gn`) are copied from there, which is why the
+Pallas bodies above stand beside them. Non-finite positions and directions
+go to the JAX side as 0, as the JAX "pallas" branch and the port's `_search`
+sanitize them.
 
 Tolerances: best_idx equal on every lane of a case (lanes where two steps
 tie to the last bit aside: >= 95 % of a 24-lane case), best_u/v within 1e-3
@@ -17,7 +34,7 @@ rounds each product), the same +inf / NaN pattern. The two plain versions
 of the port agree bit for bit.
 
 Also here: the wrapper's Python geometry (band size, shared-memory limits,
-strided patterns, the capture hook) and the card-only checks of both
+strided patterns, the call through the module) and the card-only checks of both
 kernels on the same lanes, with the slab kernel's band cut to force its
 global-memory fallback."""
 
@@ -26,14 +43,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_trace_lanes as trace_lanes
 from _torch_parity import n
 
 from stereo_dso_g2o_tpu.io import synthetic
 from stereo_dso_g2o_tpu.ops import trace as jtr
+from stereo_dso_g2o_tpu.ops import trace_pallas as jtp
 from stereo_dso_g2o_tpu.ops.interp import bilinear as jbilinear
-from stereo_dso_g2o_tpu_torch.config import PATTERN
+from stereo_dso_g2o_tpu_torch.config import PATTERN, default_settings
 from stereo_dso_g2o_tpu_torch.ops import trace_cuda as tk
-from stereo_dso_g2o_tpu_torch.ops import trace_lanes
+from stereo_dso_g2o_tpu_torch.ops import trace as ttr
 from stereo_dso_g2o_tpu_torch.ops.pyramid import build_pyramid as tbuild_pyramid
 
 W_, H_, S_ = 256, 128, 40
@@ -170,7 +189,7 @@ def _hold(out, ref, idx_min=0.95):
 
 def _masked_rules(out, nsteps):
     """What every version must give whatever the geometry."""
-    out = n(out)
+    out = n(out) if torch.is_tensor(out) else out
     ns = np.asarray(nsteps, np.float32)
     none = ~(ns > 0)  # 0 and NaN
     assert (out[none, tk.OUT_BEST_IDX] == 0).all()
@@ -232,6 +251,69 @@ def test_edge_lanes_stereo_match_xla_search(image, geo):
             continue
         sub = [args[0]] + [a[m].contiguous() for a in args[1:]]
         _hold(got[m], _jax_stereo(sub, dirx))
+
+
+def _pallas(args, resident):
+    """The lanes through a Pallas body in interpret mode, prepared as
+    `trace_batch` prepares them (ops/trace.py:264-327): non-finite positions
+    and directions as 0, slab origins, slab-relative start, lanes padded to
+    a multiple of the block. Masked steps carry 1e30 there: read as +inf."""
+    dI, scal, color, weights, patx, paty = args
+    img_pad, oy, ox = jtp.pad_image_for_search(jnp.asarray(n(dI[..., 0])))
+    Hp, Wp = img_pad.shape
+    js = jnp.asarray(n(scal))
+    ptx, pty, dx, dy = (jnp.where(jnp.isfinite(js[:, k]), js[:, k], 0.0) for k in range(4))
+    ns = jnp.ceil(jnp.nan_to_num(js[:, 4])).astype(jnp.int32)
+    y0, x0, ptx_rel, pty_rel = jtp.slab_origins(ptx, pty, dx, dy, ns, oy, ox, Hp, Wp)
+    jscal = js.at[:, 0].set(ptx_rel).at[:, 1].set(pty_rel).at[:, 2].set(dx).at[:, 3].set(dy)
+    pad = (-js.shape[0]) % 16
+    lanes = [jnp.pad(jnp.asarray(x), [(0, pad)] + [(0, 0)] * (x.ndim - 1))
+             for x in (y0, x0, jscal, n(color), n(weights), n(patx), n(paty))]
+    out = np.array(jtp.epipolar_search(
+        img_pad, *lanes, S=S_, BLK=16, huber_th=GN["huber_th"], gn_iters=GN["gn_iters"],
+        gn_threshold=GN["gn_threshold"], resident=resident, interpret=True))[:js.shape[0]]
+    out[:, 0] -= ox - np.array(x0, np.float32)
+    out[:, 1] -= oy - np.array(y0, np.float32)
+    out[:, 2:5] = np.where(out[:, 2:5] >= 1e29, np.inf, out[:, 2:5])
+    return out
+
+
+# geometry -> every tap of the lane inside the image. "top" is left out: a
+# line leaving through the top passes the 8 rows `pad_image_for_search`
+# adds there (`trace_batch` masks such lanes before the kernel), and
+# "nan_pattern": the bodies' tent weights turn a NaN offset into zeros.
+PALLAS_TEMPORAL = {"inside": True, "left": False, "right": False, "bottom": False,
+                   "nan_ptx": False, "inf_ptx": False, "nan_dx": True, "inf_dx": False}
+# the stereo search of the bodies edge-pads where the port reads zeros:
+# only lanes whose strip lies inside the image compute the same function
+PALLAS_STEREO = {"inside": True, "nan_dx": True, "inf_dx": True}
+
+
+@pytest.mark.parametrize("resident", [True, False], ids=["resident", "slab"])
+@pytest.mark.parametrize("stereo,geo", [(False, g) for g in PALLAS_TEMPORAL]
+                         + [(True, g) for g in PALLAS_STEREO])
+def test_edge_lanes_match_pallas_bodies(image, stereo, geo, resident):
+    """Tolerances (bf16 split dots against f32 taps): best_idx equal on >=
+    95 % of a 24-lane case, the same +inf pattern in all three energies,
+    e_search within 1e-2 relative; where every tap is inside the image also
+    best_u/v within 1e-2 px and every energy within 1e-3 relative."""
+    args, kw, nsteps = _case(image, stereo, geo)
+    interior = (PALLAS_STEREO if stereo else PALLAS_TEMPORAL)[geo]
+    want = _pallas(args, resident)
+    _masked_rules(want, nsteps)
+    for ref in (tk.epipolar_search_ref, tk.epipolar_search_slab_ref):
+        got = n(ref(*args, **kw))
+        same = got[:, tk.OUT_BEST_IDX] == want[:, tk.OUT_BEST_IDX]
+        assert same.mean() >= 0.95, same.mean()
+        for lane in (tk.OUT_E_SEARCH, tk.OUT_SECOND_BEST, tk.OUT_E_GN):
+            a, b = got[same, lane], want[same, lane]
+            assert (np.isposinf(a) == np.isposinf(b)).all(), lane
+            fin = np.isfinite(b)
+            if interior or lane == tk.OUT_E_SEARCH:
+                np.testing.assert_allclose(a[fin], b[fin], rtol=1e-3 if interior else 1e-2,
+                                           atol=1e-6, err_msg=str(lane))
+        if interior:
+            np.testing.assert_allclose(got[same, :2], want[same, :2], atol=1e-2, rtol=0)
 
 
 @pytest.mark.parametrize("stereo", [False, True])
@@ -325,21 +407,31 @@ def test_strided_patterns_are_taken_in_place(image, search):
 
 
 def test_capture_records_wrapper_calls(image, monkeypatch):
+    """`ops/trace.py` reaches both wrappers through the `trace_cuda` module
+    at each call, so a recording wrapper set on the module for a frame sees
+    the operands of the real launches (chip_smoke.py times the kernels on
+    lanes taken this way)."""
     args, kw, _ = _case(image, False, "inside")
     calls = []
-    monkeypatch.setattr(tk, "CAPTURE", calls)
-    tk.epipolar_search(*args, **kw)
-    tk.epipolar_search_slab(*args, **kw)
+    for name in ("epipolar_search", "epipolar_search_slab"):
+        def record(*tensors, _name=name, _fn=getattr(tk, name), **ckw):
+            calls.append((_name, tensors, ckw))
+            return _fn(*tensors, **ckw)
+        monkeypatch.setattr(tk, name, record)
+    scal = args[1]
+    for route in ("resident", "slab"):
+        ttr._search(args[0], *(scal[:, k] for k in range(7)), *args[2:],
+                    torch.zeros(scal.shape[0], dtype=torch.bool), S_, default_settings(),
+                    tk.EDGE_CLAMP, route)
     assert [c[0] for c in calls] == ["epipolar_search", "epipolar_search_slab"]
     for _, tensors, ckw in calls:
-        assert all(a is b for a, b in zip(tensors, args)) and ckw == kw
-    monkeypatch.setattr(tk, "CAPTURE", None)
-    tk.epipolar_search(*args, **kw)
-    assert len(calls) == 2
+        assert ckw["S"] == S_ and ckw["edge"] == tk.EDGE_CLAMP
+        assert torch.equal(torch.nan_to_num(tensors[1]), torch.nan_to_num(scal))
+        assert tensors[4] is args[4] and tensors[5] is args[5]  # patterns go as they are
 
 
 def test_kernel_sources_and_headers_are_versioned():
-    """A build is keyed on the source, the shared header and the -D switches."""
+    """A build is keyed on the source and the shared header."""
     for src in tk.SOURCES.values():
         text = src.read_text()
         assert '#include "epipolar_common.cuh"' in text
