@@ -40,7 +40,25 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
      on them, with the lane count, the share of lanes without a valid step
      and the mean valid steps of the others: the shape a bound is read at.
      SDSO_SAVE_LANES=<file> also writes them (and the synthetic lanes) out
-     for kernel_steps.py.
+     for kernel_steps.py;
+  9. batched, as bench.py drives its headline path: 4 corridor sequences
+     (scene seed 100 + s, exposure phase s), each bootstrapped 12 frames
+     through FullSystem and frozen, then BatchedRunner ("deferred") over
+     frames 12-31 from stacked device tensors: no sequence lost, finite
+     poses, every sequence's KF count and ATE inside the bounds recorded in
+     PERF.md, the resident kernel launched; ms per batched frame beside 4 x
+     the graph path's ms/frame of phase 7. Before it, two 8-frame runs from
+     the same freeze, "deferred" and "gated", must end in the same stacked
+     state bit for bit;
+  10. checkpoint: FullSystem over 16 frames, saved at frame 10, loaded and
+     continued: trajectory and window equal the uninterrupted run's exactly;
+  11. diagnostics: eigenvalue_record of phase 7's final window: finite, the
+     nullspace responses small against the largest eigenvalue;
+  12. sharded BA and multi-sequence: the sharded BA step and GN loop over a
+     one-rank nccl group equal ba.ba_iteration / ba.optimize_fused bit for
+     bit (several ranks are checked on the CPU only, with gloo, by
+     tests/test_torch_dist_ba.py); MultiSequenceRunner with 2 sequences on
+     the one device over 14 frames, both tracked.
 Every kernel launch counter is set to 0 just before a path is driven and
 read just after. The last two lines are the kernel report and the device
 report (JSON). With SDSO_PROFILE=1 the two odometry paths also print their
@@ -76,6 +94,14 @@ MATCH_DENSITY, MATCH_GOOD_MIN, MATCH_REL_MAX = 6000.0, 1500, 0.03
 # settings (tests/_torch_parity.py, PERF.md): 10 KFs, ATE 0.0279 m.
 GRAPH_KF_RANGE = (7, 13)
 GRAPH_ATE_MAX = 2 * 0.0279 + 0.01
+# the batched path: bench.py's N_SEQ sequences, bootstrap 12 + 20 frames. JAX
+# package per sequence, bootstrap 12 + GraphSystem 20 frames on CPU, same
+# frames and settings (`JAX_PLATFORMS=cpu python tests/_torch_parity.py 1216
+# 352 0.54 12 32 <seq> 40`, PERF.md): (KFs, ATE in m). Bounds as above.
+N_SEQ, BATCH_FRAMES, GATED_FRAMES = 4, 32, 8
+BATCH_JAX = ((8, 0.02297), (9, 0.03354), (8, 0.01902), (9, 0.01257))
+CKPT_FRAMES, CKPT_AT = 16, 10
+MULTISEQ_FRAMES = 14
 # published peaks of one H100 SXM: the roofline a kernel's bound is taken from
 HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12
 # JAX package, FullSystem on CPU, same 40 frames and settings (PERF.md):
@@ -317,6 +343,275 @@ def print_profile(prof, wall_ms):
                   f"{e.self_device_time_total / 1000.0:.4f} ms in all, "
                   f"{e.self_device_time_total / 1000.0 / max(e.count, 1):.4f} ms each")
     print(events.table(sort_by="self_device_time_total", row_limit=15, max_name_column_width=60))
+
+
+def trees_equal(a, b):
+    """Bit for bit over the tensor leaves of two trees, NaN equal to NaN;
+    returns the number of leaves that differ."""
+    from stereo_dso_g2o_tpu_torch.parallel.batched import tree_map
+
+    bad = []
+    tree_map(lambda x, y: bad.append(not bool(((x == y) | ((x != x) & (y != y))).all())) or x, a, b)
+    return sum(bad)
+
+
+def fields_equal(a, b):
+    """Names of the dataclass fields of `a` and `b` that differ in a bit."""
+    import dataclasses
+
+    return [f.name for f in dataclasses.fields(a)
+            if not bool(((getattr(a, f.name) == getattr(b, f.name))
+                         | ((getattr(a, f.name) != getattr(a, f.name))
+                            & (getattr(b, f.name) != getattr(b, f.name)))).all())]
+
+
+def phase_batched(dev, settings, calib, K, poses_cw, seq0, graph_ms, launches):
+    """Phase 9. `seq0`: sequence 0's rendered (lefts, rights); `graph_ms`:
+    (median, mean) ms/frame of the single-sequence graph path of this call."""
+    from stereo_dso_g2o_tpu_torch.frontend import graph_system as tgs
+    from stereo_dso_g2o_tpu_torch.frontend.full_system import FullSystem
+    from stereo_dso_g2o_tpu_torch.io import synthetic, trajectory
+    from stereo_dso_g2o_tpu_torch.ops import trace_cuda as tk
+    from stereo_dso_g2o_tpu_torch.parallel.batched import BatchedRunner
+
+    t0 = time.perf_counter()
+    seqs = [(seq0[0][:BATCH_FRAMES], seq0[1][:BATCH_FRAMES])]
+    for s in range(1, N_SEQ):
+        scene = synthetic.corridor_scene(seed=100 + s, length=STEP * N_FRAMES + 40.0,
+                                         box_spacing=9.0, lateral=14.0)
+        expos = 1.0 + 0.12 * np.sin(0.25 * np.arange(BATCH_FRAMES) + s)
+        seqs.append(synthetic.render_stereo_sequence_fast(
+            scene, K, W_, H_, BASE, poses_cw[:BATCH_FRAMES], expos, device=dev))
+    L_all = torch.stack([q[0] for q in seqs])  # (S, N, H, W) uint8, on the card
+    R_all = torch.stack([q[1] for q in seqs])
+    torch.cuda.synchronize()
+    print(f"[batched] {N_SEQ - 1} more sequences of {BATCH_FRAMES} stereo pairs rendered in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    boots = []
+    for s in range(N_SEQ):
+        fs = FullSystem(calib, settings, device=dev)
+        for i in range(BOOT):
+            fs.add_frame(L_all[s, i], R_all[s, i], i, timestamp=0.1 * i)
+        if fs.is_lost:
+            fail(f"batched: sequence {s} lost in its bootstrap")
+        boots.append(fs)
+    torch.cuda.synchronize()
+    print(f"[batched] {N_SEQ} sequences bootstrapped {BOOT} frames each in "
+          f"{time.perf_counter() - t0:.1f} s, KFs {[len(fs.kf_shells) for fs in boots]}")
+
+    def runner_from_freeze(kf_mode):
+        return BatchedRunner([tgs.GraphSystem.from_full_system(fs) for fs in boots], kf_mode=kf_mode)
+
+    # "deferred" against "gated" over a short tail, states only: the freeze
+    # shares the bootstrap's host shells, so these two runs come before the
+    # one whose trajectories are read
+    short = {}
+    for mode in ("deferred", "gated"):
+        r = runner_from_freeze(mode)
+        for i in range(BOOT, BOOT + GATED_FRAMES):
+            r.add_frames((L_all[:, i], R_all[:, i]), i, timestamp=0.1 * i)
+        r.flush()
+        short[mode] = r
+    torch.cuda.synchronize()
+    differ = trees_equal(short["deferred"].states, short["gated"].states)
+    kfs_short = [len(g.kf_shells) - len(fs.kf_shells) for g, fs in zip(short["gated"].systems, boots)]
+    print(f"[batched] {GATED_FRAMES} frames, \"deferred\" against \"gated\": {differ} state leaves "
+          f"differ; keyframes in that tail {kfs_short}")
+    if differ:
+        fail(f'batched: "deferred" and "gated" differ in {differ} state leaves after '
+             f"{GATED_FRAMES} frames")
+    if sum(kfs_short) < 1:
+        fail("batched: the short runs decided no keyframe")
+    del short
+
+    runner = runner_from_freeze("deferred")
+    kfs_boot = [len(g.kf_shells) for g in runner.systems]
+    runner.warm_kf_buckets((L_all[0, BOOT], R_all[0, BOOT]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tk.reset_launches()
+    tgs.reset_host_reads()
+    dispatches = []
+    inner = runner._dispatch_kf_subset
+
+    def counting(states_pre, aux, expos, pots, need, common):
+        dispatches.append(int(need.size))
+        return inner(states_pre, aux, expos, pots, need, common)
+
+    runner._dispatch_kf_subset = counting
+    frame_ms, _ = run_odometry(
+        lambda i: runner.add_frames((L_all[:, i], R_all[:, i]), i, timestamp=0.1 * i),
+        BOOT, BATCH_FRAMES, lambda: any(g.is_lost for g in runner.systems), "batched", 0)
+    trajs = runner.trajectories()
+    torch.cuda.synchronize()
+    launches["batched"] = (tk.LAUNCHES, tk.LAUNCHES_SLAB)
+    reads = tgs.HOST_READS
+    gt = [np.linalg.inv(T) for T in poses_cw[:BATCH_FRAMES]]
+    n_graph = BATCH_FRAMES - BOOT
+    steady = frame_ms[2:]
+    med, mean = float(np.median(steady)), float(np.mean(steady))
+    print(f"[batched] {N_SEQ} sequences x {n_graph} frames, \"deferred\": ms per batched frame median "
+          f"{med:.1f} mean {mean:.1f} (frames {BOOT + 2}..{BATCH_FRAMES - 1}); {N_SEQ} x the "
+          f"single-sequence graph path of this call: median {N_SEQ * graph_ms[0]:.1f} mean "
+          f"{N_SEQ * graph_ms[1]:.1f}; ratio of the means {mean / (N_SEQ * graph_ms[1]):.3f}")
+    print(f"[batched] keyframe dispatches by subset size {sorted(dispatches)}, kernel launches "
+          f"{launches['batched']} ({launches['batched'][0] / (N_SEQ * n_graph):.2f} a sequence "
+          f"frame), host reads {reads} ({reads / (N_SEQ * n_graph):.2f} a sequence frame), peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    if launches["batched"][0] <= 0:
+        fail("batched: the epipolar kernel was not launched")
+    if launches["batched"][1] != 0:
+        fail("batched: the slab kernel ran on an image under the gate")
+    if not dispatches:
+        fail("batched: no keyframe went through the subset path")
+    for s, (g, traj) in enumerate(zip(runner.systems, trajs)):
+        if g.is_lost:
+            fail(f"batched: sequence {s} lost")
+        if len(traj) != BATCH_FRAMES or not all(np.isfinite(T).all() for T in traj):
+            fail(f"batched: sequence {s}: non-finite or missing poses")
+        ate = trajectory.ate_rmse(traj, gt)
+        kf_frames = [sh.id for sh in g.kf_shells]
+        jax_kf, jax_ate = BATCH_JAX[s]
+        print(f"[batched] sequence {s}: KFs {len(kf_frames)} at frames {kf_frames} (JAX {jax_kf}), "
+              f"ATE {ate:.5f} m (JAX {jax_ate:.5f})")
+        if len(kf_frames) <= kfs_boot[s]:
+            fail(f"batched: sequence {s}: no keyframe after the freeze")
+        if not jax_kf - 3 <= len(kf_frames) <= jax_kf + 3:
+            fail(f"batched: sequence {s}: KF count {len(kf_frames)} outside {jax_kf} +- 3")
+        if not ate <= 2 * jax_ate + 0.01:
+            fail(f"batched: sequence {s}: ATE {ate} > {2 * jax_ate + 0.01}")
+    return (L_all, R_all)
+
+
+def phase_checkpoint(dev, settings, calib, lefts, rights, launches):
+    """Phase 10."""
+    import tempfile
+
+    from stereo_dso_g2o_tpu_torch.frontend.full_system import FullSystem
+    from stereo_dso_g2o_tpu_torch.ops import trace_cuda as tk
+    from stereo_dso_g2o_tpu_torch.runtime import checkpoint
+
+    tk.reset_launches()
+    fs_a = FullSystem(calib, settings, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state")
+        for i in range(CKPT_FRAMES):
+            if i == CKPT_AT:
+                t0 = time.perf_counter()
+                checkpoint.save(fs_a, path)
+                save_s = time.perf_counter() - t0
+                size = sum(os.path.getsize(path + ext) for ext in (".npz", ".meta"))
+            fs_a.add_frame(lefts[i], rights[i], i, timestamp=0.1 * i)
+        t0 = time.perf_counter()
+        fs_b = checkpoint.load(path, calib)
+        load_s = time.perf_counter() - t0
+    if fs_b.win.device != fs_a.win.device or len(fs_b.history) != CKPT_AT:
+        fail("checkpoint: the loaded system is not on the card at the saved frame")
+    for i in range(CKPT_AT, CKPT_FRAMES):
+        fs_b.add_frame(lefts[i], rights[i], i, timestamp=0.1 * i)
+    torch.cuda.synchronize()
+    launches["checkpoint"] = (tk.LAUNCHES, tk.LAUNCHES_SLAB)
+    ta, tb = np.stack(fs_a.trajectory()), np.stack(fs_b.trajectory())
+    worst = float(np.abs(ta - tb).max())
+    differ = fields_equal(fs_a.win, fs_b.win) + fields_equal(fs_a.imm, fs_b.imm)
+    print(f"[checkpoint] saved at frame {CKPT_AT} of {CKPT_FRAMES} ({size / 2**20:.1f} MiB in "
+          f"{save_s:.1f} s, loaded in {load_s:.1f} s); resumed run against the uninterrupted one: "
+          f"max |d pose| {worst:.3g}, window and immature fields that differ {differ}; KFs "
+          f"{len(fs_b.kf_shells)}")
+    if fs_a.is_lost or fs_b.is_lost or not np.isfinite(tb).all():
+        fail("checkpoint: a run was lost or has non-finite poses")
+    if not np.array_equal(ta, tb) or differ:
+        fail("checkpoint: the resumed run is not the uninterrupted one bit for bit")
+    if len(fs_b.kf_shells) != len(fs_a.kf_shells) or len(fs_b.kf_shells) < 3:
+        fail("checkpoint: the keyframes of the two runs differ")
+
+
+def phase_diagnostics(win, settings):
+    """Phase 11."""
+    from stereo_dso_g2o_tpu_torch.runtime.diagnostics import eigenvalue_record
+
+    rec = eigenvalue_record(win, settings=settings)
+    D = 4 + 8 * win.F
+    vals = [v for k in ("ev_H", "ev_H_pose", "ev_H_ab", "H_diag", "nullspace_response") for v in rec[k]]
+    top, resp = rec["ev_H"][0], max(rec["nullspace_response"])
+    print(f"[diagnostics] final window of the graph path: ev_H largest {top:.6g}, smallest "
+          f"{rec['ev_H'][-1]:.6g}; ev_H_pose largest {rec['ev_H_pose'][0]:.6g}; ev_H_ab largest "
+          f"{rec['ev_H_ab'][0]:.6g}; largest nullspace response {resp:.6g} "
+          f"({resp / top:.3g} of the largest eigenvalue)")
+    if len(rec["ev_H"]) != D or len(rec["H_diag"]) != D or len(rec["nullspace_response"]) != 7:
+        fail("diagnostics: a record entry has the wrong length")
+    if not np.isfinite(vals).all() or not top > 0:
+        fail("diagnostics: non-finite entries or no positive eigenvalue")
+    if not resp < 0.05 * top:
+        fail(f"diagnostics: nullspace response {resp} is not small against {top}")
+
+
+def phase_dist_and_multiseq(dev, settings, calib, win, dI_stack, seqs, launches):
+    """Phase 12. `win`, `dI_stack`: phase 7's final window and its level-0
+    pyramids; `seqs`: the stacked frames of phase 9."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from stereo_dso_g2o_tpu_torch.backend import ba
+    from stereo_dso_g2o_tpu_torch.ops import trace_cuda as tk
+    from stereo_dso_g2o_tpu_torch.parallel import dist_ba
+    from stereo_dso_g2o_tpu_torch.parallel.multiseq import MultiSequenceRunner
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", world_size=1,
+                                rank=0, timeout=datetime.timedelta(seconds=120),
+                                device_id=torch.device("cuda", 0))
+        try:
+            shard = dist_ba.shard_window(win, dist.get_rank(), dist.get_world_size())
+            got = dist_ba.sharded_ba_step(None, settings)(shard, dI_stack, 0)
+            want = ba.ba_iteration(win, dI_stack, 0, settings=settings)
+            differ = fields_equal(dist_ba.gather_window(got[0]), want[0])
+            scal = [bool(torch.equal(a, b)) for a, b in zip(got[1:], want[1:])]
+            run = dist_ba.sharded_optimize_fused(None, settings, settings.max_opt_iterations)
+            got_f = run(shard, dI_stack)
+            want_f = ba.optimize_fused(win, dI_stack, settings=settings,
+                                       max_its=settings.max_opt_iterations)
+            differ_f = fields_equal(dist_ba.gather_window(got_f[0]), want_f[0])
+            scal_f = [bool(torch.equal(a, b)) for a, b in zip(got_f[1:], want_f[1:])]
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+    print(f"[dist_ba] one-rank nccl group on the card: sharded step against ba.ba_iteration: "
+          f"window fields that differ {differ}, energy/converged/nres equal {scal} (energy "
+          f"{float(want[1]):.6g}, nres {int(want[3])}); sharded GN loop against ba.optimize_fused: "
+          f"{differ_f}, energy/nres equal {scal_f}. Several ranks are checked on the CPU only "
+          f"(gloo, tests/test_torch_dist_ba.py): this machine has one card")
+    if differ or differ_f or not all(scal) or not all(scal_f):
+        fail("dist_ba: the one-rank sharded BA is not the plain BA bit for bit")
+    if int(want[3]) <= 0:
+        fail("dist_ba: the window has no residual")
+
+    L_all, R_all = seqs
+    tk.reset_launches()
+    runner = MultiSequenceRunner([calib, calib], settings)
+    t0 = time.perf_counter()
+    for i in range(MULTISEQ_FRAMES):
+        runner.add_frames([(L_all[s, i], R_all[s, i]) for s in range(2)], i, timestamp=0.1 * i)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches["multiseq"] = (tk.LAUNCHES, tk.LAUNCHES_SLAB)
+    trajs = runner.trajectories()
+    print(f"[multiseq] 2 sequences x {MULTISEQ_FRAMES} frames on {runner.devices} in {secs:.1f} s: "
+          f"KFs {[len(fs.kf_shells) for fs in runner.systems]}, lost "
+          f"{[fs.is_lost for fs in runner.systems]}, kernel launches {launches['multiseq']}")
+    for s, (fs, traj) in enumerate(zip(runner.systems, trajs)):
+        if fs.is_lost or not fs.initialized:
+            fail(f"multiseq: sequence {s} lost or not initialized")
+        if len(traj) != MULTISEQ_FRAMES or not all(np.isfinite(T).all() for T in traj):
+            fail(f"multiseq: sequence {s}: non-finite or missing poses")
+        if len(fs.kf_shells) < 3:
+            fail(f"multiseq: sequence {s} made {len(fs.kf_shells)} keyframes")
+    if launches["multiseq"][0] <= 0:
+        fail("multiseq: the epipolar kernel was not launched")
 
 
 def main() -> int:
@@ -694,6 +989,15 @@ def main() -> int:
             "gn": gn,
         }, os.environ["SDSO_SAVE_LANES"])
         print(f"[kernel] lanes written to {os.environ['SDSO_SAVE_LANES']}")
+
+    # ---- 9-12. the batched runner, checkpoint, diagnostics, sharded BA, multiseq ----
+    steady_ms = [m for _, m in steady]
+    seqs_all = phase_batched(dev, settings, calib, K, poses_cw, (lefts, rights),
+                             (float(np.median(steady_ms)), float(np.mean(steady_ms))), launches)
+    phase_checkpoint(dev, settings, calib, lefts, rights, launches)
+    phase_diagnostics(gs.state.win, settings)
+    phase_dist_and_multiseq(dev, settings, calib, gs.state.win, gs.state.dI0_slots, seqs_all,
+                            launches)
 
     # ---- report: each kernel at the shape its main path gives it ----
     def row(name, source, replaces, key, col):

@@ -8,6 +8,13 @@ late nullspace orthogonalization, back-substitution of the point steps,
 point marginalization into HM/bM and slot-indexed frame marginalization.
 The JAX `lax.while_loop` of `optimize_fused` becomes a host loop with the
 same early exit.
+
+The JAX functions take `axis_name=` and `psum` over it when the point axis
+is sharded; here they take `reduce=`, a callable that sums a tensor over
+the shards (`parallel/dist_ba.py` passes an all-reduce), applied at the
+same places: the pair-block sums before the replicated priors are added,
+the residual count, the Schur part, the active-point count and idepth sum
+of the convergence test, and the energy. `None` is the one-shard path.
 """
 
 from __future__ import annotations
@@ -164,7 +171,7 @@ def _onehot_host(win, dtype):
 
 
 def accumulate_top(win: W.Window, AH, AT, mask, mode: int, settings: Settings,
-                   use_prior: bool):
+                   use_prior: bool, reduce=None):
     """AccumulatedTopHessianSSE::addPoint<mode> + stitchDouble."""
     F = win.F
     dtype = win.state.dtype
@@ -222,6 +229,12 @@ def accumulate_top(win: W.Window, AH, AT, mask, mode: int, settings: Settings,
     bout[CPARS:] = bf.reshape(-1)
     bout[:CPARS] = bc
 
+    if reduce is not None:
+        # the pair-block sums are partial over the local point shard: summed
+        # over the shards before the (replicated) priors go in, once
+        Hout = reduce(Hout)
+        bout = reduce(bout)
+
     if use_prior:
         prior_f = frame_priors(win, settings)
         d_prior = win.state
@@ -241,6 +254,8 @@ def accumulate_top(win: W.Window, AH, AT, mask, mode: int, settings: Settings,
         dim=1,
     )
     nres = torch.sum(mask)
+    if reduce is not None:
+        nres = reduce(nres)
     return Accum(H=Hout, b=bout, Hdd=Hdd, bd=bd, Hcd=Hcd, nres=nres)
 
 
@@ -267,7 +282,7 @@ class Schur(NamedTuple):
 
 
 def accumulate_sc(win: W.Window, AH, AT, active, acc: Accum, prior_pt,
-                  shift_prior_to_zero: bool):
+                  shift_prior_to_zero: bool, reduce=None):
     """AccumulatedSCHessianSSE::addPoint + stitchDouble."""
     F = win.F
     dtype = win.state.dtype
@@ -322,6 +337,9 @@ def accumulate_sc(win: W.Window, AH, AT, active, acc: Accum, prior_pt,
     Hff = Hff + torch.einsum("ijab,ijkbc,ikdc->jiad", AT, Dacc, AH)
     Hff = Hff + torch.einsum("ijab,ijkbc,ikdc->ikad", AH, Dacc, AT)
     Hout[CPARS:, CPARS:] += Hff.permute(0, 2, 1, 3).reshape(8 * F, 8 * F)
+    if reduce is not None:
+        Hout = reduce(Hout)
+        bout = reduce(bout)
     return Schur(H=Hout, b=bout, HdiF=HdiF, bdSum=bdSum, Hcd=Hcd, JpJdF=JpJdF,
                  idepth_hessian=idepth_hessian)
 
@@ -448,7 +466,7 @@ def apply_step(win: W.Window, out: SolveOut) -> W.Window:
     )
 
 
-def step_converged(win: W.Window, out: SolveOut, settings: Settings):
+def step_converged(win: W.Window, out: SolveOut, settings: Settings, reduce=None):
     """Convergence test of doStepFromBackup; () bool tensor."""
     nf = torch.clamp(torch.sum(win.frame_valid), min=1)
     sumA = torch.sum(out.step_f[:, 6] ** 2) / nf
@@ -458,6 +476,9 @@ def step_converged(win: W.Window, out: SolveOut, settings: Settings):
     pt_ok = win.pt_status == W.PT_ACTIVE
     n_pt = torch.sum(pt_ok)
     sum_id = torch.sum(torch.where(pt_ok, torch.abs(win.pt_idepth), torch.zeros_like(win.pt_idepth)))
+    if reduce is not None:
+        n_pt = reduce(n_pt)
+        sum_id = reduce(sum_id)
     sumNID = sum_id / torch.clamp(n_pt, min=1)
     th = settings.th_opt_iterations
     return (
@@ -499,9 +520,12 @@ def accumulate_priors(win: W.Window, settings: Settings):
 
 
 def ba_iteration(win: W.Window, dI_stack, iteration: int,
-                 settings: Settings = default_settings()):
+                 settings: Settings = default_settings(), reduce=None):
     """One GN iteration of the windowed BA (linearize -> accumulate ->
-    solve -> step). Returns (win, energy, converged, nres)."""
+    solve -> step). Returns (win, energy, converged, nres). With `reduce`
+    the window holds one shard of the points; the camera system, the counts
+    and the energy are summed over the shards, the solve is replicated and
+    the point steps stay local."""
     active_set = win.res_exists & ~win.res_linearized
     lin = R.linearize(win, dI_stack, settings=settings)
     win = R.apply_res(win, lin, active_set)
@@ -509,20 +533,22 @@ def ba_iteration(win: W.Window, dI_stack, iteration: int,
     AH, AT = adjoints(win)
     active = win.res_exists & (win.res_state == W.RES_IN)
     mode0 = active & ~win.res_linearized
-    accA = accumulate_top(win, AH, AT, mode0, 0, settings, use_prior=False)
+    accA = accumulate_top(win, AH, AT, mode0, 0, settings, use_prior=False, reduce=reduce)
     accL = accumulate_priors(win, settings)
     acc = Accum(
         H=accA.H + accL.H, b=accA.b + accL.b, Hdd=accA.Hdd + accL.Hdd,
         bd=accA.bd + accL.bd, Hcd=accA.Hcd + accL.Hcd, nres=accA.nres,
     )
     prior_pt = point_prior(win, settings)
-    sc = accumulate_sc(win, AH, AT, active, acc, prior_pt, True)
+    sc = accumulate_sc(win, AH, AT, active, acc, prior_pt, True, reduce=reduce)
     out = solve_system(win, acc, sc, settings, iteration)
     win = apply_step(win, out)
     win = win.replace(pt_idepth_hessian=sc.idepth_hessian)
 
     energy = torch.sum(torch.where(active_set, lin.energy, torch.zeros_like(lin.energy)))
-    converged = step_converged(win, out, settings)
+    if reduce is not None:
+        energy = reduce(energy)
+    converged = step_converged(win, out, settings, reduce=reduce)
     return win, energy, converged, acc.nres
 
 

@@ -215,13 +215,13 @@ class Settings:
     window_cap: int = 8  # keyframe window capacity (max_frames + 1 slack)
 
     # -- distributed BA (BASELINE config 5) --
-    # >1: the windowed-BA GN loop runs as a shard_map program over a
-    # dist_ba_shards-device mesh (point/residual axis sharded, camera system
-    # psum-reduced over ICI). Opt-in: meant for the ENLARGED window
+    # >1: the windowed-BA GN loop runs over the dist_ba_shards ranks of a
+    # torch.distributed process group (point/residual axis sharded, camera
+    # system all-reduced). Opt-in: meant for the ENLARGED window
     # (max_frames ~15, window_cap 16, active_cap >=8192) whose residual cube
-    # exceeds one chip's comfort zone; the standard F=8 window is faster on
-    # one chip. Requires dist_ba_shards <= len(jax.devices()) and the point
-    # cap divisible by the shard count.
+    # outgrows one device; the standard F=8 window is faster on one.
+    # Requires an initialized group of exactly dist_ba_shards ranks and the
+    # point cap divisible by the shard count.
     dist_ba_shards: int = 0
 
     # -- numerics --

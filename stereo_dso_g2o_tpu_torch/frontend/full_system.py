@@ -14,12 +14,16 @@ removal, tracking-reference rebuild, point marginalization -> new traces
 static-stereo depths seed the first keyframe.
 
 The host code is control flow; numeric stages are torch ops on `device`.
-The multi-device BA (`_dist_ba`, dist_ba_shards > 1) is not ported.
+With `Settings.dist_ba_shards > 1` the windowed BA runs point-sharded over a
+`torch.distributed` process group (`_dist_ba`, parallel/dist_ba.py); with
+`Settings.log_eigenvalues` and a `log_stream` every keyframe writes one
+eigenvalue record (runtime/diagnostics.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -92,6 +96,8 @@ class FullSystem:
         self.initialized = False
         self.is_lost = False
         self.init_failed = False
+        self.log_stream = None  # optional file handle for per-KF stats
+        self.dist_group = None  # process group of the sharded BA (None: the default one)
 
         self.history: List[FrameShell] = []
         self.slot_meta = {}  # slot -> (exposure, aff np)
@@ -120,6 +126,37 @@ class FullSystem:
             self.dI_slots[s][0] if self.dI_slots[s] is not None else zero
             for s in range(self.win.F)
         ])
+
+    def _dist_ba(self, dI_stack, max_its: int):
+        """Windowed BA over the dist_ba_shards ranks of `self.dist_group`
+        (Settings opt-in, BASELINE config 5): take this rank's block of the
+        point axis, run the whole GN loop with the camera system all-reduced,
+        gather back. Every rank runs this same FullSystem on the same
+        frames; only BA is split. Sharding and gathering per keyframe is the
+        price of keeping the rest of the pipeline as it is; a deployment
+        that lives on several devices would keep the window sharded between
+        keyframes (parallel/dist_ba.py)."""
+        import torch.distributed as dist
+
+        from stereo_dso_g2o_tpu_torch.parallel import dist_ba as DBA
+
+        n = self.settings.dist_ba_shards
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError(
+                f"dist_ba_shards={n} needs an initialized torch.distributed process "
+                f"group of {n} ranks (nccl for CUDA tensors, gloo for CPU tensors)"
+            )
+        world = dist.get_world_size(self.dist_group)
+        if world != n:
+            raise RuntimeError(f"dist_ba_shards={n} but the process group has {world} ranks")
+        if self.win.NP % n:
+            raise RuntimeError(
+                f"the point capacity {self.win.NP} is not divisible by dist_ba_shards={n}"
+            )
+        win_sh = DBA.shard_window(self.win, dist.get_rank(self.dist_group), n)
+        run = DBA.sharded_optimize_fused(self.dist_group, self.settings, max_its)
+        win_sh, energy, nres = run(win_sh, dI_stack)
+        return DBA.gather_window(win_sh, self.dist_group), energy, nres
 
     def add_frame(self, left, right, frame_id: int, timestamp: float = 0.0,
                   exposure: float = 1.0, exposure_right: float = 1.0):
@@ -479,7 +516,17 @@ class FullSystem:
         elif len(self.kf_slots) < 4:
             max_its = 15
         with PROF.section("kf.ba", True):
-            self.win, energy, nres = ba.optimize_fused(self.win, dI_stack, settings=s, max_its=max_its)
+            if s.dist_ba_shards > 1:
+                self.win, energy, nres = self._dist_ba(dI_stack, max_its)
+            else:
+                self.win, energy, nres = ba.optimize_fused(
+                    self.win, dI_stack, settings=s, max_its=max_its)
+        if s.log_eigenvalues and self.log_stream is not None:
+            from stereo_dso_g2o_tpu_torch.runtime.diagnostics import eigenvalue_record
+
+            rec = eigenvalue_record(self.win, settings=s)
+            rec["kf_id"] = kf_id
+            self.log_stream.write(json.dumps(rec) + "\n")
 
         # STEPS 7-8 + final linearization
         prev_slot = self.kf_slots[-2] if len(self.kf_slots) >= 2 else -1
@@ -507,6 +554,13 @@ class FullSystem:
             self.init_failed = True
         if not np.isfinite(energy_np):
             self.is_lost = True
+        if self.log_stream is not None:
+            self.log_stream.write(json.dumps({
+                "type": "kf", "kf_id": self.slot_frame_id[slot], "frame_id": shell.id,
+                "rmse": rmse, "energy": energy_np, "n_res": nres_np,
+                "n_points": int((self.win.pt_status == W.PT_ACTIVE).sum()),
+                "n_kfs": len(self.kf_slots), "marg_points": int(gone.sum()),
+            }) + "\n")
         for s_ in self.kf_slots:
             kid = self.slot_frame_id[s_]
             self.kf_shells[kid].T_cw = np.linalg.inv(w2c[s_])

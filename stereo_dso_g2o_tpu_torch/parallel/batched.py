@@ -1,0 +1,422 @@
+"""Config-4 multi-sequence stepping: N sequences, one stacked state.
+
+Port of `stereo_dso_g2o_tpu/parallel/batched.py`. There the whole frame
+program is `vmap`ped over a leading sequence axis, so stepping N sequences
+is one dispatch and one small fetch per frame. This module carries the same
+semantics: the state of all sequences lives stacked (every leaf of
+`GraphState` with a leading axis N), the three dispatch modes, the deferred
+keyframe hand-off, the subset buckets and the lagged drain. The three
+`*_batched` functions compute what `vmap` computes, by mapping the frame
+program over the leading axis sequence by sequence: the frame program here
+is eager, branches on the host at `need_kf` and takes Python ints for
+window slots, so it is not one launch, and a batched frame costs about N
+single frames: 2255 and 2229 ms (mean, two runs) for 4 sequences at 1216x352
+in "deferred" against 4 x 625 and 4 x 553 ms for the single-sequence frame
+program in the same runs on an NVIDIA H100 80GB HBM3 at 700 W
+(chip_smoke.py, PERF.md §5; host-bound either way, and no speed-up over N
+single runs is claimed).
+
+Three dispatch modes (`kf_mode`):
+
+- "deferred" (default): the track-only program for all sequences every
+  frame; the keyframe pipeline for frame i runs at step i+1, BEFORE frame
+  i+1's track, from the pre-track state and the track's aux. Numerically
+  identical to "gated" (the keyframe program of frame i still runs before
+  track i+1), but `need_kf` is fetched one step late, when the track has
+  long finished. The reference's track/map hand-off running one frame
+  behind (FullSystem.cpp:1168-1221), with zero staleness, because the
+  hand-off completes before the next track runs.
+- "gated": the same split, with `need_kf` fetched within the frame.
+- "fused": `frame_auto` per sequence. (Under `vmap` the JAX package runs
+  both branches of the keyframe `cond` for every sequence and selects; the
+  result per sequence is `frame_auto`'s.)
+
+All sequences must share resolution (per-sequence intrinsics VALUES may
+differ). The pixel-selector potential is PER SEQUENCE: each sequence's host
+adaptation (`GraphSystem.apply_bundle`) feeds back into the next dispatch.
+In "deferred" the potentials read at step i+1 serve frame i's keyframe
+pipeline, one drain later than in "gated": where a drain between the two
+steps changed a sequence's potential, the two modes select other pixels
+(the JAX module has the same skew).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from stereo_dso_g2o_tpu_torch.config import Settings, default_settings
+from stereo_dso_g2o_tpu_torch.frontend import graph_system as GSYS
+from stereo_dso_g2o_tpu_torch.frontend.full_system import device_image
+from stereo_dso_g2o_tpu_torch.frontend.graph_system import (
+    FrameBundle,
+    GraphState,
+    GraphSystem,
+    frame_auto,
+    frame_kf,
+    frame_track,
+)
+
+# ---------------------------------------------------------------------------
+# trees of tensors: NamedTuples, dataclasses, tuples and lists down to tensors
+# ---------------------------------------------------------------------------
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """`fn` over the tensor leaves of `tree` (and of `rest`, trees of the
+    same structure), rebuilt in the structure of `tree`."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *rest)
+    if dataclasses.is_dataclass(tree):
+        return type(tree)(**{
+            f.name: tree_map(fn, getattr(tree, f.name), *[getattr(r, f.name) for r in rest])
+            for f in dataclasses.fields(tree)
+        })
+    if isinstance(tree, (tuple, list)):
+        items = [tree_map(fn, x, *[r[i] for r in rest]) for i, x in enumerate(tree)]
+        return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
+    raise TypeError(f"tree_map: a {type(tree).__name__} is neither a tensor nor a container")
+
+
+def _tree_stack(trees):
+    return tree_map(lambda *xs: torch.stack(xs), trees[0], *trees[1:])
+
+
+def _tree_slice(tree, i):
+    return tree_map(lambda x: x[i], tree)
+
+
+def _tree_scatter(stacked, items, idx):
+    """`stacked` with rows `idx` replaced by the rows of `items` (a new
+    tree: whoever else holds `stacked` keeps what it had)."""
+    idx = torch.as_tensor(np.asarray(idx), dtype=torch.long)
+    on = {}  # device -> idx there: one upload for all leaves
+
+    def put(s, x):
+        if s.device not in on:
+            on[s.device] = idx.to(s.device)
+        out = s.clone()
+        out[on[s.device]] = x
+        return out
+
+    return tree_map(put, stacked, items)
+
+
+def _uniform_of(uniforms, k):
+    return None if uniforms is None else uniforms[k]
+
+
+# ---------------------------------------------------------------------------
+# the frame program over the leading axis
+# ---------------------------------------------------------------------------
+
+
+def frame_auto_batched(
+    states: GraphState,  # leading axis N on every leaf
+    lefts,  # (N, H, W)
+    rights,
+    calib_cs,  # (N, 4)
+    baselines,  # (N,)
+    exposures,  # (N,)
+    pots: Sequence[int],  # per-sequence selector potential
+    settings: Settings = default_settings(),
+    n_levels: int = 6,
+    n_tries: int = 5,
+    caps: Tuple[int, ...] = (),
+    w0: int = 0,
+    h0: int = 0,
+    imm_cap: int = 2048,
+    uniforms: Optional[Sequence[Optional[Callable]]] = None,
+):
+    """`frame_auto` over the sequence axis: (states, bundles), stacked."""
+    outs = [
+        frame_auto(
+            _tree_slice(states, k), lefts[k], rights[k], calib_cs[k], baselines[k],
+            exposures[k], settings=settings, n_levels=n_levels, n_tries=n_tries,
+            pot=int(pots[k]), caps=caps, w0=w0, h0=h0, imm_cap=imm_cap,
+            uniform=_uniform_of(uniforms, k),
+        )
+        for k in range(lefts.shape[0])
+    ]
+    return _tree_stack([o[0] for o in outs]), _tree_stack([o[1] for o in outs])
+
+
+def frame_track_batched(
+    states: GraphState,
+    lefts,
+    rights,
+    calib_cs,
+    baselines,
+    exposures,
+    settings: Settings = default_settings(),
+    n_levels: int = 6,
+    n_tries: int = 5,
+    w0: int = 0,
+    h0: int = 0,
+):
+    """`frame_track` over the sequence axis: (states, bundles, aux), stacked."""
+    outs = [
+        frame_track(
+            _tree_slice(states, k), lefts[k], rights[k], calib_cs[k], baselines[k],
+            exposures[k], settings=settings, n_levels=n_levels, n_tries=n_tries,
+            w0=w0, h0=h0,
+        )
+        for k in range(lefts.shape[0])
+    ]
+    return tuple(_tree_stack([o[j] for o in outs]) for j in range(3))
+
+
+def frame_kf_subset_batched(
+    states_pre: GraphState,  # (N, ...) pre-track states
+    aux,  # (N, ...) track aux from frame_track_batched
+    calib_cs,
+    baselines,
+    exposures,
+    pots: Sequence[int],
+    idx,  # (nb,) sequence indices needing the KF pipeline, padded with
+    #       DUPLICATES of a real index
+    settings: Settings = default_settings(),
+    n_levels: int = 6,
+    caps: Tuple[int, ...] = (),
+    w0: int = 0,
+    h0: int = 0,
+    imm_cap: int = 2048,
+    nb: int = 1,
+    uniforms: Optional[Sequence[Optional[Callable]]] = None,
+):
+    """The keyframe pipeline over the KF-needing subset. The JAX function
+    pads `idx` with duplicates to a bucket size `nb` so that few program
+    variants compile, and runs the padding too. Nothing compiles here and
+    the map runs sequence by sequence, so a padded duplicate would only
+    repeat a deterministic keyframe: each DISTINCT index runs once. `nb`
+    stays in the signature for the counterpart's sake. Returns (states,
+    bundles, distinct indices), the first two stacked over the last."""
+    distinct = list(dict.fromkeys(int(i) for i in idx))
+    assert len(idx) == nb and len(distinct) <= nb
+    outs = [
+        frame_kf(
+            _tree_slice(states_pre, k), _tree_slice(aux, k), calib_cs[k], baselines[k],
+            exposures[k], pot=int(pots[k]), caps=caps, imm_cap=imm_cap, settings=settings,
+            n_levels=n_levels, w0=w0, h0=h0, uniform=_uniform_of(uniforms, k),
+        )
+        for k in distinct
+    ]
+    return (_tree_stack([o[0] for o in outs]), _tree_stack([o[1] for o in outs]),
+            np.asarray(distinct, np.int64))
+
+
+class BatchedRunner:
+    """Steps N bootstrapped sequences on one stacked state.
+
+    Build per-sequence `GraphSystem`s (each bootstrapped through the host
+    FullSystem past initialization), then `BatchedRunner(systems)`. Host
+    bookkeeping stays per sequence; device state lives stacked, on the
+    systems' device."""
+
+    def __init__(self, systems: Sequence[GraphSystem], kf_mode: str = "deferred"):
+        assert len(systems) >= 1
+        assert kf_mode in ("deferred", "gated", "fused")
+        self.kf_mode = kf_mode
+        # pending KF hand-off for "deferred": (states_pre, aux, bundles,
+        # expos, queue entry) of the latest tracked frame
+        self._pending_kf = None
+        self.systems: List[GraphSystem] = list(systems)
+        cal0 = systems[0].calib
+        for gs in systems:
+            assert gs.calib.w == cal0.w and gs.calib.h == cal0.h, (
+                "sequences must share the image geometry"
+            )
+            assert gs.device == systems[0].device, "sequences must share the device"
+        self.calib = cal0
+        self.device = systems[0].device
+        self.settings = systems[0].settings
+        self.caps = systems[0].caps
+        self.states = _tree_stack([gs.state for gs in systems])
+        self._pending_q = []
+        self.calib_cs = torch.stack([gs.calib.c for gs in systems])
+        self.baselines = torch.stack([gs.calib.baseline.to(torch.float32) for gs in systems])
+        self.uniforms = [gs.uniform for gs in systems]
+
+    def __len__(self):
+        return len(self.systems)
+
+    fetch_lag = 2  # frames the bundle fetch trails the dispatch front
+
+    def _common(self):
+        return dict(
+            settings=self.settings, n_levels=self.calib.n_levels,
+            w0=self.calib.w[0], h0=self.calib.h[0],
+        )
+
+    def _stacked_frames(self, frames):
+        n = len(self.systems)
+        if (
+            isinstance(frames, tuple)
+            and len(frames) == 2
+            and hasattr(frames[0], "ndim")
+            and frames[0].ndim == 3
+        ):
+            lefts, rights = (torch.as_tensor(f).to(self.device) for f in frames)
+            assert lefts.shape[0] == n
+            return lefts, rights
+        assert len(frames) == n
+        return tuple(
+            torch.stack([device_image(f[j], self.device) for f in frames]) for j in (0, 1)
+        )
+
+    def add_frames(self, frames, frame_id: int, timestamp: float = 0.0,
+                   exposures: Optional[Sequence[float]] = None):
+        """frames: either a list of (left, right) per sequence (host arrays,
+        uploaded here), or a tuple (lefts, rights) of already-stacked
+        (N, H, W) tensors: pass slices of frames staged on the device to
+        skip the per-frame upload. Returns the bundles drained this step
+        (numpy leaves, `fetch_lag` frames behind), or None."""
+        n = len(self.systems)
+        if exposures is None:
+            exposures = [1.0] * n
+        expos = torch.as_tensor(np.asarray(exposures, np.float32), device=self.device)
+        lefts, rights = self._stacked_frames(frames)
+        common = self._common()
+
+        pots = self._current_pots()
+        if self.kf_mode == "fused":
+            states, bundles = frame_auto_batched(
+                self.states, lefts, rights, self.calib_cs, self.baselines,
+                expos, pots, n_tries=5, caps=self.caps,
+                imm_cap=self.settings.immature_cap, uniforms=self.uniforms, **common,
+            )
+            self.states = states
+        elif self.kf_mode == "deferred":
+            # resolve the PREVIOUS frame's keyframe hand-off first: its
+            # track has finished, and the keyframe program runs before this
+            # frame's track, the same execution order as "gated"
+            self._resolve_pending_kf(pots)
+            states_pre = self.states
+            states, bundles, aux = frame_track_batched(
+                states_pre, lefts, rights, self.calib_cs, self.baselines,
+                expos, n_tries=5, **common,
+            )
+            self.states = states
+            # the queue ENTRY (a mutable list) is captured so the KF fix-up
+            # finds it however many drains shift the queue
+            entry = [bundles, frame_id, timestamp]
+            self._pending_kf = (states_pre, aux, bundles, expos, entry)
+            self._pending_q.append(entry)
+            drained = None
+            while len(self._pending_q) > self.fetch_lag:
+                drained = self._drain_one()
+            return drained
+        else:
+            states_pre = self.states
+            states, bundles, aux = frame_track_batched(
+                states_pre, lefts, rights, self.calib_cs, self.baselines,
+                expos, n_tries=5, **common,
+            )
+            need = np.nonzero(np.asarray(GSYS._host(bundles.need_kf)))[0]
+            if need.size:
+                st_b, b_b, idx = self._dispatch_kf_subset(
+                    states_pre, aux, expos, pots, need, common
+                )
+                states = _tree_scatter(states, st_b, idx)
+                bundles = _tree_scatter(bundles, b_b, idx)
+            self.states = states
+        self._pending_q.append([bundles, frame_id, timestamp])
+        drained = None
+        while len(self._pending_q) > self.fetch_lag:
+            drained = self._drain_one()
+        return drained
+
+    def _dispatch_kf_subset(self, states_pre, aux, expos, pots, need, common):
+        """The keyframe pipeline over the KF-needing subset. The index list
+        is padded to a bucket of {1, 2, N} with duplicates of a real index,
+        as the JAX module pads it to keep its compiled variants few;
+        `frame_kf_subset_batched` runs each distinct index once. Returns
+        (states, bundles, indices) to scatter."""
+        n = len(self.systems)
+        nb = next(b for b in (1, 2, n) if b >= need.size)
+        idx = np.full((nb,), need[0], np.int32)
+        idx[: need.size] = need
+        return frame_kf_subset_batched(
+            states_pre, aux, self.calib_cs, self.baselines, expos,
+            pots, idx, caps=self.caps, imm_cap=self.settings.immature_cap, nb=nb,
+            uniforms=self.uniforms, **common,
+        )
+
+    def _resolve_pending_kf(self, pots):
+        """Deferred-mode hand-off: fetch the previous frame's need_kf flags
+        (its track has already run), run the keyframe pipeline for the
+        sequences that need it, and scatter the post-KF states/bundles in.
+        The tracked-but-pre-KF speculative state of those sequences is
+        replaced wholesale: identical semantics to "gated", one step later
+        on the host, same order on the device."""
+        if self._pending_kf is None:
+            return
+        states_pre, aux, bundles, expos, entry = self._pending_kf
+        self._pending_kf = None
+        need = np.nonzero(np.asarray(GSYS._host(bundles.need_kf)))[0]
+        if not need.size:
+            return
+        st_b, b_b, idx = self._dispatch_kf_subset(
+            states_pre, aux, expos, pots, need, self._common()
+        )
+        self.states = _tree_scatter(self.states, st_b, idx)
+        # fix up the queued (not-yet-drained) bundle entry of that frame so
+        # host bookkeeping sees the keyframe result, not the track-only one
+        entry[0] = _tree_scatter(entry[0], b_b, idx)
+
+    def _current_pots(self):
+        return [int(gs.pot) for gs in self.systems]
+
+    def warm_kf_buckets(self, frame):
+        """Run the track and the keyframe pipeline once before the
+        steady-state loop, WITHOUT mutating runner state.
+
+        The JAX module compiles its keyframe-bucket variants ({1, 2, N})
+        here. Nothing compiles in eager PyTorch and the buckets are one
+        code path, so this builds the CUDA kernels (on a CUDA device) and
+        takes one frame through track and keyframe pipeline on a copy of
+        sequence 0's state, which leaves the allocator holding the blocks
+        a keyframe needs. frame: one (left, right) stereo pair (only its
+        shape matters)."""
+        if self.device.type == "cuda":
+            from stereo_dso_g2o_tpu_torch.ops import trace_cuda
+
+            trace_cuda.build()
+        reads = GSYS.HOST_READS
+        left, right = (device_image(f, self.device) for f in frame)
+        state = tree_map(torch.clone, _tree_slice(self.states, 0))
+        expo = torch.ones((), dtype=torch.float32, device=self.device)
+        common = self._common()
+        _, _, aux = frame_track(state, left, right, self.calib_cs[0], self.baselines[0], expo,
+                                n_tries=5, **common)
+        out = frame_kf(state, aux, self.calib_cs[0], self.baselines[0], expo,
+                       pot=self._current_pots()[0], caps=self.caps,
+                       imm_cap=self.settings.immature_cap, uniform=self.uniforms[0], **common)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        GSYS.HOST_READS = reads
+        del out
+
+    def _drain_one(self):
+        bundles, frame_id, timestamp = self._pending_q.pop(0)
+        GSYS.HOST_READS += 1  # one wait for the frame; the copies after it find it done
+        b_all = FrameBundle(*[x.cpu().numpy() for x in bundles])
+        for k, gs in enumerate(self.systems):
+            bk = FrameBundle(*[x[k] for x in b_all])
+            # apply_bundle also adapts gs.pot per sequence; the value, stale
+            # by the lag, feeds the next dispatch
+            gs.apply_bundle(bk, frame_id, timestamp, len(gs.kf_shells) - 1)
+        return b_all
+
+    def flush(self):
+        # a pending keyframe hand-off must land before its bundle drains
+        self._resolve_pending_kf(self._current_pots())
+        while self._pending_q:
+            self._drain_one()
+
+    def trajectories(self):
+        self.flush()
+        return [gs.trajectory() for gs in self.systems]

@@ -79,9 +79,8 @@ def _shell(h):
                 T_cw=None if h.T_cw is None else np.array(h.T_cw))
 
 
-def gs_snapshot(gs):
-    """Snapshot of a JAX GraphSystem for bridge.graph_system_from_snapshot."""
-    st = gs.state
+def graph_state_snapshot(st):
+    """A JAX GraphState as numpy, for bridge.graph_state_from_numpy."""
     scalars = {
         k: np.array(getattr(st, k))
         for k in st._fields if k not in ("win", "imm", "ref", "dI0_slots")
@@ -92,6 +91,13 @@ def gs_snapshot(gs):
         ref=[tuple(np.array(x) for x in lvl) for lvl in st.ref],
         dI0_slots=np.array(st.dI0_slots),
         scalars=scalars,
+    )
+
+
+def gs_snapshot(gs):
+    """Snapshot of a JAX GraphSystem for bridge.graph_system_from_snapshot."""
+    return dict(
+        **graph_state_snapshot(gs.state),
         history=[_shell(h) for h in gs.history],
         kf_shells=[_shell(h) for h in gs.kf_shells],
         slot_frame_id=dict(gs.slot_frame_id),
@@ -100,12 +106,16 @@ def gs_snapshot(gs):
     )
 
 
-def jax_graph_reference(w, h, base, n_boot, n_frames):
+def jax_graph_reference(w, h, base, n_boot, n_frames, seq=0, scene_frames=None):
     """The JAX package's bootstrap + GraphSystem run over the KITTI-settings
-    corridor that chip_smoke.py drives through the port (sequence 0 of
-    bench.py): KF frames and ATE, the bounds chip_smoke.py holds the port to.
+    corridor that chip_smoke.py drives through the port (sequence `seq` of
+    bench.py: scene seed 100 + seq, exposure phase seq): KF frames and ATE,
+    the bounds chip_smoke.py holds the port to. `scene_frames` sizes the
+    corridor where it is longer than the run (chip_smoke.py builds every
+    scene for 40 frames and drives the batched runner over the first 32).
 
         JAX_PLATFORMS=cpu python tests/_torch_parity.py 1216 352 0.54 12 40
+        JAX_PLATFORMS=cpu python tests/_torch_parity.py 1216 352 0.54 12 32 <seq> 40
     """
     import time
 
@@ -122,11 +132,12 @@ def jax_graph_reference(w, h, base, n_boot, n_frames):
         affine_opt_mode_a=0.0, affine_opt_mode_b=0.0,
     )
     K = synthetic.default_K(w, h, fov_deg=80.0)
-    scene = synthetic.corridor_scene(seed=100, length=step * n_frames + 40.0,
+    scene = synthetic.corridor_scene(seed=100 + seq,
+                                     length=step * (scene_frames or n_frames) + 40.0,
                                      box_spacing=9.0, lateral=14.0)
     poses_cw = synthetic.forward_trajectory(n_frames, step=step, yaw_amp=0.10,
-                                            yaw_period=80.0, seed=0)
-    expos = 1.0 + 0.12 * np.sin(0.25 * np.arange(n_frames))
+                                            yaw_period=80.0, seed=seq)
+    expos = 1.0 + 0.12 * np.sin(0.25 * np.arange(n_frames) + seq)
     lefts, rights = synthetic.render_stereo_sequence_fast(scene, K, w, h, base, poses_cw, expos)
     calib = make_calib(K[0, 0], K[1, 1], K[0, 2], K[1, 2], base, w, h, n_levels=6)
     fs = FullSystem(calib, settings)
@@ -142,7 +153,7 @@ def jax_graph_reference(w, h, base, n_boot, n_frames):
         print(f"frame {i}: {time.perf_counter() - t1:.1f} s", flush=True)
     traj = gs.trajectory()
     gt = [np.linalg.inv(T) for T in poses_cw]
-    out = dict(w=w, h=h, n_boot=n_boot, n_frames=n_frames, lost=bool(gs.is_lost),
+    out = dict(w=w, h=h, n_boot=n_boot, n_frames=n_frames, seq=seq, lost=bool(gs.is_lost),
                kf_frames=[s.id for s in gs.kf_shells], n_kf=len(gs.kf_shells),
                ate=float(trajectory.ate_rmse(traj, gt)),
                seconds=round(time.perf_counter() - t0, 1))
@@ -154,4 +165,5 @@ if __name__ == "__main__":
     import sys
 
     a = sys.argv[1:]
-    jax_graph_reference(int(a[0]), int(a[1]), float(a[2]), int(a[3]), int(a[4]))
+    jax_graph_reference(int(a[0]), int(a[1]), float(a[2]), int(a[3]), int(a[4]),
+                        *(int(x) for x in a[5:7]))
