@@ -53,7 +53,7 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
   10. checkpoint: FullSystem over 16 frames, saved at frame 10, loaded and
      continued: trajectory and window equal the uninterrupted run's exactly;
   11. diagnostics: eigenvalue_record of phase 7's final window: finite, the
-     nullspace responses small against the largest eigenvalue;
+     nullspace responses small against the pose block's largest eigenvalue;
   12. sharded BA and multi-sequence: the sharded BA step and GN loop over a
      one-rank nccl group equal ba.ba_iteration / ba.optimize_fused bit for
      bit (several ranks are checked on the CPU only, with gloo, by
@@ -536,16 +536,24 @@ def phase_diagnostics(win, settings):
     D = 4 + 8 * win.F
     vals = [v for k in ("ev_H", "ev_H_pose", "ev_H_ab", "H_diag", "nullspace_response") for v in rec[k]]
     top, resp = rec["ev_H"][0], max(rec["nullspace_response"])
+    pose_top = rec["ev_H_pose"][0]
     print(f"[diagnostics] final window of the graph path: ev_H largest {top:.6g}, smallest "
-          f"{rec['ev_H'][-1]:.6g}; ev_H_pose largest {rec['ev_H_pose'][0]:.6g}; ev_H_ab largest "
+          f"{rec['ev_H'][-1]:.6g}; ev_H_pose largest {pose_top:.6g}; ev_H_ab largest "
           f"{rec['ev_H_ab'][0]:.6g}; largest nullspace response {resp:.6g} "
-          f"({resp / top:.3g} of the largest eigenvalue)")
+          f"({resp / pose_top:.3g} of the pose block's largest eigenvalue)")
     if len(rec["ev_H"]) != D or len(rec["H_diag"]) != D or len(rec["nullspace_response"]) != 7:
         fail("diagnostics: a record entry has the wrong length")
     if not np.isfinite(vals).all() or not top > 0:
         fail("diagnostics: non-finite entries or no positive eigenvalue")
-    if not resp < 0.05 * top:
-        fail(f"diagnostics: nullspace response {resp} is not small against {top}")
+    # The gauge directions have pose components only, so they are held to the
+    # pose block (the a/b priors, ev_H's largest, lie far above it and
+    # would let anything pass): what answers them is the first frame's pose
+    # prior, carried by the marginal prior once that frame has left.
+    if not 0 < pose_top < 0.1 * top:
+        fail(f"diagnostics: pose block {pose_top} is not well under the a/b priors {top}")
+    if not resp < 0.05 * pose_top:
+        fail(f"diagnostics: nullspace response {resp} is not small against the pose block's "
+             f"largest eigenvalue {pose_top}")
 
 
 def phase_dist_and_multiseq(dev, settings, calib, win, dI_stack, seqs, launches):

@@ -553,17 +553,24 @@ def ba_iteration(win: W.Window, dI_stack, iteration: int,
 
 
 def optimize_fused(win: W.Window, dI_stack, settings: Settings = default_settings(),
-                   max_its: int = 6):
+                   max_its: int = 6, reduce=None):
     """The whole GN loop (FullSystem::optimize, legacy) with the JAX
     package's early exit: stop once an iteration converged and at least
-    min_opt_iterations ran. Returns (win, energy, nres)."""
+    min_opt_iterations ran. Returns (win, energy, nres).
+
+    With `reduce` (see `ba_iteration`) every shard computes the flag from the
+    same summed system, so it is the same everywhere; but it is read on the
+    host, and a shard that left the loop alone would leave the others waiting
+    in the next sum. So the count of shards that have not converged goes
+    through `reduce` too, and all stop together."""
     energy = torch.zeros((), dtype=torch.float32, device=win.device)
     nres = torch.zeros((), dtype=torch.int32, device=win.device)
     for it in range(max_its):
-        win, e, conv, nr = ba_iteration(win, dI_stack, it, settings=settings)
+        win, e, conv, nr = ba_iteration(win, dI_stack, it, settings=settings, reduce=reduce)
         energy = e.to(torch.float32)
         nres = nr.to(torch.int32)
-        if (it + 1 >= settings.min_opt_iterations) and bool(conv):
+        done = bool(conv) if reduce is None else not bool(reduce((~conv).to(torch.int32)))
+        if (it + 1 >= settings.min_opt_iterations) and done:
             break
     return win, energy, nres
 

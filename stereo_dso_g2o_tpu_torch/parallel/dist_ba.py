@@ -17,7 +17,8 @@ One rank drives one device: `nccl` for CUDA tensors, `gloo` for CPU
 tensors. The caller initializes the process group (address, world size and
 rank are its own to give) and passes the group in; `None` is the default
 group. One iteration all-reduces H (68x68 at F = 8) and b (68) of the top
-accumulation and of the Schur part, and five scalars.
+accumulation and of the Schur part, and five scalars; the GN loop adds one
+more for its stop flag.
 """
 
 from __future__ import annotations
@@ -96,30 +97,14 @@ def sharded_ba_step(group=None, settings: Settings = default_settings()):
 
 def sharded_optimize_fused(group=None, settings: Settings = default_settings(),
                            max_its: int = 6):
-    """The whole GN loop (`ba.optimize_fused`) over `group`, with its stop
-    rule: leave once an iteration converged and min_opt_iterations ran.
-
-    Every rank steps the replicated keyframe state from the same all-reduced
-    system, so the convergence flag is the same everywhere. It is read on the
-    host, though, and a rank that left the loop alone would leave the others
-    waiting in the next all-reduce; so the flag itself is reduced (a rank
-    stops only when all would), which costs one more scalar per iteration
-    and changes nothing while the ranks agree.
+    """The whole GN loop over `group`: `ba.optimize_fused` with the group's
+    sum as its `reduce`, so the loop and its stop rule exist once.
 
     Returns run(win_shard, dI_stack) -> (win_shard, energy, nres)."""
-    step = sharded_ba_step(group, settings)
+    reduce = all_reduce_sum(group)
 
     def run(win_shard: W.Window, dI_stack):
-        energy = torch.zeros((), dtype=torch.float32, device=win_shard.device)
-        nres = torch.zeros((), dtype=torch.int32, device=win_shard.device)
-        for it in range(max_its):
-            win_shard, e, conv, nr = step(win_shard, dI_stack, it)
-            energy = e.to(torch.float32)
-            nres = nr.to(torch.int32)
-            done = conv.to(torch.int32)
-            dist.all_reduce(done, op=dist.ReduceOp.MIN, group=group)
-            if (it + 1 >= settings.min_opt_iterations) and bool(done):
-                break
-        return win_shard, energy, nres
+        return ba.optimize_fused(win_shard, dI_stack, settings=settings, max_its=max_its,
+                                 reduce=reduce)
 
     return run

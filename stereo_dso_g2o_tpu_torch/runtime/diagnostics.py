@@ -19,15 +19,21 @@ from stereo_dso_g2o_tpu_torch.backend import window as W
 from stereo_dso_g2o_tpu_torch.config import CPARS, Settings, default_settings
 
 
-def _hessian_parts(win: W.Window, settings: Settings):
-    """Final-state H (A-mode + priors + marginal prior - Schur), eigendata."""
+def hessian(win: W.Window, settings: Settings) -> torch.Tensor:
+    """Final-state H of the camera system: A-mode + priors + marginal prior
+    - Schur complement of the points."""
     AH, AT = ba.adjoints(win)
     active = win.res_exists & (win.res_state == W.RES_IN)
     mode0 = active & ~win.res_linearized
     accA = ba.accumulate_top(win, AH, AT, mode0, 0, settings, use_prior=True)
     prior_pt = ba.point_prior(win, settings)
     sc = ba.accumulate_sc(win, AH, AT, active, accA, prior_pt, True)
-    H = accA.H + win.HM - sc.H
+    return accA.H + win.HM - sc.H
+
+
+def _hessian_parts(win: W.Window, settings: Settings):
+    """Eigendata, diagonal and nullspace responses of `hessian`."""
+    H = hessian(win, settings)
     # the reference logs eigenvalues of the undamped system
     ev_all = torch.linalg.eigvalsh(0.5 * (H + H.T))
     # pose block (6 dof per frame) and a/b block, like ev_H_A / ev_H_ab
