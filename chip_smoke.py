@@ -58,7 +58,17 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
      one-rank nccl group equal ba.ba_iteration / ba.optimize_fused bit for
      bit (several ranks are checked on the CPU only, with gloo, by
      tests/test_torch_dist_ba.py); MultiSequenceRunner with 2 sequences on
-     the one device over 14 frames, both tracked.
+     the one device over 14 frames, both tracked;
+  13. playback, as a user runs the port's CLI: the corridor sequence 0
+     rendered on the card at KITTI 05's image size (1226x370) and written as
+     a KITTI-layout folder (8-bit PNGs, times.txt with exposures, a Pinhole
+     `crop` calib), then stereo_dso_g2o_tpu_torch.run_odometry over it
+     (preset 0, 6 levels, native prefetch, viewer feed): the decoder that
+     ran, ms/frame, the GraphSystem switch, KFs and ATE inside the bounds
+     recorded in PERF.md, no loss, K1 launched, feed lines and points; the
+     undistortion's device time; StereoDataset.get (remap on the card)
+     against the native stream on 4 frames; `stereomatch=1 maxframes=2` and
+     `synthetic=20` through the same CLI.
 Every kernel launch counter is set to 0 just before a path is driven and
 read just after. The last two lines are the kernel report and the device
 report (JSON). With SDSO_PROFILE=1 the two odometry paths also print their
@@ -102,6 +112,14 @@ N_SEQ, BATCH_FRAMES, GATED_FRAMES = 4, 32, 8
 BATCH_JAX = ((8, 0.02297), (9, 0.03354), (8, 0.01902), (9, 0.01257))
 CKPT_FRAMES, CKPT_AT = 16, 10
 MULTISEQ_FRAMES = 14
+# the playback cell: KITTI 05's image size (BASELINE.md), cut to 1216x352 by
+# the crop to 6 levels. JAX package, its run_odometry.py over the same cell on
+# the CPU (`JAX_PLATFORMS=cpu python tests/_torch_parity.py playback <dir>`,
+# PERF.md): (KFs, ATE in m). Bounds as above.
+PB_W, PB_H = 1226, 370
+PLAYBACK_JAX = (10, 0.01701)
+NATIVE_TOL = 1e-3
+NATIVE_FRAMES = 4
 # published peaks of one H100 SXM: the roofline a kernel's bound is taken from
 HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12
 # JAX package, FullSystem on CPU, same 40 frames and settings (PERF.md):
@@ -622,6 +640,110 @@ def phase_dist_and_multiseq(dev, settings, calib, win, dI_stack, seqs, launches)
         fail("multiseq: the epipolar kernel was not launched")
 
 
+def phase_playback(dev, scene, poses_cw, expos, launches):
+    """Phase 13: the port's CLI over a KITTI-layout folder of the corridor."""
+    import tempfile
+
+    from stereo_dso_g2o_tpu_torch import run_odometry as cli
+    from stereo_dso_g2o_tpu_torch.io import dataset, synthetic, trajectory
+    from stereo_dso_g2o_tpu_torch.ops import trace_cuda as tk
+    from stereo_dso_g2o_tpu_torch.runtime import native_loader
+
+    K = synthetic.default_K(PB_W, PB_H, fov_deg=80.0)
+    t0 = time.perf_counter()
+    lefts, rights = synthetic.render_stereo_sequence_fast(
+        scene, K, PB_W, PB_H, BASE, poses_cw, expos, device=dev)
+    lefts, rights = lefts.cpu(), rights.cpu()
+    print(f"[playback] {N_FRAMES} stereo pairs {PB_W}x{PB_H} rendered on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    built = native_loader.available()
+    jpeg = native_loader.jpeg_error()
+    print(f"[playback] native loader: {'built' if built else 'NOT built'} in "
+          f"{time.perf_counter() - t0:.1f} s (g++), JPEG "
+          f"{'on' if jpeg is None else 'off: ' + ' '.join(jpeg.split())[:200]}"
+          + ("" if built else f"; build error: {native_loader.build_error()}"))
+    if not built:
+        fail("playback: the native loader did not build")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        seq, calib = dataset.write_sequence(os.path.join(tmp, "seq"), lefts, rights, K, BASE, expos)
+        print(f"[playback] KITTI-layout folder (PNG, times.txt, camera.txt `crop`) written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        out, feed = os.path.join(tmp, "traj.txt"), os.path.join(tmp, "feed.jsonl")
+        tk.reset_launches()
+        summary = cli.run([f"files={seq}", f"calib={calib}", "preset=0", "quiet=1", "levels=6",
+                           f"output={out}", f"feed={feed}"])
+        torch.cuda.synchronize()
+        launches["playback"] = (tk.LAUNCHES, tk.LAUNCHES_SLAB)
+        traj = trajectory.read_kitti(out)
+        with open(feed) as f:
+            records = [json.loads(line) for line in f]
+        kf_recs = [r for r in records if r["type"] == "keyframes"]
+        n_pose = sum(r["type"] == "pose" for r in records)
+        if summary["lost"] or len(traj) != N_FRAMES or not all(np.isfinite(T).all() for T in traj):
+            fail("playback: lost, or non-finite or missing poses")
+        ate = trajectory.ate_rmse(traj, [np.linalg.inv(T) for T in poses_cw])
+        steady = summary["frame_ms"][2:]
+        jax_kf, jax_ate = PLAYBACK_JAX
+        print(f"[playback] frames from {summary['source']}; {summary['frames']} frames in "
+              f"{summary['seconds']:.1f} s, ms/frame median {float(np.median(steady)):.1f} mean "
+              f"{float(np.mean(steady)):.1f} (frames 2.., host clock, frame fetch included); "
+              f"GraphSystem from frame {summary['switch_frame']}")
+        print(f"[playback] KFs {summary['keyframes']} (JAX {jax_kf}), ATE {ate:.5f} m (JAX "
+              f"{jax_ate:.5f}), lost {summary['lost']}, kernel launches {launches['playback']}; "
+              f"feed {len(records)} lines ({n_pose} poses, {len(kf_recs)} keyframe records, "
+              f"{kf_recs[-1]['n_points'] if kf_recs else 0} points in the last)")
+        if summary["source"] != "native":
+            fail("playback: the CLI did not stream from the native loader")
+        if summary["switch_frame"] is None:
+            fail("playback: the CLI never switched to GraphSystem")
+        if launches["playback"][0] <= 0 or launches["playback"][1] != 0:
+            fail(f"playback: kernel launches {launches['playback']} (K1 must run, K2 must not)")
+        if not jax_kf - 3 <= summary["keyframes"] <= jax_kf + 3:
+            fail(f"playback: KF count {summary['keyframes']} outside {jax_kf} +- 3")
+        if not ate <= 2 * jax_ate + 0.01:
+            fail(f"playback: ATE {ate} > {2 * jax_ate + 0.01}")
+        if n_pose != N_FRAMES or not kf_recs or kf_recs[-1]["n_points"] <= 0:
+            fail("playback: the viewer feed lacks poses, keyframes or points")
+
+        ds = dataset.StereoDataset(seq, calib_file=calib, n_levels=6, device=dev)
+        raw = torch.as_tensor(dataset._load_gray(ds.left_files[0]), device=dev)
+        und_ms = cuda_ms(lambda: ds.rectify(raw))
+        worst = 0.0
+        stream = ds.prefetch()
+        for i in range(NATIVE_FRAMES):
+            l_n, r_n, ts_n, e_n = next(stream)
+            l_g, r_g, ts_g, e_g = ds.get(i)
+            if (ts_n, e_n) != (ts_g, e_g) or not isinstance(l_n, np.ndarray):
+                fail("playback: the native stream's frame differs from get's in kind or time")
+            for a, b in ((l_n, l_g), (r_n, r_g)):
+                worst = max(worst, float((torch.as_tensor(a, device=dev) - b).abs().max()))
+        stream.close()
+        print(f"[playback] undistortion on the card (bilinear remap, {ds.crop_w}x{ds.crop_h} from "
+              f"{PB_W}x{PB_H}): {und_ms:.4f} ms an image, {2 * und_ms:.4f} ms a frame (device time); get() "
+              f"against the native stream on {NATIVE_FRAMES} frames: max |d| {worst:.3g}")
+        if not worst <= NATIVE_TOL:
+            fail(f"playback: get() and the native stream differ by {worst} > {NATIVE_TOL}")
+
+        tk.reset_launches()
+        match = cli.run([f"files={seq}", f"calib={calib}", "stereomatch=1", "maxframes=2",
+                         "levels=6"])
+        torch.cuda.synchronize()
+        launches["playback_stereomatch"] = (tk.LAUNCHES, tk.LAUNCHES_SLAB)
+    tk.reset_launches()
+    syn = cli.run(["synthetic=20", "quiet=1"])
+    torch.cuda.synchronize()
+    launches["playback_synthetic"] = (tk.LAUNCHES, tk.LAUNCHES_SLAB)
+    print(f"[playback] stereomatch=1 maxframes=2: good matches {match['good']}, kernel launches "
+          f"{launches['playback_stereomatch']}; synthetic=20: KFs {syn['keyframes']}, ATE "
+          f"{syn['ate']:.5f} m, kernel launches {launches['playback_synthetic']}")
+    if len(match["good"]) != 2 or min(match["good"]) <= 0 or launches["playback_stereomatch"][0] <= 0:
+        fail("playback: stereomatch=1 found no good match or launched no kernel")
+    if not np.isfinite(syn["ate"]) or launches["playback_synthetic"][0] <= 0:
+        fail("playback: synthetic=20 gave a non-finite ATE or launched no kernel")
+
+
 def main() -> int:
     if not (PKG / "__init__.py").is_file():
         print("chip_smoke: the stereo_dso_g2o_tpu_torch package is not beside this script",
@@ -1006,6 +1128,9 @@ def main() -> int:
     phase_diagnostics(gs.state.win, settings)
     phase_dist_and_multiseq(dev, settings, calib, gs.state.win, gs.state.dI0_slots, seqs_all,
                             launches)
+
+    # ---- 13. playback through the port's CLI ----
+    phase_playback(dev, scene, poses_cw, expos, launches)
 
     # ---- report: each kernel at the shape its main path gives it ----
     def row(name, source, replaces, key, col):

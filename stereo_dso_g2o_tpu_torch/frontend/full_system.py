@@ -716,6 +716,13 @@ class FullSystem:
         (printResult, FullSystem.cpp:236-285)."""
         return [self._shell_T_cw(shell) for shell in self.history]
 
+    def point_cloud(self):
+        """World-space 3D positions of the window's active points — the data
+        the reference's viewer renders per keyframe (PangolinDSOViewer's
+        KeyFrameDisplay, KeyFrameDisplay.cpp:102-173). Returns a numpy dict
+        with 'xyz' (N, 3), 'idepth' (N,), 'host_kf_id' (N,)."""
+        return window_point_cloud(self.win, self.calib, self.slot_frame_id)
+
 
 def window_point_cloud(win, calib, slot_frame_id):
     """World-space 3D positions of a window's active points (shared by

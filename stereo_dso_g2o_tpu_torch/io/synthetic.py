@@ -1,12 +1,17 @@
-"""Synthetic stereo scenes: numpy scene builders + a torch ray caster.
+"""Synthetic stereo scenes: numpy scene builders and renderers + a torch
+ray caster.
 
-Port of the parts of `stereo_dso_g2o_tpu/io/synthetic.py` that the odometry
-slice needs to render its own frames on the device: the numpy scene
-builders (`smooth_texture`, `corridor_scene`, `forward_trajectory`,
-`default_K`, `stereo_pose`, `_pack_scene`) are copies; the jitted JAX ray
-caster (`_raycast_jax`) becomes `_raycast`, a torch ray caster that renders
-one pose at a time (rectangles are intersected in a loop, so memory is one
-(h, w) plane per intermediate instead of the (R, S2, h, w, 3) cube).
+Port of `stereo_dso_g2o_tpu/io/synthetic.py`. The host numpy parts are
+copies: the scene builders (`smooth_texture`, `default_scene`, `box_scene`,
+`corridor_scene`, `forward_trajectory`, `default_K`, `stereo_pose`,
+`_pack_scene`) and the reference renderers (`_sample_tex`, `render`,
+`render_stereo_pair`, `render_sequence`, `render_multi`,
+`render_multi_stereo_pair`), which give the same arrays as the JAX module's.
+The jitted JAX ray caster (`_raycast_jax`) becomes `_raycast`, a torch ray
+caster that renders one pose at a time on a device (rectangles are
+intersected in a loop, so memory is one (h, w) plane per intermediate
+instead of the (R, S2, h, w, 3) cube); `render_multi_batch`,
+`render_multi_fast` and `render_stereo_sequence_fast` sit on it.
 
 Conventions: world-to-camera pose T_cw maps world points X_c = R X_w + t;
 the right camera sits at +baseline along the left camera's x-axis.
@@ -53,6 +58,28 @@ def smooth_texture(rng: np.random.Generator, size: int = 512, octaves: int = 5) 
     return (20.0 + 215.0 * tex).astype(np.float32)
 
 
+def _sample_tex(tex: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """Bilinear sample with wraparound (texture tiles infinitely)."""
+    H, W = tex.shape
+    u = np.mod(u, W)
+    v = np.mod(v, H)
+    x0 = np.floor(u).astype(int)
+    y0 = np.floor(v).astype(int)
+    fx = np.clip(u - x0, 0.0, 1.0)
+    fy = np.clip(v - y0, 0.0, 1.0)
+    # float mod of huge inputs can round to exactly W/H; re-wrap the integer
+    x0 = np.mod(x0, W)
+    y0 = np.mod(y0, H)
+    x1 = (x0 + 1) % W
+    y1 = (y0 + 1) % H
+    return (
+        tex[y0, x0] * (1 - fy) * (1 - fx)
+        + tex[y0, x1] * (1 - fy) * fx
+        + tex[y1, x0] * fy * (1 - fx)
+        + tex[y1, x1] * fy * fx
+    ).astype(np.float32)
+
+
 @dataclasses.dataclass
 class PlaneScene:
     """A textured plane n . X = dist in world coordinates."""
@@ -71,6 +98,16 @@ class PlaneScene:
         e1 = np.cross(n, a)
         self.e1 = e1 / np.linalg.norm(e1)
         self.e2 = np.cross(n, self.e1)
+
+
+def default_scene(seed: int = 0) -> PlaneScene:
+    """A plane tilted relative to the camera, ~5m away along +z."""
+    rng = np.random.default_rng(seed)
+    return PlaneScene(
+        normal=np.array([0.15, -0.1, -1.0]),
+        dist=-5.0,
+        tex=smooth_texture(rng),
+    )
 
 
 @dataclasses.dataclass
@@ -103,6 +140,73 @@ class MultiScene:
 
     rects: List[Rect]
     backdrop: Optional[PlaneScene] = None
+
+
+def box_scene(
+    seed: int = 0,
+    n_boxes: int = 6,
+    depth_range: Tuple[float, float] = (8.0, 40.0),
+    lateral: float = 12.0,
+    ground: bool = True,
+    backdrop_dist: float = 60.0,
+) -> MultiScene:
+    """A KITTI-flavoured street block: frontal box faces at staggered depths,
+    side facades, a ground plane, and a far backdrop. All primitives textured
+    independently (no cross-boundary texture continuity to help matching)."""
+    rng = np.random.default_rng(seed)
+    rects: List[Rect] = []
+    zs = np.sort(rng.uniform(depth_range[0], depth_range[1], n_boxes))
+    for i, z in enumerate(zs):
+        # frontal face (normal -z) at depth z, offset laterally; kept off the
+        # exact optical axis so forward motion reveals occluded background
+        cx = rng.uniform(-lateral, lateral)
+        cy = rng.uniform(-1.0, 1.5)
+        half_w = rng.uniform(1.0, 3.5)
+        half_h = rng.uniform(1.0, 2.5)
+        rects.append(
+            Rect(
+                normal=np.array([rng.uniform(-0.15, 0.15), rng.uniform(-0.1, 0.1), -1.0]),
+                dist=-z,
+                origin=np.array([cx, cy, z]),
+                ext1=half_w,
+                ext2=half_h,
+                tex=smooth_texture(rng, 256),
+                tex_scale=rng.uniform(15.0, 40.0),
+            )
+        )
+    # two side facades (normals +-x), like building walls along the street
+    for sgn in (-1.0, 1.0):
+        x = sgn * (lateral + 2.0)
+        rects.append(
+            Rect(
+                normal=np.array([-sgn, 0.0, 0.0]),
+                dist=-abs(x),  # n.X = -sgn*x on the wall
+                origin=np.array([x, 0.0, depth_range[1] * 0.5]),
+                ext1=depth_range[1],
+                ext2=4.0,
+                tex=smooth_texture(rng, 256),
+                tex_scale=rng.uniform(10.0, 25.0),
+            )
+        )
+    if ground:
+        rects.append(
+            Rect(
+                normal=np.array([0.0, -1.0, 0.0]),
+                dist=-1.65,  # camera height above ground, KITTI-like
+                origin=np.array([0.0, 1.65, depth_range[1] * 0.5]),
+                ext1=depth_range[1] * 1.5,
+                ext2=lateral + 4.0,
+                tex=smooth_texture(rng, 256),
+                tex_scale=rng.uniform(8.0, 20.0),
+            )
+        )
+    backdrop = PlaneScene(
+        normal=np.array([0.02, -0.02, -1.0]),
+        dist=-backdrop_dist,
+        tex=smooth_texture(rng, 256),
+        tex_scale=5.0,
+    )
+    return MultiScene(rects=rects, backdrop=backdrop)
 
 
 def corridor_scene(
@@ -173,6 +277,81 @@ def corridor_scene(
         tex_scale=5.0,
     )
     return MultiScene(rects=rects, backdrop=backdrop)
+
+
+def render_multi(
+    scene: MultiScene, K: np.ndarray, w: int, h: int, T_cw: np.ndarray,
+    supersample: int = 2,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Ray-cast the rectangle set. Returns (image, idepth) with exact GT.
+
+    `supersample` > 1 area-integrates each pixel over an NxN subpixel grid
+    (like a real sensor). Point-sampled high-frequency texture aliases
+    differently from every viewpoint, which acts as several gray levels of
+    view-dependent photometric noise and directly biases direct tracking —
+    measured as ~5 gray levels of irreducible tracking RMSE at 1 sample."""
+    if supersample > 1:
+        n = supersample
+        acc = None
+        idepth0 = None
+        for a in range(n):
+            for b in range(n):
+                off = np.array(
+                    [(b + 0.5) / n - 0.5, (a + 0.5) / n - 0.5, 0.0]
+                )
+                Ks = K.copy()
+                Ks[:2, 2] = K[:2, 2] - off[:2]
+                im, idep = render_multi(scene, Ks, w, h, T_cw, supersample=1)
+                acc = im if acc is None else acc + im
+                if a == b == (n - 1) // 2:
+                    idepth0 = idep  # center-ish sample for exact GT depth
+        return (acc / (n * n)).astype(np.float32), idepth0
+
+    R = T_cw[:3, :3]
+    t = T_cw[:3, 3]
+    C = -R.T @ t
+    Kinv = np.linalg.inv(K)
+    us, vs = np.meshgrid(np.arange(w, dtype=np.float64), np.arange(h, dtype=np.float64))
+    d_c = np.stack([us, vs, np.ones_like(us)], axis=-1) @ Kinv.T  # (h, w, 3)
+    d_w = d_c @ R
+
+    best_s = np.full((h, w), np.inf)
+    img = np.zeros((h, w), np.float32)
+
+    def consider(s, hit_img, mask):
+        nonlocal best_s, img
+        closer = mask & np.isfinite(s) & (s > 0.1) & (s < best_s)
+        best_s = np.where(closer, s, best_s)
+        img = np.where(closer, hit_img, img)
+
+    if scene.backdrop is not None:
+        b = scene.backdrop
+        denom = d_w @ b.normal
+        s = (b.dist - C @ b.normal) / np.where(np.abs(denom) < 1e-12, np.nan, denom)
+        X_w = C[None, None, :] + s[..., None] * d_w
+        u_t = (X_w @ b.e1) * b.tex_scale
+        v_t = (X_w @ b.e2) * b.tex_scale
+        hit = _sample_tex(b.tex, np.nan_to_num(u_t), np.nan_to_num(v_t))
+        consider(s, hit, np.ones((h, w), bool))
+
+    for r in scene.rects:
+        denom = d_w @ r.normal
+        s = (r.dist - C @ r.normal) / np.where(np.abs(denom) < 1e-12, np.nan, denom)
+        X_w = C[None, None, :] + s[..., None] * d_w
+        rel = X_w - r.origin[None, None, :]
+        a1 = rel @ r.e1
+        a2 = rel @ r.e2
+        inside = (np.abs(a1) <= r.ext1) & (np.abs(a2) <= r.ext2)
+        u_t = a1 * r.tex_scale
+        v_t = a2 * r.tex_scale
+        hit = _sample_tex(r.tex, np.nan_to_num(u_t), np.nan_to_num(v_t))
+        consider(s, hit, inside)
+
+    valid = np.isfinite(best_s)
+    # depth along camera z equals s because d_c z-component is 1
+    idepth = np.where(valid, 1.0 / np.where(valid, best_s, 1.0), 0.0).astype(np.float32)
+    img = np.where(valid, img, 0.0).astype(np.float32)
+    return img, idepth
 
 
 def _pack_scene(scene: MultiScene):
@@ -329,6 +508,33 @@ def render_multi_batch(
     return torch.stack(imgs), torch.stack(ideps)
 
 
+def render_multi_fast(
+    scene: MultiScene, K: np.ndarray, w: int, h: int, T_cw: np.ndarray,
+    supersample: int = 2, device=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The torch ray caster for one pose: render_multi's (image, idepth) as
+    float32 (h, w) tensors on `device` (None: the GPU)."""
+    imgs, ideps = render_multi_batch(scene, K, w, h, np.asarray(T_cw)[None],
+                                     supersample, device=device)
+    return imgs[0], ideps[0]
+
+
+def render_multi_stereo_pair(
+    scene: MultiScene, K: np.ndarray, w: int, h: int, baseline: float,
+    T_cw: Optional[np.ndarray] = None, exposure: float = 1.0,
+):
+    """Returns (left, right, idepth_left); exposure scales both images
+    (photometric variation — the reference's ab-affine estimation target)."""
+    if T_cw is None:
+        T_cw = np.eye(4)
+    left, idepth = render_multi(scene, K, w, h, T_cw)
+    right, _ = render_multi(scene, K, w, h, stereo_pose(T_cw, baseline))
+    if exposure != 1.0:
+        left = np.clip(left * exposure, 0.0, 255.0)
+        right = np.clip(right * exposure, 0.0, 255.0)
+    return left, right, idepth
+
+
 def render_stereo_sequence_fast(
     scene: MultiScene,
     K: np.ndarray,
@@ -390,11 +596,60 @@ def forward_trajectory(
     return poses
 
 
+def render(
+    scene: PlaneScene, K: np.ndarray, w: int, h: int, T_cw: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray]:
+    R = T_cw[:3, :3]
+    t = T_cw[:3, 3]
+    # camera center in world: C = -R^T t ; ray dir world: R^T K^{-1} p
+    C = -R.T @ t
+    Kinv = np.linalg.inv(K)
+    us, vs = np.meshgrid(np.arange(w, dtype=np.float64), np.arange(h, dtype=np.float64))
+    d_c = np.stack([us, vs, np.ones_like(us)], axis=-1) @ Kinv.T  # (h, w, 3)
+    d_w = d_c @ R  # == (R^T @ d_c^T)^T
+    n = scene.normal
+    denom = d_w @ n
+    s = (scene.dist - C @ n) / np.where(np.abs(denom) < 1e-12, np.nan, denom)
+    X_w = C[None, None, :] + s[..., None] * d_w
+    # depth along camera z equals s because d_c z-component is 1
+    valid = np.isfinite(s) & (s > 0.1)
+    idepth = np.where(valid, 1.0 / np.where(valid, s, 1.0), 0.0).astype(np.float32)
+    u_t = (X_w @ scene.e1) * scene.tex_scale
+    v_t = (X_w @ scene.e2) * scene.tex_scale
+    img = _sample_tex(scene.tex, np.nan_to_num(u_t), np.nan_to_num(v_t))
+    img = np.where(valid, img, 0.0).astype(np.float32)
+    return img, idepth
+
+
 def stereo_pose(T_cw_left: np.ndarray, baseline: float) -> np.ndarray:
     """World-to-cam pose of the right camera: T_rw = Shift(-b) @ T_lw."""
     S = np.eye(4)
     S[0, 3] = -baseline
     return S @ T_cw_left
+
+
+def render_stereo_pair(
+    scene: PlaneScene, K: np.ndarray, w: int, h: int, baseline: float,
+    T_cw: Optional[np.ndarray] = None,
+):
+    """Returns (left, right, idepth_left)."""
+    if T_cw is None:
+        T_cw = np.eye(4)
+    left, idepth = render(scene, K, w, h, T_cw)
+    right, _ = render(scene, K, w, h, stereo_pose(T_cw, baseline))
+    return left, right, idepth
+
+
+def render_sequence(
+    scene: PlaneScene,
+    K: np.ndarray,
+    w: int,
+    h: int,
+    baseline: float,
+    poses_cw: List[np.ndarray],
+):
+    """Render a stereo sequence. Returns list of (left, right, idepth_left)."""
+    return [render_stereo_pair(scene, K, w, h, baseline, T) for T in poses_cw]
 
 
 def default_K(w: int, h: int, fov_deg: float = 60.0) -> np.ndarray:

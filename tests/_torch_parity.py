@@ -161,9 +161,59 @@ def jax_graph_reference(w, h, base, n_boot, n_frames, seq=0, scene_frames=None):
     return out
 
 
+def jax_playback_reference(seq_dir, n_frames=40):
+    """The [playback] cell of chip_smoke.py through the JAX package: corridor
+    sequence 0 (chip_smoke.py's scene, trajectory and exposures) rendered by
+    the JAX ray caster at KITTI 05's image size, 1226x370, written in the
+    KITTI layout with a `crop` calib (stereo_dso_g2o_tpu_torch.io.dataset.
+    write_sequence), then the repository's run_odometry.py over it as a user
+    runs it: KF count, ATE against the renderer's poses, lost, finite poses.
+
+        JAX_PLATFORMS=cpu python tests/_torch_parity.py playback <empty dir>
+    """
+    import os
+    import re
+    import subprocess
+    import sys
+    import time
+
+    from stereo_dso_g2o_tpu.io import synthetic, trajectory
+    from stereo_dso_g2o_tpu_torch.io.dataset import write_sequence
+
+    w, h, base, step = 1226, 370, 0.54, 0.30
+    K = synthetic.default_K(w, h, fov_deg=80.0)
+    scene = synthetic.corridor_scene(seed=100, length=step * n_frames + 40.0,
+                                     box_spacing=9.0, lateral=14.0)
+    poses_cw = synthetic.forward_trajectory(n_frames, step=step, yaw_amp=0.10,
+                                            yaw_period=80.0, seed=0)
+    expos = 1.0 + 0.12 * np.sin(0.25 * np.arange(n_frames))
+    lefts, rights = synthetic.render_stereo_sequence_fast(scene, K, w, h, base, poses_cw, expos)
+    seq, calib = write_sequence(seq_dir, lefts, rights, K, base, expos, out_mode="crop")
+    out = os.path.join(seq_dir, "jax_traj.txt")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, os.path.join(root, "run_odometry.py"), f"files={seq}", f"calib={calib}",
+         "preset=0", "quiet=1", "levels=6", f"output={out}"],
+        capture_output=True, text=True, check=True, env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    print(run.stdout, flush=True)
+    traj = trajectory.read_kitti(out)
+    gt = [np.linalg.inv(T) for T in poses_cw]
+    res = dict(frames=len(traj), lost="LOST" in run.stdout,
+               n_kf=int(re.search(r"\((\d+) keyframes\)", run.stdout).group(1)),
+               ate=float(trajectory.ate_rmse(traj, gt[: len(traj)])),
+               finite=bool(all(np.isfinite(T).all() for T in traj)),
+               seconds=round(time.perf_counter() - t0, 1))
+    print(res, flush=True)
+    return res
+
+
 if __name__ == "__main__":
     import sys
 
     a = sys.argv[1:]
-    jax_graph_reference(int(a[0]), int(a[1]), float(a[2]), int(a[3]), int(a[4]),
-                        *(int(x) for x in a[5:7]))
+    if a[0] == "playback":
+        jax_playback_reference(a[1])
+    else:
+        jax_graph_reference(int(a[0]), int(a[1]), float(a[2]), int(a[3]), int(a[4]),
+                            *(int(x) for x in a[5:7]))

@@ -168,3 +168,17 @@ def test_keyframe_branch_from_snapshot_matches_jax(jax_run):
     np.testing.assert_allclose(n(tfs.win.w2c()), n(want.w2c()), atol=1e-5, rtol=0)
     np.testing.assert_allclose(tfs.history[-1].T_cam_to_ref, after["history"][-1]["T_cam_to_ref"],
                                atol=1e-5, rtol=0)
+
+
+def test_point_cloud_matches_jax(jax_run):
+    """`FullSystem.point_cloud` (what the CLI's feed and viewer read at each
+    new keyframe) on the JAX run's final window, handed over through the
+    bridge, against the JAX FullSystem's own."""
+    K, jfs = jax_run["K"], jax_run["fs"]
+    tfs = bridge.full_system_from_snapshot(fs_snapshot(jfs), _tcalib(K), _tset(), device="cpu")
+    got, want = tfs.point_cloud(), jfs.point_cloud()
+    assert len(want["xyz"]) > 100
+    np.testing.assert_array_equal(got["host_kf_id"], want["host_kf_id"])
+    # the same f64 arithmetic on f32 window values: far below 1e-4 m
+    np.testing.assert_allclose(got["xyz"], want["xyz"], atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got["idepth"], want["idepth"], rtol=1e-6, atol=0)

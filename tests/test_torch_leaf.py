@@ -192,6 +192,10 @@ def test_port_imports_without_jax():
         "from stereo_dso_g2o_tpu_torch import bridge\n"
         "from stereo_dso_g2o_tpu_torch.ops import trace_cuda\n"
         "from stereo_dso_g2o_tpu_torch.io import synthetic\n"
+        "from stereo_dso_g2o_tpu_torch import run_odometry\n"
+        "from stereo_dso_g2o_tpu_torch.io import dataset, output_wrapper, viewer, debug_viz\n"
+        "from stereo_dso_g2o_tpu_torch.models import undistort\n"
+        "from stereo_dso_g2o_tpu_torch.runtime import native_loader\n"
         "assert sys.modules['jax'] is None\n"
         "print('ok')\n"
     )
