@@ -68,7 +68,19 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
      recorded in PERF.md, no loss, K1 launched, feed lines and points; the
      undistortion's device time; StereoDataset.get (remap on the card)
      against the native stream on 4 frames; `stereomatch=1 maxframes=2` and
-     `synthetic=20` through the same CLI.
+     `synthetic=20` through the same CLI;
+  14. bench, the port's bench entry (stereo_dso_g2o_tpu_torch.bench) cut to
+     40 frames and 2 sequences: sequence 0 is phase 7's scene, frames and
+     settings, so its single-sequence result is held to phase 7's bounds
+     and to phase 7's keyframe frames of this call; the three result lines
+     in bench.py's order, the frame records and the eigenvalue record of
+     the obs file, the batched trajectories finite, K1 launched by the
+     single and by the batched part;
+  15. graft, the port's graft entry points (stereo_dso_g2o_tpu_torch.
+     graft_entry): entry()'s BA iteration on the card against the same call
+     on the CPU, then dryrun_multichip(1), a one-rank nccl process: the
+     sharded BA at production shape against the single-process BA, and the
+     sequence-sharded stereo match with K1 on the card.
 Every kernel launch counter is set to 0 just before a path is driven and
 read just after. The last two lines are the kernel report and the device
 report (JSON). With SDSO_PROFILE=1 the two odometry paths also print their
@@ -120,6 +132,12 @@ PB_W, PB_H = 1226, 370
 PLAYBACK_JAX = (10, 0.01701)
 NATIVE_TOL = 1e-3
 NATIVE_FRAMES = 4
+# the bench entry cut to the graph phase's 40 frames; 2 sequences
+BENCH_NSEQ = 2
+BENCH_METRICS = ("full_slam_single_seq_fps_kitti_res_hostile_synthetic",
+                 "full_slam_agg_fps_kitti_res_hostile_synthetic",
+                 "full_slam_fps_per_chip_kitti_res_hostile_synthetic")
+ENTRY_E_RTOL = 1e-4  # tests/test_torch_graft_entry.py's energy tolerance
 # published peaks of one H100 SXM: the roofline a kernel's bound is taken from
 HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12
 # JAX package, FullSystem on CPU, same 40 frames and settings (PERF.md):
@@ -446,7 +464,7 @@ def phase_batched(dev, settings, calib, K, poses_cw, seq0, graph_ms, launches):
 
     runner = runner_from_freeze("deferred")
     kfs_boot = [len(g.kf_shells) for g in runner.systems]
-    runner.warm_kf_buckets((L_all[0, BOOT], R_all[0, BOOT]))
+    runner.warm_kf_buckets()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tk.reset_launches()
@@ -742,6 +760,86 @@ def phase_playback(dev, scene, poses_cw, expos, launches):
         fail("playback: stereomatch=1 found no good match or launched no kernel")
     if not np.isfinite(syn["ate"]) or launches["playback_synthetic"][0] <= 0:
         fail("playback: synthetic=20 gave a non-finite ATE or launched no kernel")
+
+
+def phase_bench(graph_kf_frames, launches):
+    """Phase 14: the port's bench entry at 40 frames and 2 sequences."""
+    import tempfile
+
+    from stereo_dso_g2o_tpu_torch import bench
+    from stereo_dso_g2o_tpu_torch.ops import trace_cuda as tk
+
+    with tempfile.TemporaryDirectory() as tmp:
+        obs = os.path.join(tmp, "obs.jsonl")
+        tk.reset_launches()
+        t0 = time.perf_counter()
+        out = bench.main(frames=N_FRAMES, nseq=BENCH_NSEQ, obs=obs)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches["bench"] = (tk.LAUNCHES, tk.LAUNCHES_SLAB)
+        with open(obs) as f:
+            recs = [json.loads(line) for line in f]
+    lines = out["lines"]
+    single = lines[0]
+    split = out["launches"]
+    print(f"[bench] bench entry, {N_FRAMES} frames, {BENCH_NSEQ} sequences in {secs:.1f} s: single "
+          f"{single['single_seq_fps']} frames/s (p50 {single['single_seq_fps_p50']}), aggregate "
+          f"{lines[1]['value']} frames/s; KFs {single['n_keyframes']} at frames {out['kf_frames']} "
+          f"(graph phase {graph_kf_frames}), ATE {single['ate_rmse_m']} m, lost {single['lost']}; "
+          f"K1 launches single {split['single']} batched {split['batched']}, kernel launches "
+          f"{launches['bench']}; obs file {len(recs) - 1} frame records")
+    if [d["metric"] for d in lines] != list(BENCH_METRICS):
+        fail(f"bench: result lines {[d['metric'] for d in lines]}")
+    if single["lost"] or single["n_finite_frames"] != N_FRAMES or single["n_frames"] != N_FRAMES:
+        fail("bench: lost, or non-finite poses")
+    if not GRAPH_KF_RANGE[0] <= single["n_keyframes"] <= GRAPH_KF_RANGE[1]:
+        fail(f"bench: KF count {single['n_keyframes']} outside {GRAPH_KF_RANGE}")
+    if not single["ate_rmse_m"] <= GRAPH_ATE_MAX:
+        fail(f"bench: ATE {single['ate_rmse_m']} > {GRAPH_ATE_MAX}")
+    if out["kf_frames"] != graph_kf_frames:
+        fail("bench: the keyframes are not the graph phase's on the same frames")
+    if [r["frame"] for r in recs[:-1]] != list(range(BOOT + 8, N_FRAMES)) or not recs[-1].get(
+            "final_window"):
+        fail("bench: the obs file lacks frame records or the eigenvalue record")
+    if any(not all(np.isfinite(T).all() for T in traj) for traj in out["batched_trajs"]):
+        fail("bench: a batched trajectory has non-finite poses")
+    if split["single"] <= 0 or split["batched"] <= 0 or launches["bench"][1] != 0:
+        fail(f"bench: kernel launches {split}, {launches['bench']} (K1 must run in both parts, "
+             f"K2 not at all)")
+    if split["single"] + split["batched"] != launches["bench"][0]:
+        fail("bench: the parts' launches do not add up to the run's")
+
+
+def phase_graft(dev, launches):
+    """Phase 15: the port's graft entry points."""
+    from stereo_dso_g2o_tpu_torch import graft_entry
+    from stereo_dso_g2o_tpu_torch.ops import trace_cuda as tk
+
+    tk.reset_launches()
+    fn, args = graft_entry.entry(device=dev)
+    _, energy, _, nres = fn(*args)
+    torch.cuda.synchronize()
+    launches["graft_entry"] = (tk.LAUNCHES, tk.LAUNCHES_SLAB)
+    fn_c, args_c = graft_entry.entry(device="cpu")
+    _, energy_c, _, nres_c = fn_c(*args_c)
+    e, e_c = float(energy), float(energy_c)
+    print(f"[graft] entry(): one BA iteration on the card, energy {e:.7g}, nres {int(nres)}; on the "
+          f"CPU {e_c:.7g}, {int(nres_c)} (relative difference {abs(e - e_c) / abs(e_c):.3g})")
+    if not np.isfinite(e) or int(nres) <= 0 or int(nres) != int(nres_c):
+        fail("graft: entry's iteration is not finite, has no residual, or counts other residuals")
+    if not abs(e - e_c) <= ENTRY_E_RTOL * abs(e_c):
+        fail(f"graft: entry's energy on the card {e} against {e_c} on the CPU")
+    t0 = time.perf_counter()
+    out = graft_entry.dryrun_multichip(1)
+    launches["graft_dryrun"] = tuple(out["launches"])
+    print(f"[graft] dryrun_multichip(1), one nccl rank in {time.perf_counter() - t0:.1f} s: sharded "
+          f"BA at 1216x352, F=8, 1337 of 2048 points: energy {out['ba']['energy']:.7g}, nres "
+          f"{out['ba']['nres']}, max |d state| {out['ba']['max_state_diff']:.3g}; sharded stereo "
+          f"match: {out['stereo_match']['total_good']} good, median relative inverse-depth error "
+          f"{out['stereo_match']['median_rel_err']:.4g}; kernel launches in the rank "
+          f"{launches['graft_dryrun']}")
+    if launches["graft_dryrun"][0] <= 0:
+        fail("graft: the dry run's stereo match did not launch the epipolar kernel")
 
 
 def main() -> int:
@@ -1131,6 +1229,10 @@ def main() -> int:
 
     # ---- 13. playback through the port's CLI ----
     phase_playback(dev, scene, poses_cw, expos, launches)
+
+    # ---- 14-15. the bench entry and the graft entry points ----
+    phase_bench(kf_frames, launches)
+    phase_graft(dev, launches)
 
     # ---- report: each kernel at the shape its main path gives it ----
     def row(name, source, replaces, key, col):

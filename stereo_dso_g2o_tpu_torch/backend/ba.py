@@ -552,6 +552,19 @@ def ba_iteration(win: W.Window, dI_stack, iteration: int,
     return win, energy, converged, acc.nres
 
 
+def optimize(win: W.Window, dI_stack, settings: Settings = default_settings(), max_its: int = 6):
+    """FullSystem::optimize (legacy, FullSystemOptimize.cpp:871-1041), the
+    JAX package's host loop: stop once `it >= min_opt_iterations` and the
+    step converged. Returns (win, energy, nres) of the last iteration.
+    (`optimize_fused` is the loop the frame program runs.)"""
+    energy, nres = None, 0
+    for it in range(max_its):
+        win, energy, converged, nres = ba_iteration(win, dI_stack, it, settings=settings)
+        if it >= settings.min_opt_iterations and bool(converged):
+            break
+    return win, energy, nres
+
+
 def optimize_fused(win: W.Window, dI_stack, settings: Settings = default_settings(),
                    max_its: int = 6, reduce=None):
     """The whole GN loop (FullSystem::optimize, legacy) with the JAX

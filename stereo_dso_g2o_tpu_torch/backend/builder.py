@@ -79,3 +79,34 @@ def insert_points(win: W.Window, idx, host_slot: int, u, v, idepth, color,
         res_state=_set_row(win.res_state, idx, W.RES_IN),
         res_energy=_set_row(win.res_energy, idx, 0.0),
     )
+
+
+def add_residuals(win: W.Window, pt_idx, target_slot) -> W.Window:
+    """Create residuals point(s) -> target frame (state IN, not linearized)."""
+    idx = (torch.as_tensor(pt_idx, device=win.device).long(), target_slot)
+    return win.replace(
+        res_exists=_set_row(win.res_exists, idx, True),
+        res_state=_set_row(win.res_state, idx, W.RES_IN),
+        res_linearized=_set_row(win.res_linearized, idx, False),
+        res_energy=_set_row(win.res_energy, idx, 0.0),
+    )
+
+
+def add_residuals_all_pairs(win: W.Window) -> W.Window:
+    """Create residuals from every active point to every other valid frame."""
+    active = win.pt_status == W.PT_ACTIVE
+    tgt_ok = win.frame_valid[None, :] & (
+        win.pt_host[:, None] != torch.arange(win.F, device=win.device)[None, :]
+    )
+    new = active[:, None] & tgt_ok
+    return win.replace(
+        res_exists=new,
+        res_state=torch.where(new, torch.full_like(win.res_state, W.RES_IN), win.res_state),
+        res_linearized=torch.zeros_like(win.res_linearized),
+    )
+
+
+def free_point_slots(win: W.Window, k: int) -> np.ndarray:
+    """Indices of up to k inactive point slots (read on the host)."""
+    free = np.nonzero(win.pt_status.cpu().numpy() == W.PT_INACTIVE)[0]
+    return free[:k]

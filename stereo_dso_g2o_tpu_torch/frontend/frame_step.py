@@ -135,6 +135,19 @@ def track_cascade(ref, dI_new_pyr, calib, T_init, aff_init, ref_aff, ref_exposur
     return _cascade_finalize(carry, settings)
 
 
+def cascade_step(dIpL, ref, calib_c, baseline, T_init, aff_init, ref_aff, ref_exposure,
+                 new_exposure, min_res_for_abort, settings: Settings = default_settings(),
+                 n_levels: int = 6) -> TrackOut:
+    """Tracking cascade only, one hypothesis T_init (4,4) on pyramids already
+    built (dIpL: per-level (H_l, W_l, 3)); the Calib is made from calib_c,
+    the baseline and the level-0 shape."""
+    calib = calib_from_c(calib_c, baseline, dIpL[0].shape[1], dIpL[0].shape[0], n_levels)
+    return _squeeze(track_cascade(
+        ref, dIpL, calib, T_init[None], aff_init, ref_aff, ref_exposure, new_exposure,
+        min_res_for_abort, settings,
+    ))
+
+
 def _pyramids(left, right, n_levels):
     dIpL, _ = build_pyramid(left.to(torch.float32), n_levels)
     dIpR, _ = build_pyramid(right.to(torch.float32), n_levels)

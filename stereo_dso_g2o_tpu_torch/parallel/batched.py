@@ -5,7 +5,7 @@ program is `vmap`ped over a leading sequence axis, so stepping N sequences
 is one dispatch and one small fetch per frame. This module carries the same
 semantics: the state of all sequences lives stacked (every leaf of
 `GraphState` with a leading axis N), the three dispatch modes, the deferred
-keyframe hand-off, the subset buckets and the lagged drain. The three
+keyframe hand-off, the keyframe subset and the lagged drain. The three
 `*_batched` functions compute what `vmap` computes, by mapping the frame
 program over the leading axis sequence by sequence: the frame program here
 is eager, branches on the host at `need_kf` and takes Python ints for
@@ -176,36 +176,28 @@ def frame_kf_subset_batched(
     baselines,
     exposures,
     pots: Sequence[int],
-    idx,  # (nb,) sequence indices needing the KF pipeline, padded with
-    #       DUPLICATES of a real index
+    idx,  # distinct indices of the sequences needing the keyframe pipeline
     settings: Settings = default_settings(),
     n_levels: int = 6,
     caps: Tuple[int, ...] = (),
     w0: int = 0,
     h0: int = 0,
     imm_cap: int = 2048,
-    nb: int = 1,
     uniforms: Optional[Sequence[Optional[Callable]]] = None,
 ):
-    """The keyframe pipeline over the KF-needing subset. The JAX function
-    pads `idx` with duplicates to a bucket size `nb` so that few program
-    variants compile, and runs the padding too. Nothing compiles here and
-    the map runs sequence by sequence, so a padded duplicate would only
-    repeat a deterministic keyframe: each DISTINCT index runs once. `nb`
-    stays in the signature for the counterpart's sake. Returns (states,
-    bundles, distinct indices), the first two stacked over the last."""
-    distinct = list(dict.fromkeys(int(i) for i in idx))
-    assert len(idx) == nb and len(distinct) <= nb
+    """The keyframe pipeline over the keyframe-needing subset, sequence by
+    sequence. (The JAX function pads `idx` with duplicates to a bucket size
+    so that few program variants compile; nothing compiles here, so there is
+    no padding.) Returns (states, bundles), stacked over `idx`."""
     outs = [
         frame_kf(
             _tree_slice(states_pre, k), _tree_slice(aux, k), calib_cs[k], baselines[k],
             exposures[k], pot=int(pots[k]), caps=caps, imm_cap=imm_cap, settings=settings,
             n_levels=n_levels, w0=w0, h0=h0, uniform=_uniform_of(uniforms, k),
         )
-        for k in distinct
+        for k in (int(i) for i in idx)
     ]
-    return (_tree_stack([o[0] for o in outs]), _tree_stack([o[1] for o in outs]),
-            np.asarray(distinct, np.int64))
+    return _tree_stack([o[0] for o in outs]), _tree_stack([o[1] for o in outs])
 
 
 class BatchedRunner:
@@ -330,20 +322,13 @@ class BatchedRunner:
         return drained
 
     def _dispatch_kf_subset(self, states_pre, aux, expos, pots, need, common):
-        """The keyframe pipeline over the KF-needing subset. The index list
-        is padded to a bucket of {1, 2, N} with duplicates of a real index,
-        as the JAX module pads it to keep its compiled variants few;
-        `frame_kf_subset_batched` runs each distinct index once. Returns
-        (states, bundles, indices) to scatter."""
-        n = len(self.systems)
-        nb = next(b for b in (1, 2, n) if b >= need.size)
-        idx = np.full((nb,), need[0], np.int32)
-        idx[: need.size] = need
-        return frame_kf_subset_batched(
-            states_pre, aux, self.calib_cs, self.baselines, expos,
-            pots, idx, caps=self.caps, imm_cap=self.settings.immature_cap, nb=nb,
-            uniforms=self.uniforms, **common,
+        """The keyframe pipeline over the sequences `need`. Returns (states,
+        bundles, indices) to scatter."""
+        st_b, b_b = frame_kf_subset_batched(
+            states_pre, aux, self.calib_cs, self.baselines, expos, pots, need,
+            caps=self.caps, imm_cap=self.settings.immature_cap, uniforms=self.uniforms, **common,
         )
+        return st_b, b_b, need
 
     def _resolve_pending_kf(self, pots):
         """Deferred-mode hand-off: fetch the previous frame's need_kf flags
@@ -370,35 +355,16 @@ class BatchedRunner:
     def _current_pots(self):
         return [int(gs.pot) for gs in self.systems]
 
-    def warm_kf_buckets(self, frame):
-        """Run the track and the keyframe pipeline once before the
-        steady-state loop, WITHOUT mutating runner state.
-
-        The JAX module compiles its keyframe-bucket variants ({1, 2, N})
-        here. Nothing compiles in eager PyTorch and the buckets are one
-        code path, so this builds the CUDA kernels (on a CUDA device) and
-        takes one frame through track and keyframe pipeline on a copy of
-        sequence 0's state, which leaves the allocator holding the blocks
-        a keyframe needs. frame: one (left, right) stereo pair (only its
-        shape matters)."""
+    def warm_kf_buckets(self):
+        """Make sure nothing is built inside the steady-state loop, without
+        touching the runner's state. The JAX module compiles its keyframe
+        bucket variants for one frame's shape here; eager PyTorch compiles
+        no program, so what is left is building the CUDA kernels (on a CUDA
+        device)."""
         if self.device.type == "cuda":
             from stereo_dso_g2o_tpu_torch.ops import trace_cuda
 
             trace_cuda.build()
-        reads = GSYS.HOST_READS
-        left, right = (device_image(f, self.device) for f in frame)
-        state = tree_map(torch.clone, _tree_slice(self.states, 0))
-        expo = torch.ones((), dtype=torch.float32, device=self.device)
-        common = self._common()
-        _, _, aux = frame_track(state, left, right, self.calib_cs[0], self.baselines[0], expo,
-                                n_tries=5, **common)
-        out = frame_kf(state, aux, self.calib_cs[0], self.baselines[0], expo,
-                       pot=self._current_pots()[0], caps=self.caps,
-                       imm_cap=self.settings.immature_cap, uniform=self.uniforms[0], **common)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        GSYS.HOST_READS = reads
-        del out
 
     def _drain_one(self):
         bundles, frame_id, timestamp = self._pending_q.pop(0)

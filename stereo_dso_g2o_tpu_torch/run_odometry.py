@@ -71,13 +71,21 @@ def apply_preset(preset: int):
     )
 
 
-def run_synthetic(n_frames: int, quiet: bool, device):
+def synthetic_pose(i: int) -> np.ndarray:
+    """Frame i's world-to-camera pose of `synthetic=N` (float64), the exp of
+    a float32 twist as the reference computes it."""
     import torch
 
+    from stereo_dso_g2o_tpu_torch.utils import se3
+
+    xi = np.array([0.025 * i, -0.008 * i, 0.04 * i, 0.002 * i, 0.004 * i, -0.001 * i])
+    return se3.se3_exp(torch.as_tensor(xi, dtype=torch.float32)).numpy().astype(np.float64)
+
+
+def run_synthetic(n_frames: int, quiet: bool, device):
     from stereo_dso_g2o_tpu_torch.frontend.full_system import FullSystem
     from stereo_dso_g2o_tpu_torch.io import synthetic, trajectory
     from stereo_dso_g2o_tpu_torch.models.camera import make_calib
-    from stereo_dso_g2o_tpu_torch.utils import se3
 
     w, h, b = 256, 128, 0.12
     K = synthetic.default_K(w, h)
@@ -87,13 +95,12 @@ def run_synthetic(n_frames: int, quiet: bool, device):
     gt = []
     t0 = time.perf_counter()
     for i in range(n_frames):
-        xi = np.array([0.025 * i, -0.008 * i, 0.04 * i, 0.002 * i, 0.004 * i, -0.001 * i])
-        T = se3.se3_exp(torch.as_tensor(xi)).numpy()
+        T = synthetic_pose(i)
         gt.append(np.linalg.inv(T))
         left, right, _ = synthetic.render_stereo_pair(scene, K, w, h, b, T)
         fs.add_frame(left, right, i, timestamp=0.1 * i)
         if not quiet:
-            print(f"frame {i}: kfs={len(fs.kf_shells)} lost={fs.is_lost}")
+            print(f"frame {i}: kfs={len(fs.kf_slots)} lost={fs.is_lost}")
     dt = time.perf_counter() - t0
     traj = fs.trajectory()
     ate = trajectory.ate_rmse(traj, gt)

@@ -147,15 +147,22 @@ def jax_graph_reference(w, h, base, n_boot, n_frames, seq=0, scene_frames=None):
     print(f"bootstrap {n_boot} frames: {time.perf_counter() - t0:.1f} s, "
           f"KFs {[s.id for s in fs.kf_shells]}", flush=True)
     gs = GraphSystem.from_full_system(fs)
+    need_kf = []  # bench.py's record: frame i beside the bundle drained at it
     for i in range(n_boot, n_frames):
         t1 = time.perf_counter()
-        gs.add_frame(lefts[i], rights[i], i, timestamp=0.1 * i)
+        b = gs.add_frame(lefts[i], rights[i], i, timestamp=0.1 * i)
+        if b is not None:
+            need_kf.append((i, bool(b.need_kf)))
         print(f"frame {i}: {time.perf_counter() - t1:.1f} s", flush=True)
     traj = gs.trajectory()
     gt = [np.linalg.inv(T) for T in poses_cw]
+    rel_t, rel_r = trajectory.kitti_rel_errors(traj, gt, lengths=(10, 20, 30, 40), step=5)
     out = dict(w=w, h=h, n_boot=n_boot, n_frames=n_frames, seq=seq, lost=bool(gs.is_lost),
                kf_frames=[s.id for s in gs.kf_shells], n_kf=len(gs.kf_shells),
                ate=float(trajectory.ate_rmse(traj, gt)),
+               rel_trans_pct=float(rel_t), rel_rot_degpm=float(rel_r),
+               n_finite=int(sum(bool(np.isfinite(T).all()) for T in traj)),
+               need_kf_frames=[i for i, k in need_kf if k], need_kf=[int(k) for _, k in need_kf],
                seconds=round(time.perf_counter() - t0, 1))
     print(out, flush=True)
     return out

@@ -179,15 +179,17 @@ def test_runner_equals_graph_system_per_sequence(jax_run, solo, gated, kf_mode):
         assert runner.systems[k].pot == want["pot"]
 
 
-def test_subset_buckets_pad_with_duplicates_and_run_each_once(jax_run, gated):
-    """`_dispatch_kf_subset` pads the index list to a bucket of {1, 2, N};
-    the padded duplicates are not executed."""
+def test_subset_buckets_pad_with_duplicates_and_run_each_once(jax_run, gated, monkeypatch):
+    """`_dispatch_kf_subset` runs the keyframe pipeline once for each
+    sequence that needs it, for subsets of the sizes the JAX module buckets
+    to ({1, 2, N}, padded there with duplicates; nothing is padded here),
+    and returns the states and bundles stacked in the order of the subset."""
     runner = tb.BatchedRunner(_systems(jax_run) + _systems(jax_run)[:1], kf_mode="gated")
-    seen = []
-    inner = tb.frame_kf_subset_batched
+    calls = [0]
+    inner = tb.frame_kf
 
     def spy(*a, **kw):
-        seen.append((list(a[6]), kw["nb"]))
+        calls[0] += 1
         return inner(*a, **kw)
 
     fr = jax_run["frames"]
@@ -199,33 +201,33 @@ def test_subset_buckets_pad_with_duplicates_and_run_each_once(jax_run, gated):
     _, bundles, aux = tb.frame_track_batched(
         pre, *runner._stacked_frames([fr[0][i], fr[1][i], fr[0][i]]), runner.calib_cs,
         runner.baselines, torch.ones(3), n_tries=5, **runner._common())
-    tb.frame_kf_subset_batched = spy
-    try:
-        for need in ([2], [0, 2], [0, 1, 2]):
-            st_b, b_b, idx = runner._dispatch_kf_subset(pre, aux, torch.ones(3),
-                                                        runner._current_pots(),
-                                                        np.asarray(need), runner._common())
-            assert list(idx) == need and st_b.salt.shape[0] == len(need)
-        st_b, b_b, idx = tb.frame_kf_subset_batched(
-            pre, aux, runner.calib_cs, runner.baselines, torch.ones(3), runner._current_pots(),
-            np.asarray([1, 1, 1]), caps=runner.caps, imm_cap=runner.settings.immature_cap, nb=3,
-            uniforms=runner.uniforms, **runner._common())
-        assert list(idx) == [1] and b_b.need_kf.shape[0] == 1
-    finally:
-        tb.frame_kf_subset_batched = inner
-    assert [(ix, nb) for ix, nb in seen[:3]] == [([2], 1), ([0, 2], 2), ([0, 1, 2], 3)]
-    # sequence 2 is sequence 0 again: the same keyframe, bit for bit
-    st3, _, _ = runner._dispatch_kf_subset(pre, aux, torch.ones(3), runner._current_pots(),
-                                           np.asarray([0, 2]), runner._common())
-    _assert_trees_equal(tb._tree_slice(st3, 0), tb._tree_slice(st3, 1), "duplicate sequence")
+    monkeypatch.setattr(tb, "frame_kf", spy)
+    out = {}
+    for need in ([0], [1], [2], [0, 2], [0, 1, 2]):
+        calls[0] = 0
+        st_b, b_b, idx = runner._dispatch_kf_subset(pre, aux, torch.ones(3), runner._current_pots(),
+                                                    np.asarray(need), runner._common())
+        assert list(idx) == need and st_b.salt.shape[0] == b_b.need_kf.shape[0] == len(need)
+        assert calls[0] == len(need)  # each sequence once
+        out[tuple(need)] = (st_b, b_b)
+    # stacked in the subset's order, each as it is alone; sequence 2 is
+    # sequence 0 again, the same keyframe bit for bit
+    for need in ((0, 2), (0, 1, 2)):
+        for j, k in enumerate(need):
+            for part in (0, 1):
+                _assert_trees_equal(tb._tree_slice(out[need][part], j), tb._tree_slice(out[(k,)][part], 0),
+                                    f"sequence {k} in {need}")
+    _assert_trees_equal(tb._tree_slice(out[(0,)][0], 0), tb._tree_slice(out[(2,)][0], 0),
+                        "duplicate sequence")
+    with pytest.raises(AssertionError):
+        _assert_trees_equal(tb._tree_slice(out[(0,)][0], 0), tb._tree_slice(out[(1,)][0], 0), "")
 
 
 def test_warm_kf_buckets_leaves_the_runner_alone(jax_run):
     runner = tb.BatchedRunner(_systems(jax_run), kf_mode="deferred")
     before = tb.tree_map(torch.clone, runner.states)
     pots, reads = runner._current_pots(), tgs.HOST_READS
-    fr = jax_run["frames"][0][N_BOOT]
-    runner.warm_kf_buckets((fr[0], fr[1]))
+    runner.warm_kf_buckets()
     _assert_trees_equal(runner.states, before, "warm_kf_buckets")
     assert runner._current_pots() == pots and tgs.HOST_READS == reads
     assert not runner._pending_q and runner._pending_kf is None

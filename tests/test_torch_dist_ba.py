@@ -200,3 +200,45 @@ def test_full_system_runs_with_dist_ba_two_ranks(tmp_path):
     assert int(r0["n_kf"]) == len(fs.kf_shells) >= 2 and not bool(r0["lost"])
     want = np.stack(fs.trajectory())
     assert np.abs(r0["traj"][:, :3, 3] - want[:, :3, 3]).max() <= 1e-3
+
+
+ENLARGED = dict(F=16, n_pts=1024)  # tests/test_dist_ba.py's window, 64 points a frame instead of 512
+
+
+def test_enlarged_window_two_ranks(tmp_path):
+    """The enlarged window of tests/test_dist_ba.py:109-127 (F = 16
+    keyframes, points hosted in every frame, all-pairs residuals), cut from
+    8192 points to 1024: the port's `add_residuals_all_pairs` rebuilds the
+    JAX window's residual cube bit for bit, and 2 gloo ranks step it as the
+    single-process BA and the JAX `ba_iteration` do, at this file's
+    tolerances."""
+    from test_dist_ba import _build_enlarged_window
+
+    from stereo_dso_g2o_tpu.backend import ba as jba
+    from stereo_dso_g2o_tpu_torch.backend import builder as tbuilder
+
+    jwin, jdI = _build_enlarged_window(**ENLARGED)
+    jdI = jdI.astype(jnp.float32)
+    arrays = fields(jwin)
+    twin = bridge.window_from_numpy(arrays, device="cpu")
+    rebuilt = tbuilder.add_residuals_all_pairs(twin.replace(
+        res_exists=torch.zeros_like(twin.res_exists), res_linearized=torch.ones_like(twin.res_linearized)))
+    for f in ("res_exists", "res_state", "res_linearized"):
+        assert torch.equal(getattr(rebuilt, f), getattr(twin, f)), f
+    assert int(n(twin.res_exists).sum()) == ENLARGED["n_pts"] * (ENLARGED["F"] - 1)
+    np.savez(tmp_path / "window.npz", dI_stack=np.array(jdI),
+             **{f"win.{k}": v for k, v in arrays.items()})
+    run_ranks(ba_steps, 2, tmp_path, TSET, N_ITS)
+    got = np.load(tmp_path / "scalars_rank0.npz")["scal"]
+    gwin = _result_window(tmp_path)
+    jw = jwin
+    for it in range(N_ITS):
+        twin, e, _, nres = tba.ba_iteration(twin, t(jdI), it, settings=TSET)
+        jw, je, _, jn = jba.ba_iteration(jw, jdI, jnp.asarray(it), settings=JSET)
+        assert int(got[it, 2]) == int(nres) == int(jn) > 0
+        for want in (float(e), float(je)):
+            np.testing.assert_allclose(got[it, 0], want, rtol=1e-4 if it == 0 else 5e-3)
+    for wwin in (twin, bridge.window_from_numpy(fields(jw), device="cpu")):
+        np.testing.assert_allclose(n(gwin.state), n(wwin.state), atol=5e-4)
+        np.testing.assert_allclose(n(gwin.pt_idepth), n(wwin.pt_idepth), atol=2e-3)
+        np.testing.assert_allclose(n(gwin.c_value), n(wwin.c_value), rtol=1e-4)

@@ -196,7 +196,19 @@ def test_port_imports_without_jax():
         "from stereo_dso_g2o_tpu_torch.io import dataset, output_wrapper, viewer, debug_viz\n"
         "from stereo_dso_g2o_tpu_torch.models import undistort\n"
         "from stereo_dso_g2o_tpu_torch.runtime import native_loader\n"
+        "from stereo_dso_g2o_tpu_torch import bench, graft_entry\n"
         "assert sys.modules['jax'] is None\n"
+        "import torch\n"
+        "torch.cuda.is_available = lambda: False\n"
+        "for call in (bench.main, graft_entry.entry, lambda: graft_entry.dryrun_multichip(1)):\n"
+        "    try:\n"
+        "        call()\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'no CUDA device' in str(e), e\n"
+        "    else:\n"
+        "        raise AssertionError(f'{call} ran without a device')\n"
+        "fn, args = graft_entry.entry(device='cpu')\n"
+        "assert int(fn(*args)[3]) > 0 and sys.modules['jax'] is None\n"
         "print('ok')\n"
     )
     out = subprocess.run(

@@ -193,6 +193,61 @@ def test_cli_synthetic_runs(capsys):
     assert m and np.isfinite(float(m.group(1)))
 
 
+SYN_FRAMES = 24  # the sixth keyframe (frame 21) pushes the first out of the 5-frame window
+
+
+def _twist(i):
+    """`run_odometry.py`'s `synthetic=N` twist of frame i."""
+    return np.array([0.025 * i, -0.008 * i, 0.04 * i, 0.002 * i, 0.004 * i, -0.001 * i])
+
+
+@pytest.mark.parametrize("frame", [3, 10, 19])
+def test_synthetic_pose_and_render_match_jax(frame):
+    """`synthetic=N` takes its poses as the JAX CLI does, the exp of a
+    float32 twist (jax's default precision; the tests turn x64 on, so it is
+    turned off around the JAX side): every entry within one float32 rounding
+    of the JAX pose (frames 3 and 10 agree bit for bit; on frame 19 one
+    translation entry differs by one rounding, the two exps summing it in
+    another order), and the rendered pair within 5e-5 (a float64 pose put
+    2.9e-4 between them)."""
+    import jax
+    import jax.numpy as jnp
+
+    from stereo_dso_g2o_tpu.io import synthetic as jsyn
+    from stereo_dso_g2o_tpu.utils import se3 as jse3
+
+    with jax.enable_x64(False):
+        want = np.asarray(jse3.se3_exp(jnp.asarray(_twist(frame))), dtype=np.float64)
+    got = tcli.synthetic_pose(frame)
+    assert got.dtype == np.float64
+    rounding = np.spacing(np.abs(want).astype(np.float32)).astype(np.float64)
+    assert (np.abs(got - want) <= rounding).all(), np.abs(got - want).max()
+    w, h, b = 256, 128, 0.12
+    K = jsyn.default_K(w, h)
+    for a, c in zip(tsyn.render_stereo_pair(tsyn.default_scene(0), K, w, h, b, got)[:2],
+                    jsyn.render_stereo_pair(jsyn.default_scene(0), K, w, h, b, want)[:2]):
+        np.testing.assert_allclose(a, c, atol=5e-5, rtol=0)
+
+
+def test_synthetic_frame_lines_match_jax(jax_draws, capsys):
+    """`synthetic=N quiet=0` prints the JAX CLI's per-frame lines, the
+    keyframes in the window (`kf_slots`), over a run that marginalizes a
+    keyframe, so that the window holds fewer than were made."""
+    import jax
+
+    spec = importlib.util.spec_from_file_location("jax_run_odometry", os.path.join(ROOT, "run_odometry.py"))
+    jcli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jcli)
+    with jax.enable_x64(False):
+        assert jcli.run_synthetic(SYN_FRAMES, False) == 0
+    want = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("frame ")]
+    summary = tcli.run([f"synthetic={SYN_FRAMES}", "quiet=0", "device=cpu"])
+    got = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("frame ")]
+    assert len(want) == SYN_FRAMES and got == want
+    in_window = [int(re.search(r"kfs=(\d+)", ln).group(1)) for ln in got]
+    assert summary["keyframes"] > in_window[-1], (summary["keyframes"], in_window)
+
+
 def test_cli_needs_a_device_or_files(jax_cli, monkeypatch, capsys):
     assert tcli.main(["quiet=1", "device=cpu"]) == 1
     assert "Usage" in capsys.readouterr().out

@@ -151,3 +151,40 @@ def test_pose_hypotheses_match():
     Ts = [np.asarray(jse3.se3_exp(jnp.asarray(rng.normal(0, 0.1, 6))), np.float64) for _ in range(3)]
     for a, b in zip(tct.motion_model_tries(*Ts), jct.motion_model_tries(*Ts)):
         np.testing.assert_allclose(a, b, atol=1e-12)
+
+
+def test_cascade_step_matches(pair):
+    """`frame_step.cascade_step` (one hypothesis on pyramids already built)
+    against the JAX `cascade_step` on the same pyramid and reference at the
+    tracker tolerances above (affine 1e-4), and against the port's own host
+    cascade at tests/test_frame_step.py's (pose 2e-5, affine 1e-4,
+    residuals 1e-3 where both ran)."""
+    import jax.numpy as jnp
+
+    from stereo_dso_g2o_tpu.frontend import frame_step as jfs
+    from stereo_dso_g2o_tpu_torch.frontend import frame_step as tfs
+
+    jtr, ttr = pair["jtr"], pair["ttr"]
+    want = jfs.cascade_step(
+        pair["jdnew"], tuple(jtr.ref), jtr.calib.c, jtr.calib.baseline,
+        jnp.eye(4, dtype=jnp.float32), jnp.zeros(2, jnp.float32), jtr.ref_aff,
+        jnp.float32(1.0), jnp.float32(1.0), jnp.full(N_LVL, jnp.inf, jnp.float32),
+        settings=JSET, n_levels=N_LVL)
+    got = tfs.cascade_step(
+        pair["tdnew"], tuple(ttr.ref), ttr.calib.c, ttr.calib.baseline, torch.eye(4),
+        torch.zeros(2), ttr.ref_aff, torch.tensor(1.0), torch.tensor(1.0),
+        torch.full((N_LVL,), float("inf")), settings=TSET, n_levels=N_LVL)
+    assert bool(got.ok) and bool(want.ok) and got.T.shape == (4, 4)
+    np.testing.assert_allclose(n(got.T), np.array(want.T), atol=POSE_ATOL, rtol=0)
+    np.testing.assert_allclose(n(got.aff), np.array(want.aff), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(n(got.residuals), np.array(want.residuals), rtol=RES_RTOL)
+    np.testing.assert_allclose(n(got.flow), np.array(want.flow), rtol=RES_RTOL)
+    host = ttr.track_newest_coarse(pair["tdnew"], np.eye(4), np.zeros(2), N_LVL - 1,
+                                   np.full(N_LVL, np.inf))
+    assert host.ok
+    np.testing.assert_allclose(n(got.T), host.T_ref_new, atol=2e-5, rtol=0)
+    np.testing.assert_allclose(n(got.aff), host.aff, atol=1e-4, rtol=0)
+    fr = n(got.residuals)
+    m = np.isfinite(fr) & np.isfinite(host.residuals)
+    assert m.any()
+    np.testing.assert_allclose(fr[m], host.residuals[m], rtol=1e-3)
