@@ -80,7 +80,18 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
      graft_entry): entry()'s BA iteration on the card against the same call
      on the CPU, then dryrun_multichip(1), a one-rank nccl process: the
      sharded BA at production shape against the single-process BA, and the
-     sequence-sharded stereo match with K1 on the card.
+     sequence-sharded stereo match with K1 on the card;
+  16. initializer, the mono initializer (frontend/initializer.py) at
+     1216x352 and 6 levels over tests/test_initializer.py's tilted plane and
+     growing baseline, rendered by the port: the frame it snaps at, the
+     median relative inverse-depth error against the renderer's up to scale
+     and the translation's direction, held to the JAX package's run on the
+     same frames on the CPU; ms per track_frame, good points per level;
+  17. tools, the port's tools (stereo_dso_g2o_tpu_torch/tools): the
+     keyframe audit over phase 14's obs file (as `python -m`), one BA
+     iteration at F = 8 and F = 16, profile_frame and profile_kf_stages
+     over 10 graph frames: each returns its keys, with the device's busy
+     share and kernels per frame.
 Every kernel launch counter is set to 0 just before a path is driven and
 read just after. The last two lines are the kernel report and the device
 report (JSON). With SDSO_PROFILE=1 the two odometry paths also print their
@@ -138,6 +149,18 @@ BENCH_METRICS = ("full_slam_single_seq_fps_kitti_res_hostile_synthetic",
                  "full_slam_agg_fps_kitti_res_hostile_synthetic",
                  "full_slam_fps_per_chip_kitti_res_hostile_synthetic")
 ENTRY_E_RTOL = 1e-4  # tests/test_torch_graft_entry.py's energy tolerance
+# the mono initializer over tests/test_initializer.py's scene and motion at
+# 1216x352, 6 levels. JAX package on the same frames on the CPU
+# (`JAX_PLATFORMS=cpu python tests/_torch_parity.py initializer`, PERF.md):
+# snaps at frame 2, median relative inverse-depth error 0.00602, translation
+# cosine 0.980, good points per level 4354/2537/813/216/56/10. Bounds: the
+# same snap frame, the error within 0.05 of JAX's and under 0.2, cosine > 0.9.
+INIT_FRAMES, INIT_LEVELS = 7, 6
+INIT_MOTION = (0.06, 0.015, 0.02, 0.0, 0.004, 0.0)  # tests/test_initializer.py:51
+INIT_JAX_SNAP, INIT_JAX_REL = 2, 0.006022470071911812
+INIT_REL_MARGIN, INIT_REL_MAX, INIT_COS_MIN = 0.05, 0.2, 0.9
+# the tools phase: graph frames after the bootstrap, the last of them traced
+TOOLS_FRAMES, TOOLS_TRACED = 10, 2
 # published peaks of one H100 SXM: the roofline a kernel's bound is taken from
 HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12
 # JAX package, FullSystem on CPU, same 40 frames and settings (PERF.md):
@@ -762,23 +785,20 @@ def phase_playback(dev, scene, poses_cw, expos, launches):
         fail("playback: synthetic=20 gave a non-finite ATE or launched no kernel")
 
 
-def phase_bench(graph_kf_frames, launches):
-    """Phase 14: the port's bench entry at 40 frames and 2 sequences."""
-    import tempfile
-
+def phase_bench(graph_kf_frames, launches, obs):
+    """Phase 14: the port's bench entry at 40 frames and 2 sequences,
+    writing its obs file to `obs`."""
     from stereo_dso_g2o_tpu_torch import bench
     from stereo_dso_g2o_tpu_torch.ops import trace_cuda as tk
 
-    with tempfile.TemporaryDirectory() as tmp:
-        obs = os.path.join(tmp, "obs.jsonl")
-        tk.reset_launches()
-        t0 = time.perf_counter()
-        out = bench.main(frames=N_FRAMES, nseq=BENCH_NSEQ, obs=obs)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        launches["bench"] = (tk.LAUNCHES, tk.LAUNCHES_SLAB)
-        with open(obs) as f:
-            recs = [json.loads(line) for line in f]
+    tk.reset_launches()
+    t0 = time.perf_counter()
+    out = bench.main(frames=N_FRAMES, nseq=BENCH_NSEQ, obs=obs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches["bench"] = (tk.LAUNCHES, tk.LAUNCHES_SLAB)
+    with open(obs) as f:
+        recs = [json.loads(line) for line in f]
     lines = out["lines"]
     single = lines[0]
     split = out["launches"]
@@ -840,6 +860,109 @@ def phase_graft(dev, launches):
           f"{launches['graft_dryrun']}")
     if launches["graft_dryrun"][0] <= 0:
         fail("graft: the dry run's stereo match did not launch the epipolar kernel")
+
+
+def phase_initializer(dev, launches):
+    """Phase 16: the mono initializer at 1216x352, 6 levels."""
+    from stereo_dso_g2o_tpu_torch.config import Settings
+    from stereo_dso_g2o_tpu_torch.frontend.initializer import MonoInitializer, score_against_truth
+    from stereo_dso_g2o_tpu_torch.io import synthetic
+    from stereo_dso_g2o_tpu_torch.models.camera import make_calib
+    from stereo_dso_g2o_tpu_torch.ops import trace_cuda as tk
+    from stereo_dso_g2o_tpu_torch.ops.pyramid import build_pyramid
+    from stereo_dso_g2o_tpu_torch.utils import se3
+
+    scene = synthetic.default_scene(13)
+    K = synthetic.default_K(W_, H_)
+    t0 = time.perf_counter()
+    img0, idepth0 = synthetic.render(scene, K, W_, H_, np.eye(4))
+    frames = []
+    for i in range(1, INIT_FRAMES + 1):
+        xi = torch.tensor(np.asarray(INIT_MOTION) * i, dtype=torch.float32)
+        T = se3.se3_exp(xi).numpy().astype(np.float64)
+        frames.append((T, synthetic.render(scene, K, W_, H_, T)[0]))
+    print(f"[initializer] {INIT_FRAMES + 1} frames {W_}x{H_} rendered on the host in "
+          f"{time.perf_counter() - t0:.1f} s")
+    calib = make_calib(K[0, 0], K[1, 1], K[0, 2], K[1, 2], 0.1, W_, H_, n_levels=INIT_LEVELS,
+                       device=dev)
+    tk.reset_launches()
+    ini = MonoInitializer(calib, Settings(desired_point_density=600.0, immature_cap=512,
+                                          active_cap=1024), device=dev)
+    ini.set_first(*build_pyramid(torch.as_tensor(img0, device=dev), INIT_LEVELS))
+    ms, ready = [], []
+    for T, img in frames:
+        t1 = time.perf_counter()
+        ready.append(ini.track_frame(build_pyramid(torch.as_tensor(img, device=dev),
+                                                   INIT_LEVELS)[0]))
+        torch.cuda.synchronize()
+        ms.append(1000.0 * (time.perf_counter() - t1))
+    launches["initializer"] = (tk.LAUNCHES, tk.LAUNCHES_SLAB)
+    sc = score_against_truth(ini.levels[0], idepth0, ini.this_to_next, frames[-1][0])
+    good = [int((L.valid & L.is_good).sum()) for L in ini.levels]
+    print(f"[initializer] MonoInitializer {INIT_LEVELS} levels, {INIT_FRAMES} frames: snapped "
+          f"{ini.snapped} at frame {ini.snapped_at} (JAX {INIT_JAX_SNAP}), ready {ready}; good "
+          f"points per level {good}; median relative inverse-depth error "
+          f"{sc['median_rel_err']:.5f} (JAX {INIT_JAX_REL:.5f}), translation cosine "
+          f"{sc['t_cos']:.4f}; ms per track_frame {[round(m, 1) for m in ms]} (median "
+          f"{float(np.median(ms)):.1f}); kernel launches {launches['initializer']}")
+    if not ini.snapped or ini.snapped_at != INIT_JAX_SNAP:
+        fail(f"initializer: snapped {ini.snapped} at {ini.snapped_at}, JAX at {INIT_JAX_SNAP}")
+    if not (sc["median_rel_err"] < INIT_REL_MAX
+            and abs(sc["median_rel_err"] - INIT_JAX_REL) <= INIT_REL_MARGIN):
+        fail(f"initializer: median relative inverse-depth error {sc['median_rel_err']}")
+    if not sc["t_cos"] > INIT_COS_MIN:
+        fail(f"initializer: translation cosine {sc['t_cos']}")
+    if not all(np.isfinite(ini.this_to_next).ravel()) or good[0] <= 50:
+        fail("initializer: non-finite pose or too few good points")
+
+
+def phase_tools(obs, launches):
+    """Phase 17: the port's tools on the card."""
+    from stereo_dso_g2o_tpu_torch.ops import trace_cuda as tk
+    from stereo_dso_g2o_tpu_torch.tools import (
+        bench_enlarged_window, profile_frame, profile_kf_stages,
+    )
+
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "stereo_dso_g2o_tpu_torch.tools.analyze_kf_decisions",
+         f"path={obs}"],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    if run.returncode != 0:
+        fail(f"tools: analyze_kf_decisions exited {run.returncode}: {run.stderr[-2000:]}")
+    kf = json.loads(run.stdout.strip().splitlines()[-1])
+    print(f"[tools] analyze_kf_decisions over [bench]'s obs file: {kf}")
+    if kf.get("n_frames") != N_FRAMES - BOOT - 8 or "kf_by_flow_delta_only" not in kf:
+        fail(f"tools: analyze_kf_decisions read {kf}")
+    secs = {"analyze_kf_decisions": time.perf_counter() - t0}
+    tk.reset_launches()
+    t1 = time.perf_counter()
+    bew = bench_enlarged_window.main(reps=2)
+    secs["bench_enlarged_window"] = time.perf_counter() - t1
+    print(f"[tools] bench_enlarged_window: {bew}")
+    if not (bew["production_F8_2048_nres"] > 0 and bew["enlarged_F16_8192_nres"] > 0
+            and bew["cost_ratio"] > 0):
+        fail(f"tools: bench_enlarged_window gave {bew}")
+    t1 = time.perf_counter()
+    pf = profile_frame.main(frames=TOOLS_FRAMES, traced=TOOLS_TRACED)
+    secs["profile_frame"] = time.perf_counter() - t1
+    print(f"[tools] profile_frame: {pf}")
+    t1 = time.perf_counter()
+    kfs = profile_kf_stages.main(capture_after=BOOT + TOOLS_FRAMES, reps=1)
+    secs["profile_kf_stages"] = time.perf_counter() - t1
+    print(f"[tools] profile_kf_stages: {kfs}")
+    launches["tools"] = (tk.LAUNCHES, tk.LAUNCHES_SLAB)
+    for name, out, keys in (
+            ("profile_frame", pf, ("frame_ms_p50", "kf_rate", "device_busy_share",
+                                   "kernels_per_frame")),
+            ("profile_kf_stages", kfs, ("stage_trace_on_kf_ms", "stage_ba_ms", "kf_branch_ms",
+                                        "frame_track_ms", "device_busy_share",
+                                        "kernels_per_frame"))):
+        if any(out.get(k) is None for k in keys) or not 0 < out["device_busy_share"] <= 1:
+            fail(f"tools: {name} lacks a key or a device share: {out}")
+    print(f"[tools] 4 tools in {time.perf_counter() - t0:.1f} s "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())}); kernel launches "
+          f"{launches['tools']}")
 
 
 def main() -> int:
@@ -1231,8 +1354,16 @@ def main() -> int:
     phase_playback(dev, scene, poses_cw, expos, launches)
 
     # ---- 14-15. the bench entry and the graft entry points ----
-    phase_bench(kf_frames, launches)
-    phase_graft(dev, launches)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        obs = os.path.join(tmp, "obs.jsonl")
+        phase_bench(kf_frames, launches, obs)
+        phase_graft(dev, launches)
+
+        # ---- 16-17. the mono initializer and the tools ----
+        phase_initializer(dev, launches)
+        phase_tools(obs, launches)
 
     # ---- report: each kernel at the shape its main path gives it ----
     def row(name, source, replaces, key, col):

@@ -66,28 +66,47 @@ def bench_config(small: bool) -> dict:
                 step=0.30, density=2000.0, imm_density=1500.0, imm_cap=2048, act_cap=2048)
 
 
-def render_sequences(cfg, n_seq, n_frames, device):
-    """`n_seq` corridor sequences rendered on `device`: (K, [(lefts (N,h,w)
-    uint8, rights, poses_wc (N,4,4) numpy)])."""
+def render_sequence(cfg, s, n_frames, device):
+    """Corridor sequence `s` rendered on `device`: (K, (lefts (N,h,w) uint8,
+    rights, poses_wc (N,4,4) numpy))."""
     from stereo_dso_g2o_tpu_torch.io import synthetic
 
     w, h = cfg["w"], cfg["h"]
     K = synthetic.default_K(w, h, fov_deg=80.0)
-    seqs = []
-    for s in range(n_seq):
-        t0 = time.perf_counter()
-        # long enough that structure stays 5-40 m ahead for every frame
-        scene = synthetic.corridor_scene(seed=100 + s, length=cfg["step"] * n_frames + 40.0,
-                                         box_spacing=cfg["box_spacing"], lateral=cfg["lateral"])
-        poses_cw = synthetic.forward_trajectory(n_frames, step=cfg["step"], yaw_amp=0.10,
-                                                yaw_period=80.0, seed=s)
-        expos = 1.0 + 0.12 * np.sin(0.25 * np.arange(n_frames) + s)
-        lefts, rights = synthetic.render_stereo_sequence_fast(
-            scene, K, w, h, cfg["base"], poses_cw, expos, device=device)
-        _sync(device)
-        seqs.append((lefts, rights, np.stack([np.linalg.inv(T) for T in poses_cw])))
-        emit({"progress": "rendered_seq", "seq": s, "secs": round(time.perf_counter() - t0, 1)})
-    return K, seqs
+    t0 = time.perf_counter()
+    # long enough that structure stays 5-40 m ahead for every frame
+    scene = synthetic.corridor_scene(seed=100 + s, length=cfg["step"] * n_frames + 40.0,
+                                     box_spacing=cfg["box_spacing"], lateral=cfg["lateral"])
+    poses_cw = synthetic.forward_trajectory(n_frames, step=cfg["step"], yaw_amp=0.10,
+                                            yaw_period=80.0, seed=s)
+    expos = 1.0 + 0.12 * np.sin(0.25 * np.arange(n_frames) + s)
+    lefts, rights = synthetic.render_stereo_sequence_fast(
+        scene, K, w, h, cfg["base"], poses_cw, expos, device=device)
+    _sync(device)
+    emit({"progress": "rendered_seq", "seq": s, "secs": round(time.perf_counter() - t0, 1)})
+    return K, (lefts, rights, np.stack([np.linalg.inv(T) for T in poses_cw]))
+
+
+def render_sequences(cfg, n_seq, n_frames, device):
+    """`n_seq` corridor sequences rendered on `device`: (K, [(lefts (N,h,w)
+    uint8, rights, poses_wc (N,4,4) numpy)])."""
+    seqs = [render_sequence(cfg, s, n_frames, device) for s in range(n_seq)]
+    return seqs[0][0], [seq for _, seq in seqs]
+
+
+def bench_settings(cfg, ladder_fine=None):
+    """The Settings bench.py runs: the config's densities and caps, affine
+    modes 0 (the exposure is synthesized but NOT fed to the engine:
+    uncalibrated input, so the affine brightness is free, the reference's
+    KITTI operating point), and `ladder_fine_levels` when given."""
+    from stereo_dso_g2o_tpu_torch.config import Settings
+
+    lf = {} if ladder_fine is None else {"ladder_fine_levels": int(ladder_fine)}
+    return Settings(
+        desired_point_density=cfg["density"], desired_immature_density=cfg["imm_density"],
+        immature_cap=cfg["imm_cap"], active_cap=cfg["act_cap"],
+        affine_opt_mode_a=0.0, affine_opt_mode_b=0.0, **lf,
+    )
 
 
 def device_line(device):
@@ -131,7 +150,6 @@ def main(frames=None, nseq=None, small=False, ladder_fine=None, obs=None, device
     frame records, and the epipolar kernel's launches in the single and
     batched runs."""
     from stereo_dso_g2o_tpu_torch import default_device
-    from stereo_dso_g2o_tpu_torch.config import Settings
     from stereo_dso_g2o_tpu_torch.frontend.full_system import FullSystem
     from stereo_dso_g2o_tpu_torch.frontend.graph_system import GraphSystem
     from stereo_dso_g2o_tpu_torch.io import trajectory
@@ -147,15 +165,7 @@ def main(frames=None, nseq=None, small=False, ladder_fine=None, obs=None, device
     if n_frames < BOOT + WARM + 1:
         raise ValueError(f"frames={n_frames}: the timed window needs more than {BOOT + WARM}")
     emit(device_line(dev))
-    # exposure is synthesized but NOT fed to the engine: uncalibrated input,
-    # so the affine brightness is free (the reference's KITTI operating
-    # point: mode=1 sets setting_affineOptModeA/B = 0)
-    lf = {} if ladder_fine is None else {"ladder_fine_levels": int(ladder_fine)}
-    settings = Settings(
-        desired_point_density=cfg["density"], desired_immature_density=cfg["imm_density"],
-        immature_cap=cfg["imm_cap"], active_cap=cfg["act_cap"],
-        affine_opt_mode_a=0.0, affine_opt_mode_b=0.0, **lf,
-    )
+    settings = bench_settings(cfg, ladder_fine)
     t_render0 = time.perf_counter()
     K, seqs = render_sequences(cfg, n_seq, n_frames, dev)
     emit({"progress": "frames_ready", "secs": round(time.perf_counter() - t_render0, 1)})

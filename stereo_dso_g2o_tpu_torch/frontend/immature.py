@@ -20,6 +20,7 @@ from stereo_dso_g2o_tpu_torch.ops import distance_map as DM
 from stereo_dso_g2o_tpu_torch.ops import trace as trace_ops
 from stereo_dso_g2o_tpu_torch.ops.residuals import _bilinear3_frames
 from stereo_dso_g2o_tpu_torch.utils.fixed import nonzero_fixed, scatter_drop
+from stereo_dso_g2o_tpu_torch.utils.timing import PROF
 
 
 @dataclasses.dataclass
@@ -352,93 +353,100 @@ def trace_on_nonkey(imm: ImmatureSet, KRKi, Kt, R_new, t_new, aff, dI_new, dI_ri
     then L->R / R->L static-stereo refinement of the GOOD lanes (compacted
     to trace_cap//2), and reprojection of the refined interval back into
     the host. Keeps the reference's acceptance quirk: reject only when
-    u_delta > 1 AND disparity < 10."""
+    u_delta > 1 AND disparity < 10. Its six steps are `refine.*` sections
+    of the profiler (tools/profile_refine_stages)."""
     dev = imm.u.device
-    flat, sel = _compact_live(imm, host_valid, settings)
-    host = flat["host"]
+    with PROF.section("refine.compact", True):
+        flat, sel = _compact_live(imm, host_valid, settings)
+        host = flat["host"]
 
-    traced = trace_ops.trace_batch(
-        flat["u"], flat["v"], flat["idepth_min"], flat["idepth_max"],
-        flat["color"], flat["weights"], flat["gradH"], flat["energy_th"],
-        flat["quality"], flat["status"], KRKi[host], Kt[host], aff[host], dI_new,
-        settings=settings,
-    )
+    with PROF.section("refine.temporal_trace", True):
+        traced = trace_ops.trace_batch(
+            flat["u"], flat["v"], flat["idepth_min"], flat["idepth_max"],
+            flat["color"], flat["weights"], flat["gradH"], flat["energy_th"],
+            flat["quality"], flat["status"], KRKi[host], Kt[host], aff[host], dI_new,
+            settings=settings,
+        )
 
-    good = flat["sel_ok"] & (traced.status == trace_ops.IPS_GOOD)
-    Hd, Wd = dI_new.shape[:2]
-    n = flat["u"].shape[0]
+    with PROF.section("refine.project_extract_new", True):
+        good = flat["sel_ok"] & (traced.status == trace_ops.IPS_GOOD)
+        Hd, Wd = dI_new.shape[:2]
+        n = flat["u"].shape[0]
 
-    NS = max(min(n, settings.trace_cap // 2), 1)
-    gidx = nonzero_fixed(good, NS)
-    g_ok = gidx >= 0
-    gs_ = torch.clamp(gidx, min=0)
+        NS = max(min(n, settings.trace_cap // 2), 1)
+        gidx = nonzero_fixed(good, NS)
+        g_ok = gidx >= 0
+        gs_ = torch.clamp(gidx, min=0)
 
-    u2 = torch.clamp(traced.last_uv[gs_, 0], 8.0, Wd - 9.0)
-    v2 = torch.clamp(traced.last_uv[gs_, 1], 8.0, Hd - 9.0)
+        u2 = torch.clamp(traced.last_uv[gs_, 0], 8.0, Wd - 9.0)
+        v2 = torch.clamp(traced.last_uv[gs_, 1], 8.0, Hd - 9.0)
 
-    ones = torch.ones_like(u2)
-    P = torch.stack([flat["u"][gs_], flat["v"][gs_], ones], -1)
-    KRKi_pt = KRKi[host[gs_]]
-    Kt_pt = Kt[host[gs_]]
-    ptp_min = torch.einsum("nij,nj->ni", KRKi_pt, P / traced.idepth_min[gs_, None]) + Kt_pt
-    id_min_proj = 1.0 / ptp_min[:, 2]
-    ptp_max = torch.einsum("nij,nj->ni", KRKi_pt, P / traced.idepth_max[gs_, None]) + Kt_pt
-    id_max_proj = 1.0 / ptp_max[:, 2]
+        ones = torch.ones_like(u2)
+        P = torch.stack([flat["u"][gs_], flat["v"][gs_], ones], -1)
+        KRKi_pt = KRKi[host[gs_]]
+        Kt_pt = Kt[host[gs_]]
+        ptp_min = torch.einsum("nij,nj->ni", KRKi_pt, P / traced.idepth_min[gs_, None]) + Kt_pt
+        id_min_proj = 1.0 / ptp_min[:, 2]
+        ptp_max = torch.einsum("nij,nj->ni", KRKi_pt, P / traced.idepth_max[gs_, None]) + Kt_pt
+        id_max_proj = 1.0 / ptp_max[:, 2]
 
-    color2, weights2, gradH2, eth2 = trace_ops.extract_point_data(dI_new, u2, v2, settings)
-    fresh_q = torch.full((NS,), 10000.0, device=dev)
-    fresh_st = torch.where(
-        g_ok, torch.full((NS,), trace_ops.IPS_UNINITIALIZED, dtype=torch.int32, device=dev),
-        torch.full((NS,), trace_ops.IPS_OOB, dtype=torch.int32, device=dev),
-    )
+        color2, weights2, gradH2, eth2 = trace_ops.extract_point_data(dI_new, u2, v2, settings)
+        fresh_q = torch.full((NS,), 10000.0, device=dev)
+        fresh_st = torch.where(
+            g_ok, torch.full((NS,), trace_ops.IPS_UNINITIALIZED, dtype=torch.int32, device=dev),
+            torch.full((NS,), trace_ops.IPS_OOB, dtype=torch.int32, device=dev),
+        )
 
-    res_lr, _ = trace_ops.trace_stereo(
-        u2, v2, id_min_proj, id_max_proj, color2, weights2, gradH2, eth2,
-        fresh_q, fresh_st, K, baseline, dI_right, mode_right=True, settings=settings,
-    )
-    stereo_good = res_lr.status == trace_ops.IPS_GOOD
+    with PROF.section("refine.stereo_lr", True):
+        res_lr, _ = trace_ops.trace_stereo(
+            u2, v2, id_min_proj, id_max_proj, color2, weights2, gradH2, eth2,
+            fresh_q, fresh_st, K, baseline, dI_right, mode_right=True, settings=settings,
+        )
+        stereo_good = res_lr.status == trace_ops.IPS_GOOD
 
-    u3 = torch.clamp(res_lr.last_uv[:, 0], 8.0, Wd - 9.0)
-    v3 = torch.clamp(res_lr.last_uv[:, 1], 8.0, Hd - 9.0)
-    color3, weights3, gradH3, eth3 = trace_ops.extract_point_data(dI_right, u3, v3, settings)
-    res_rl, _ = trace_ops.trace_stereo(
-        u3, v3, id_min_proj, id_max_proj, color3, weights3, gradH3, eth3,
-        fresh_q.clone(), fresh_st, K, baseline, dI_new, mode_right=False, settings=settings,
-    )
+    with PROF.section("refine.extract_stereo_rl", True):
+        u3 = torch.clamp(res_lr.last_uv[:, 0], 8.0, Wd - 9.0)
+        v3 = torch.clamp(res_lr.last_uv[:, 1], 8.0, Hd - 9.0)
+        color3, weights3, gradH3, eth3 = trace_ops.extract_point_data(dI_right, u3, v3, settings)
+        res_rl, _ = trace_ops.trace_stereo(
+            u3, v3, id_min_proj, id_max_proj, color3, weights3, gradH3, eth3,
+            fresh_q.clone(), fresh_st, K, baseline, dI_new, mode_right=False, settings=settings,
+        )
 
-    u_delta = torch.abs(u2 - res_rl.last_uv[:, 0])
-    disparity = u2 - res_lr.last_uv[:, 0]
-    reject = stereo_good & (u_delta > 1.0) & (disparity < 10.0)
-    accept = stereo_good & ~reject
+    with PROF.section("refine.reproject_scatter", True):
+        u_delta = torch.abs(u2 - res_rl.last_uv[:, 0])
+        disparity = u2 - res_lr.last_uv[:, 0]
+        reject = stereo_good & (u_delta > 1.0) & (disparity < 10.0)
+        accept = stereo_good & ~reject
 
-    Ki = torch.linalg.inv(K)
-    P2 = torch.stack([u2, v2, torch.ones_like(u2)], -1)
-    KiP2 = torch.einsum("ij,nj->ni", Ki, P2)
-    KRi = torch.einsum("ij,fkj->fik", K, R_new)  # K @ R^T per host
-    KRi_pt = KRi[host[gs_]]
-    t_pt = t_new[host[gs_]]
+        Ki = torch.linalg.inv(K)
+        P2 = torch.stack([u2, v2, torch.ones_like(u2)], -1)
+        KiP2 = torch.einsum("ij,nj->ni", Ki, P2)
+        KRi = torch.einsum("ij,fkj->fik", K, R_new)  # K @ R^T per host
+        KRi_pt = KRi[host[gs_]]
+        t_pt = t_new[host[gs_]]
 
-    def backproj(id_stereo):
-        pinv = torch.einsum("nij,nj->ni", KRi_pt, KiP2 / id_stereo[:, None] - t_pt)
-        return 1.0 / pinv[:, 2]
+        def backproj(id_stereo):
+            pinv = torch.einsum("nij,nj->ni", KRi_pt, KiP2 / id_stereo[:, None] - t_pt)
+            return 1.0 / pinv[:, 2]
 
-    id_min_new = backproj(res_lr.idepth_min)
-    id_max_new = backproj(res_lr.idepth_max)
+        id_min_new = backproj(res_lr.idepth_min)
+        id_max_new = backproj(res_lr.idepth_max)
 
-    dst = torch.where(g_ok, gidx, torch.full_like(gidx, n))
-    zb = torch.zeros((n,), dtype=torch.bool, device=dev)
-    zf = torch.zeros((n,), dtype=id_min_new.dtype, device=dev)
-    upd_n = scatter_drop(zb, dst, accept & g_ok)
-    rej_n = scatter_drop(zb, dst, reject & g_ok)
-    idmin_n = scatter_drop(zf, dst, id_min_new)
-    idmax_n = scatter_drop(zf, dst, id_max_new)
+        dst = torch.where(g_ok, gidx, torch.full_like(gidx, n))
+        zb = torch.zeros((n,), dtype=torch.bool, device=dev)
+        zf = torch.zeros((n,), dtype=id_min_new.dtype, device=dev)
+        upd_n = scatter_drop(zb, dst, accept & g_ok)
+        rej_n = scatter_drop(zb, dst, reject & g_ok)
+        idmin_n = scatter_drop(zf, dst, id_min_new)
+        idmax_n = scatter_drop(zf, dst, id_max_new)
 
-    refined = traced._replace(
-        idepth_min=torch.where(upd_n, idmin_n, traced.idepth_min),
-        idepth_max=torch.where(upd_n, idmax_n, traced.idepth_max),
-        status=torch.where(rej_n, torch.full_like(traced.status, trace_ops.IPS_OUTLIER), traced.status),
-    )
-    return _scatter_trace(imm, sel, refined)
+        refined = traced._replace(
+            idepth_min=torch.where(upd_n, idmin_n, traced.idepth_min),
+            idepth_max=torch.where(upd_n, idmax_n, traced.idepth_max),
+            status=torch.where(rej_n, torch.full_like(traced.status, trace_ops.IPS_OUTLIER), traced.status),
+        )
+        return _scatter_trace(imm, sel, refined)
 
 
 def insert_activated(win, imm: ImmatureSet, act: ActivationResult,

@@ -14,8 +14,9 @@ kernel on the GPU, its plain PyTorch version on the CPU): the resident one,
 or the slab one for images over the JAX package's 6 MB gate
 (`trace_cuda.uses_slab_route`). `route="resident"` / `route="slab"` on
 `trace_batch`, `trace` and `trace_stereo` forces either, for tests and
-debugging; None means the gate. Everything else is torch ops, masked
-fixed-shape, as in the JAX package.
+debugging; None means `DEFAULT_ROUTE`, and when that is None too, the
+gate. Everything else is torch ops, masked fixed-shape, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -28,6 +29,11 @@ import torch
 from stereo_dso_g2o_tpu_torch.config import PATTERN, Settings, default_settings
 from stereo_dso_g2o_tpu_torch.ops import trace_cuda as tk
 from stereo_dso_g2o_tpu_torch.utils.smalls import fma
+
+# the route of a call made with route=None; None means the gate. A tool sets
+# it to send every trace of a run through one kernel (tools/accuracy_probe
+# route=..., as SDSO_TRACE_BACKEND reaches trace.default_backend in JAX).
+DEFAULT_ROUTE = None
 
 # Status codes (ImmaturePoint.h:50-56).
 IPS_GOOD = 0
@@ -99,6 +105,8 @@ def _search(dI, ptx, pty, dx, dy, num_steps, aff_a, aff_b, color, weights,
             patx, paty, pre_masked, S, settings: Settings, edge, route=None):
     """Run the epipolar kernel on sanitized lanes: masked lanes get position
     0 and zero steps (their outputs are discarded by the status machine)."""
+    if route is None:
+        route = DEFAULT_ROUTE
     if route not in (None, "resident", "slab"):
         raise ValueError(f"route must be None, 'resident' or 'slab', got {route!r}")
     if route is None:

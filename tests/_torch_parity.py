@@ -215,12 +215,120 @@ def jax_playback_reference(seq_dir, n_frames=40):
     return res
 
 
+INIT_MOTION = (0.06, 0.015, 0.02, 0.0, 0.004, 0.0)  # tests/test_initializer.py:51
+
+
+def jax_initializer_reference(w=1216, h=352, n_levels=6, n_frames=7):
+    """The JAX package's mono initializer over tests/test_initializer.py's
+    scene and motion, rendered at w x h (the numpy plane renderer, which
+    the port has bit for bit): the frame it snaps at, whether it is ready,
+    good points per level, and the port's score_against_truth of its
+    result. chip_smoke.py's
+    [initializer] holds the port on the card to these numbers.
+
+        JAX_PLATFORMS=cpu python tests/_torch_parity.py initializer
+    """
+    import time
+
+    import jax.numpy as jnp
+
+    from stereo_dso_g2o_tpu.config import Settings
+    from stereo_dso_g2o_tpu.frontend.initializer import MonoInitializer
+    from stereo_dso_g2o_tpu.io import synthetic
+    from stereo_dso_g2o_tpu.models.camera import make_calib
+    from stereo_dso_g2o_tpu.ops.pyramid import build_pyramid
+    from stereo_dso_g2o_tpu.utils import se3
+    from stereo_dso_g2o_tpu_torch.frontend.initializer import score_against_truth
+
+    scene = synthetic.default_scene(13)
+    K = synthetic.default_K(w, h)
+    calib = make_calib(K[0, 0], K[1, 1], K[0, 2], K[1, 2], 0.1, w, h, n_levels=n_levels)
+    img0, idepth0 = synthetic.render(scene, K, w, h, np.eye(4))
+    ini = MonoInitializer(calib, Settings(desired_point_density=600.0, immature_cap=512,
+                                          active_cap=1024))
+    ini.set_first(*build_pyramid(jnp.asarray(img0), n_levels))
+    t0 = time.perf_counter()
+    ready = []
+    for i in range(1, n_frames + 1):
+        T = np.asarray(se3.se3_exp(jnp.asarray(np.asarray(INIT_MOTION) * i, jnp.float32)),
+                       np.float64)
+        img, _ = synthetic.render(scene, K, w, h, T)
+        ready.append(bool(ini.track_frame(build_pyramid(jnp.asarray(img), n_levels)[0])))
+    L = ini.levels[0]
+    out = dict(w=w, h=h, n_levels=n_levels, n_frames=n_frames, snapped=bool(ini.snapped),
+               snapped_at=ini.snapped_at, ready=ready,
+               good_per_level=[int(np.sum(np.asarray(x.valid & x.is_good))) for x in ini.levels],
+               seconds=round(time.perf_counter() - t0, 1),
+               **score_against_truth(jax.device_get(L), idepth0, ini.this_to_next, T))
+    print(out, flush=True)
+    return out
+
+
+def jax_probe(seq=0, n_frames=200, save=None):
+    """tools/accuracy_probe.py's run, through the JAX package with x64 off
+    as a user runs it (bench.py's frames and settings, the same loop), with
+    the port's probe's extra keys: the keyframe frames, the largest
+    |R^T R - I| over the poses and the rotation error of the poses made
+    orthonormal. `save` writes the trajectory and the ground truth (npz).
+
+        JAX_PLATFORMS=cpu python tests/_torch_parity.py probe <seq> [frames] [save.npz]
+    """
+    import time
+
+    import bench
+    from stereo_dso_g2o_tpu.config import Settings
+    from stereo_dso_g2o_tpu.frontend.full_system import FullSystem
+    from stereo_dso_g2o_tpu.frontend.graph_system import GraphSystem
+    from stereo_dso_g2o_tpu.io import trajectory
+    from stereo_dso_g2o_tpu.models.camera import make_calib
+    from stereo_dso_g2o_tpu_torch.tools.accuracy_probe import orthonormalized, rot_orth_max
+
+    jax.config.update("jax_default_matmul_precision", "highest")
+    settings = Settings(desired_point_density=2000.0, desired_immature_density=1500.0,
+                        immature_cap=2048, active_cap=2048,
+                        affine_opt_mode_a=0.0, affine_opt_mode_b=0.0)
+    K, seqs = bench.render_sequences()
+    calib = make_calib(K[0, 0], K[1, 1], K[0, 2], K[1, 2], bench.BASE, bench.W_, bench.H_,
+                       n_levels=6)
+    lefts, rights, poses = seqs[seq]
+    fs = FullSystem(calib, settings)
+    for i in range(bench.BOOT):
+        fs.add_frame(lefts[i], rights[i], i, timestamp=0.1 * i)
+    gs = GraphSystem.from_full_system(fs)
+    lefts_d = jax.block_until_ready(jax.numpy.asarray(lefts[:n_frames]))
+    rights_d = jax.block_until_ready(jax.numpy.asarray(rights[:n_frames]))
+    t0 = time.perf_counter()
+    for i in range(bench.BOOT, n_frames):
+        gs.add_frame(lefts_d[i], rights_d[i], i, timestamp=0.1 * i)
+    gs.flush()
+    wall = time.perf_counter() - t0
+    traj = gs.trajectory()
+    gt = poses[:n_frames]
+    rel_t, rel_r = trajectory.kitti_rel_errors(traj, gt, lengths=(10, 20, 30, 40), step=5)
+    _, rel_r_svd = trajectory.kitti_rel_errors(orthonormalized(traj), gt,
+                                               lengths=(10, 20, 30, 40), step=5)
+    out = dict(backend=jax.default_backend(), seq=seq, n_frames=n_frames,
+               ate_rmse_m=float(trajectory.ate_rmse(traj, gt)),
+               kitti_rel_trans_pct=float(rel_t), kitti_rel_rot_degpm=float(rel_r),
+               n_keyframes=len(gs.kf_shells), lost=bool(gs.is_lost), wall_s=round(wall, 1),
+               kf_frames=[s.id for s in gs.kf_shells], rot_orth_max=rot_orth_max(traj),
+               kitti_rel_rot_degpm_orthonormal=float(rel_r_svd))
+    if save:
+        np.savez(save, traj=np.stack(traj), gt=np.stack(gt))
+    print(out, flush=True)
+    return out
+
+
 if __name__ == "__main__":
     import sys
 
     a = sys.argv[1:]
     if a[0] == "playback":
         jax_playback_reference(a[1])
+    elif a[0] == "initializer":
+        jax_initializer_reference()
+    elif a[0] == "probe":
+        jax_probe(int(a[1]), *(int(x) for x in a[2:3]), *a[3:4])
     else:
         jax_graph_reference(int(a[0]), int(a[1]), float(a[2]), int(a[3]), int(a[4]),
                             *(int(x) for x in a[5:7]))

@@ -197,10 +197,20 @@ def test_port_imports_without_jax():
         "from stereo_dso_g2o_tpu_torch.models import undistort\n"
         "from stereo_dso_g2o_tpu_torch.runtime import native_loader\n"
         "from stereo_dso_g2o_tpu_torch import bench, graft_entry\n"
+        "from stereo_dso_g2o_tpu_torch.frontend import initializer\n"
+        "from stereo_dso_g2o_tpu_torch.utils import knn\n"
+        "from stereo_dso_g2o_tpu_torch.tools import (accuracy_probe, analyze_kf_decisions,\n"
+        "    bench_enlarged_window, profile_frame, profile_kf_stages, profile_refine_stages,\n"
+        "    profile_track_stages)\n"
         "assert sys.modules['jax'] is None\n"
         "import torch\n"
+        "from stereo_dso_g2o_tpu_torch.models.camera import make_calib\n"
+        "cal = make_calib(100.0, 100.0, 63.5, 31.5, 0.1, 128, 64, n_levels=3, device='cpu')\n"
         "torch.cuda.is_available = lambda: False\n"
-        "for call in (bench.main, graft_entry.entry, lambda: graft_entry.dryrun_multichip(1)):\n"
+        "tools = (accuracy_probe, bench_enlarged_window, profile_frame, profile_kf_stages,\n"
+        "         profile_refine_stages, profile_track_stages)\n"
+        "for call in (bench.main, graft_entry.entry, lambda: graft_entry.dryrun_multichip(1),\n"
+        "             lambda: initializer.MonoInitializer(cal), *(t.main for t in tools)):\n"
         "    try:\n"
         "        call()\n"
         "    except RuntimeError as e:\n"
