@@ -15,10 +15,10 @@ checkout (`git archive <commit> | tar -x -C _checkout/parent`), that
 checkout's own two wrappers, loaded from its own `ops/trace_cuda.py`, which
 builds its own sources into its own `_build/`. Every output is held to the
 working tree's resident kernel (best_idx, best_u/v, energies), then all are
-timed with CUDA events (chip_smoke.cuda_ms: device time), once in the listed
-order and once in reverse, the lower of the two kept, and set beside the
-bound `chip_smoke.bound_ms` gives the case. It prints a table and writes the
-report (default: kernel_steps.json beside the lanes file).
+timed with CUDA events (`tools/_common.cuda_ms`: device time), once in the
+listed order and once in reverse, the lower of the two kept, and set beside
+the bound `ops/trace_cuda.search_bound` gives the case. It prints a table
+and writes the report (default: kernel_steps.json beside the lanes file).
 """
 
 from __future__ import annotations
@@ -34,8 +34,9 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import bound_ms, cuda_ms, lane_stats  # noqa: E402
+from chip_smoke import lane_stats  # noqa: E402
 from stereo_dso_g2o_tpu_torch.ops import trace_cuda as tk  # noqa: E402
+from stereo_dso_g2o_tpu_torch.tools._common import cuda_ms  # noqa: E402
 
 
 def other_wrappers(root: Path):
@@ -91,7 +92,9 @@ def main() -> int:
     for case, (tensors, kw) in cases.items():
         c = {"scal": tensors[1], "S": kw["S"]}
         n_l, zero_share, mean_valid = lane_stats(c)
-        b_ms, b_by = bound_ms(tensors[0].shape[0], tensors[0].shape[1], c, kw["gn_iters"])
+        bd = tk.search_bound(tensors[0].shape[0], tensors[0].shape[1], c["scal"], c["S"],
+                             kw["gn_iters"])
+        b_ms, b_by = bd.ms, bd.by
         print(f"\n== {case}: N={n_l}, S={kw['S']}, {100 * zero_share:.1f} % of lanes without a "
               f"valid step, mean valid steps of the rest {mean_valid:.1f}; bound {b_ms:.5f} ms "
               f"by {b_by}")

@@ -49,7 +49,8 @@ pyramid's rule, so both kernels sample the same values.
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
 it runs its plain version (`epipolar_search_ref`,
 `epipolar_search_slab_ref`). `LAUNCHES` / `LAUNCHES_SLAB` count kernel
-launches.
+launches. `search_bound` is the least time the card could take for one
+search, which both kernels' times are set beside.
 """
 
 from __future__ import annotations
@@ -61,6 +62,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -85,6 +87,9 @@ MAX_STEPS = 48 * 1024 // (4 * WARPS)
 SLAB_WARPS = 4  # slab kernel
 BAND_CROSS = 16  # ... pixels staged across the line
 BAND_EXTRA = 20  # ... and along it, beyond S: pattern, bilinear, gradient, GN travel, alignment
+
+# published peaks of one H100 SXM: the roofline a search's bound is taken from
+HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12
 
 LAUNCHES = 0  # resident-kernel launches since the last reset_launches()
 LAUNCHES_SLAB = 0  # slab-kernel launches since the last reset_launches()
@@ -250,6 +255,39 @@ def epipolar_search(dI, scal, color, weights, patx, paty, *, S: int,
                   radius, edge, WARPS)
     LAUNCHES += 1
     return out
+
+
+class SearchBound(NamedTuple):
+    bytes: float  # each operand read once, the output written once
+    ops: float  # f32 operations these lanes need
+    ms: float  # the larger of the two over the card's peaks
+    by: str  # "bytes" or "operations": which of the two binds
+
+
+def search_bound(H: int, W: int, scal, S: int, gn_iters: int) -> SearchBound:
+    """The least time the card could take for one search of an (H, W)
+    image on the lanes `scal`, the same for both kernels (they compute one
+    function). Bytes, each once, over the memory rate: the five (N, 8)
+    operands, the (N, 8) output and the pixels of the intensity plane these
+    lanes need, which is what the search reads (the gradients Gauss-Newton
+    uses are differences of it). A lane needs the band under its valid
+    steps (not S): along the line its steps plus 7 pixels (the pattern's 5,
+    the bilinear neighbour, the gradient's step to each side less the
+    shared one), 8 across (the same); a lane without a valid step needs
+    only that 7 x 8 patch, for Gauss-Newton at step 0. Lanes overlap, so
+    the sum is capped at the plane. Against the operations over the f32
+    peak. Per (step, pixel): 2 adds for the position, a 4-tap bilinear (2
+    floors, 2 subs, 8 mul/add for the weights, 7 for the sum), residual and
+    Huber energy (9): 30; per GN iteration and pixel: three such samples
+    with differenced gradients and the step: 80."""
+    n = scal.shape[0]
+    steps = float(torch.ceil(torch.clamp(torch.nan_to_num(scal[:, 4], nan=0.0), 0, S)).sum())
+    pixels = min(H * W, 8 * (steps + 7 * n))
+    nbytes = 4 * (pixels + 5 * n * 8 + n * 8)
+    flops = 8 * (30 * steps + 80 * gn_iters * n)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return SearchBound(nbytes, flops, 1000.0 * max(t_bytes, t_ops),
+                       "bytes" if t_bytes >= t_ops else "operations")
 
 
 # ---------------------------------------------------------------------------

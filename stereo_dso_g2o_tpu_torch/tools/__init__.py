@@ -15,4 +15,11 @@ device-busy share and kernels per frame.
 - `bench_enlarged_window`: one BA iteration at F = 8 against F = 16.
 - `profile_frame`, `profile_track_stages`, `profile_kf_stages`,
   `profile_refine_stages`: where a frame's time goes.
+- `bench_tunnel`: what host<->device traffic and dispatch cost the host.
+- `bench_trace_kernel`: both kernels and both routes of `trace_batch` on a
+  fixed trace workload, Gauss-Newton off and on, beside the bound.
+- `kernel_gap_probe`: the search on a real state's live pool, standalone
+  and inside frames.
+- `roofline`: a frame's device time by kernel, the share in launch-sized
+  kernels, and the search's rate against the card's memory rate.
 """

@@ -31,7 +31,7 @@ KEYS = ("reps", "device")
 WID, HGT = 192, 96
 
 
-def build_enlarged_window(F=16, n_pts=8192, seed=11, device="cpu", settings=None):
+def build_enlarged_window(F=16, n_pts=8192, seed=11, *, device, settings=None):
     """F keyframes, n_pts points hosted across all frames, residuals to
     every other frame: (window, (F, H, W, 3) image stack)."""
     from stereo_dso_g2o_tpu_torch.backend import builder

@@ -20,7 +20,8 @@ from _torch_parity import fields
 
 from stereo_dso_g2o_tpu_torch import bridge
 from stereo_dso_g2o_tpu_torch.tools import (
-    accuracy_probe, analyze_kf_decisions, bench_enlarged_window, profile_frame,
+    accuracy_probe, analyze_kf_decisions, bench_enlarged_window, bench_trace_kernel, bench_tunnel,
+    kernel_gap_probe, profile_frame, roofline,
 )
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -96,7 +97,7 @@ def test_enlarged_window_is_built_as_the_jax_helper_builds_it():
     with jax.enable_x64(False):
         jwin, jdI = _build_enlarged_window(F=4, n_pts=256)
         want = fields(jwin)
-    twin, tdI = bench_enlarged_window.build_enlarged_window(F=4, n_pts=256)
+    twin, tdI = bench_enlarged_window.build_enlarged_window(F=4, n_pts=256, device="cpu")
     np.testing.assert_allclose(tdI.numpy(), np.array(jdI), atol=1e-4)
     got = {f: getattr(twin, f) for f in want}
     for f, w in want.items():
@@ -117,10 +118,14 @@ def test_bench_enlarged_window_keys():
     assert out["cost_ratio"] > 0
 
 
-@pytest.mark.parametrize("tool", ["accuracy_probe", "profile_frame", "bench_enlarged_window"])
+@pytest.mark.parametrize("tool", ["accuracy_probe", "profile_frame", "bench_enlarged_window",
+                                  "bench_tunnel", "bench_trace_kernel", "kernel_gap_probe",
+                                  "roofline"])
 def test_tools_raise_without_a_card_unless_asked_for_the_cpu(tool, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     mod = {"accuracy_probe": accuracy_probe, "profile_frame": profile_frame,
-           "bench_enlarged_window": bench_enlarged_window}[tool]
+           "bench_enlarged_window": bench_enlarged_window, "bench_tunnel": bench_tunnel,
+           "bench_trace_kernel": bench_trace_kernel, "kernel_gap_probe": kernel_gap_probe,
+           "roofline": roofline}[tool]
     with pytest.raises(RuntimeError, match='device="cpu"'):
         mod.main()
