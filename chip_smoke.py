@@ -46,10 +46,17 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
      through FullSystem and frozen, then BatchedRunner ("deferred") over
      frames 12-31 from stacked device tensors: no sequence lost, finite
      poses, every sequence's KF count and ATE inside the bounds recorded in
-     PERF.md, the resident kernel launched; ms per batched frame beside 4 x
-     the graph path's ms/frame of phase 7. Before it, two 8-frame runs from
-     the same freeze, "deferred" and "gated", must end in the same stacked
-     state bit for bit;
+     PERF.md, the resident kernel launched, and no batched frame without a
+     keyframe launching K1 more often than a single-sequence frame does (the
+     track half runs once for all sequences); ms per batched frame beside 4
+     x the graph path's ms/frame of phase 7, K1 launches and host reads per
+     batched frame. Before it, two 8-frame runs from the same freeze,
+     "deferred" and "gated", must end in the same stacked state bit for
+     bit; in "gated" every frame's poses are set beside the single-sequence
+     program's from the same pre-frame state (the largest difference is
+     printed), and the lanes of a batched frame without a keyframe go to K1
+     as one launch, held bit for bit to a launch per sequence and to the
+     plain version, all three timed;
   10. checkpoint: FullSystem over 16 frames, saved at frame 10, loaded and
      continued: trajectory and window equal the uninterrupted run's exactly;
   11. diagnostics: eigenvalue_record of phase 7's final window: finite, the
@@ -182,6 +189,9 @@ IDX_AGREE_MIN = 0.999
 PROFILE_FRAMES = 10
 UV_TOL_PX = 1e-3
 E_TOL_REL = 1e-4
+# the batched K1 against the plain version: the largest errors of the single
+# launches recorded in PERF.md §6
+BATCH_UV_TOL_PX, BATCH_E_TOL_REL = 6.1e-5, 3.9e-6
 
 
 def fail(msg):
@@ -243,7 +253,7 @@ def make_lanes(settings, dI_host, dI_tgt, n, stereo, dirx, seed):
                 edge=tk.EDGE_ZERO if stereo else tk.EDGE_CLAMP)
 
 
-def compare(out_k, out_p, name, exact=False):
+def compare(out_k, out_p, name, exact=False, uv_tol=UV_TOL_PX, e_tol=E_TOL_REL):
     """Hold `out_k` to `out_p` within the kernel-vs-plain tolerances; with
     `exact`, bit for bit (NaN equal to NaN)."""
     from stereo_dso_g2o_tpu_torch.ops import trace_cuda as tk
@@ -273,10 +283,10 @@ def compare(out_k, out_p, name, exact=False):
           f"max |d best_uv| {uv_err:.3g} px, max energy rel err {e_rel:.3g}")
     if frac < IDX_AGREE_MIN:
         fail(f"{name}: best_idx agreement {frac} < {IDX_AGREE_MIN}")
-    if uv_err > UV_TOL_PX:
-        fail(f"{name}: best_u/v error {uv_err} > {UV_TOL_PX} px")
-    if e_rel > E_TOL_REL:
-        fail(f"{name}: energy rel error {e_rel} > {E_TOL_REL}")
+    if uv_err > uv_tol:
+        fail(f"{name}: best_u/v error {uv_err} > {uv_tol} px")
+    if e_rel > e_tol:
+        fail(f"{name}: energy rel error {e_rel} > {e_tol}")
     return uv_err
 
 
@@ -363,14 +373,43 @@ def fields_equal(a, b):
                             & (getattr(b, f.name) != getattr(b, f.name)))).all())]
 
 
+def check_batched_k1(tensors, kw, tag):
+    """K1 on N sequences' lanes of one batched launch: one launch against a
+    launch per sequence (bit for bit) and against the plain version; all
+    three timed, beside the bound of the N searches. -> (max |d uv|,
+    (kernel ms, plain ms), (bound ms, by), ms of the N single launches)."""
+    from stereo_dso_g2o_tpu_torch.ops import trace_cuda as tk
+
+    n_seq = tensors[0].shape[0]
+    out = tk.epipolar_search(*tensors, **kw)
+    singles = [tk.epipolar_search(*(x[k] for x in tensors), **kw) for k in range(n_seq)]
+    plain = tk.epipolar_search_ref(*tensors, **kw)
+    torch.cuda.synchronize()
+    compare(out.reshape(-1, 8), torch.cat(singles), f"epipolar_search batched vs {n_seq} single "
+            f"launches, {tag}", exact=True)
+    err = compare(out.reshape(-1, 8), plain.reshape(-1, 8), f"epipolar_search batched vs plain, {tag}",
+                  uv_tol=BATCH_UV_TOL_PX, e_tol=BATCH_E_TOL_REL)
+    k_ms, p_ms, raw = time_pair(lambda: tk.epipolar_search(*tensors, **kw),
+                                lambda: tk.epipolar_search_ref(*tensors, **kw))
+    one_by_one = cuda_ms(lambda: [tk.epipolar_search(*(x[k] for x in tensors), **kw)
+                                  for k in range(n_seq)])
+    b = search_bound(tensors[0].shape[1], tensors[0].shape[2], tensors[1], kw["S"], kw["gn_iters"])
+    print(f"[kernel] epipolar_search {tag}: one launch {raw[0]:.4f}/{raw[1]:.4f} ms, {n_seq} single "
+          f"launches {one_by_one:.4f} ms, plain {raw[2]:.4f}/{raw[3]:.4f} ms (device time); bound "
+          f"{b.ms:.5f} ms by {b.by}, share {100 * b.ms / k_ms:.1f} %")
+    return err, (k_ms, p_ms), (b.ms, b.by), one_by_one
+
+
 def phase_batched(dev, settings, calib, K, poses_cw, seq0, graph_ms, launches):
     """Phase 9. `seq0`: sequence 0's rendered (lefts, rights); `graph_ms`:
-    (median, mean) ms/frame of the single-sequence graph path of this call."""
+    (median, mean) ms/frame of the single-sequence graph path of this call.
+    Returns (the stacked frames, K1 on a batched frame's lanes: max |d uv|
+    against the plain version, (ms, plain ms), (bound ms, by), its tag)."""
     from stereo_dso_g2o_tpu_torch.frontend import graph_system as tgs
     from stereo_dso_g2o_tpu_torch.frontend.full_system import FullSystem
     from stereo_dso_g2o_tpu_torch.io import synthetic, trajectory
     from stereo_dso_g2o_tpu_torch.ops import trace_cuda as tk
-    from stereo_dso_g2o_tpu_torch.parallel.batched import BatchedRunner
+    from stereo_dso_g2o_tpu_torch.parallel.batched import BatchedRunner, _tree_slice
 
     t0 = time.perf_counter()
     seqs = [(seq0[0][:BATCH_FRAMES], seq0[1][:BATCH_FRAMES])]
@@ -404,15 +443,45 @@ def phase_batched(dev, settings, calib, K, poses_cw, seq0, graph_ms, launches):
 
     # "deferred" against "gated" over a short tail, states only: the freeze
     # shares the bootstrap's host shells, so these two runs come before the
-    # one whose trajectories are read
-    short = {}
+    # one whose trajectories are read. In "gated", every frame's poses are
+    # also held to the single-sequence program from the same pre-frame
+    # state, and the lanes of a batched frame without a keyframe are kept
+    short, pose_dev, k1_calls, single_k1 = {}, [], None, []
+    expos = torch.ones(N_SEQ, device=dev)
     for mode in ("deferred", "gated"):
         r = runner_from_freeze(mode)
         for i in range(BOOT, BOOT + GATED_FRAMES):
-            r.add_frames((L_all[:, i], R_all[:, i]), i, timestamp=0.1 * i)
+            if mode == "deferred":
+                r.add_frames((L_all[:, i], R_all[:, i]), i, timestamp=0.1 * i)
+                continue
+            pre = r.states
+            with recorded_searches() as calls:
+                r.add_frames((L_all[:, i], R_all[:, i]), i, timestamp=0.1 * i)
+            if k1_calls is None and len(calls) == 3 and all(c[1][0].dim() == 4 for c in calls):
+                k1_calls = calls
+            T_b = r._pending_q[-1][0].T
+            for k in range(N_SEQ):
+                k0 = tk.LAUNCHES
+                _, b1, _ = tgs.frame_track(
+                    _tree_slice(pre, k), L_all[k, i], R_all[k, i], r.calib_cs[k],
+                    r.baselines[k], expos[k], n_tries=5, **r._common())
+                single_k1.append(tk.LAUNCHES - k0)
+                pose_dev.append(float((T_b[k] - b1.T).abs().max()))
         r.flush()
         short[mode] = r
     torch.cuda.synchronize()
+    print(f"[batched] {GATED_FRAMES} frames \"gated\": largest per-frame pose difference from the "
+          f"single-sequence program over {N_SEQ} sequences {max(pose_dev):.3g} (median "
+          f"{float(np.median(pose_dev)):.3g}); K1 launches of a single-sequence frame_track "
+          f"{sorted(set(single_k1))}")
+    if k1_calls is None:
+        fail("batched: no frame of the short run launched K1 once per search for all sequences")
+    k1_rows = []
+    for j, (_, tensors, kw) in enumerate(k1_calls):
+        edge = "stereo" if kw["edge"] == tk.EDGE_ZERO else "temporal"
+        k1_rows.append((check_batched_k1(tensors, kw, f"main path batched launch {j} ({edge}, "
+                                         f"{N_SEQ} x N={tensors[1].shape[1]})"), edge,
+                        tensors[1].shape[1]))
     differ = trees_equal(short["deferred"].states, short["gated"].states)
     kfs_short = [len(g.kf_shells) - len(fs.kf_shells) for g, fs in zip(short["gated"].systems, boots)]
     print(f"[batched] {GATED_FRAMES} frames, \"deferred\" against \"gated\": {differ} state leaves "
@@ -439,9 +508,16 @@ def phase_batched(dev, settings, calib, K, poses_cw, seq0, graph_ms, launches):
         return inner(states_pre, aux, expos, pots, need, common)
 
     runner._dispatch_kf_subset = counting
+    step_k1 = []  # (K1 launches of the step, a keyframe pipeline ran in it)
+
+    def batched_step(i):
+        k0, d0 = tk.LAUNCHES, len(dispatches)
+        runner.add_frames((L_all[:, i], R_all[:, i]), i, timestamp=0.1 * i)
+        step_k1.append((tk.LAUNCHES - k0, len(dispatches) > d0))
+
     frame_ms, _ = run_odometry(
-        lambda i: runner.add_frames((L_all[:, i], R_all[:, i]), i, timestamp=0.1 * i),
-        BOOT, BATCH_FRAMES, lambda: any(g.is_lost for g in runner.systems), "batched", 0)
+        batched_step, BOOT, BATCH_FRAMES, lambda: any(g.is_lost for g in runner.systems),
+        "batched", 0)
     trajs = runner.trajectories()
     torch.cuda.synchronize()
     launches["batched"] = (tk.LAUNCHES, tk.LAUNCHES_SLAB)
@@ -454,10 +530,18 @@ def phase_batched(dev, settings, calib, K, poses_cw, seq0, graph_ms, launches):
           f"{med:.1f} mean {mean:.1f} (frames {BOOT + 2}..{BATCH_FRAMES - 1}); {N_SEQ} x the "
           f"single-sequence graph path of this call: median {N_SEQ * graph_ms[0]:.1f} mean "
           f"{N_SEQ * graph_ms[1]:.1f}; ratio of the means {mean / (N_SEQ * graph_ms[1]):.3f}")
+    nonkf = [n for n, kf in step_k1 if not kf]
     print(f"[batched] keyframe dispatches by subset size {sorted(dispatches)}, kernel launches "
-          f"{launches['batched']} ({launches['batched'][0] / (N_SEQ * n_graph):.2f} a sequence "
-          f"frame), host reads {reads} ({reads / (N_SEQ * n_graph):.2f} a sequence frame), peak "
-          f"memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+          f"{launches['batched']} ({launches['batched'][0] / n_graph:.2f} a batched frame, "
+          f"{launches['batched'][0] / (N_SEQ * n_graph):.2f} a sequence frame; K1 in the "
+          f"{len(nonkf)} batched frames without a keyframe {sorted(set(nonkf))}), host reads "
+          f"{reads} ({reads / n_graph:.2f} a batched frame, {reads / (N_SEQ * n_graph):.2f} a "
+          f"sequence frame), peak memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    if not nonkf:
+        fail("batched: every batched frame ran a keyframe pipeline")
+    if max(nonkf) > min(single_k1):
+        fail(f"batched: a batched frame without a keyframe launched K1 {max(nonkf)} times, a "
+             f"single-sequence frame {min(single_k1)}: the track runs sequence by sequence")
     if launches["batched"][0] <= 0:
         fail("batched: the epipolar kernel was not launched")
     if launches["batched"][1] != 0:
@@ -480,7 +564,7 @@ def phase_batched(dev, settings, calib, K, poses_cw, seq0, graph_ms, launches):
             fail(f"batched: sequence {s}: KF count {len(kf_frames)} outside {jax_kf} +- 3")
         if not ate <= 2 * jax_ate + 0.01:
             fail(f"batched: sequence {s}: ATE {ate} > {2 * jax_ate + 0.01}")
-    return (L_all, R_all)
+    return (L_all, R_all), k1_rows
 
 
 def phase_checkpoint(dev, settings, calib, lefts, rights, launches):
@@ -1252,6 +1336,10 @@ def main() -> int:
         with recorded_searches() as calls:
             gs.add_frame(lefts[i], rights[i], i, timestamp=0.1 * i)
         if calls:  # 3 searches a frame, more on a keyframe
+            # the track half runs the one sequence as a batch of one: its
+            # lanes and image, as one sequence's
+            calls = [(nm, tuple(x[0] for x in ts) if ts[0].dim() == 4 else ts, kw)
+                     for nm, ts, kw in calls]
             captured.setdefault("keyframe" if len(calls) > 3 else "non-keyframe", calls)
 
     t_all = time.perf_counter()
@@ -1347,8 +1435,13 @@ def main() -> int:
 
     # ---- 9-12. the batched runner, checkpoint, diagnostics, sharded BA, multiseq ----
     steady_ms = [m for _, m in steady]
-    seqs_all = phase_batched(dev, settings, calib, K, poses_cw, (lefts, rights),
-                             (float(np.median(steady_ms)), float(np.mean(steady_ms))), launches)
+    seqs_all, k1_rows = phase_batched(dev, settings, calib, K, poses_cw, (lefts, rights),
+                                      (float(np.median(steady_ms)), float(np.mean(steady_ms))),
+                                      launches)
+    for (err, times, bound, _), edge, n_l in k1_rows:
+        key = ("epipolar_search", f"{W_}x{H_}", f"batched {N_SEQ} x {edge} N={n_l}")
+        timing[key], bounds[key] = times, bound
+        max_err["epipolar_search"] = max(max_err["epipolar_search"], err)
     phase_checkpoint(dev, settings, calib, lefts, rights, launches)
     phase_diagnostics(gs.state.win, settings)
     phase_dist_and_multiseq(dev, settings, calib, gs.state.win, gs.state.dI0_slots, seqs_all,

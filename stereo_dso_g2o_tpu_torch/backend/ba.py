@@ -37,7 +37,7 @@ from stereo_dso_g2o_tpu_torch.config import (
     default_settings,
 )
 from stereo_dso_g2o_tpu_torch.ops import residuals as R
-from stereo_dso_g2o_tpu_torch.utils import se3
+from stereo_dso_g2o_tpu_torch.utils import host, se3
 
 C_SCALE = np.asarray([SCALE_F, SCALE_F, SCALE_C, SCALE_C], dtype=np.float32)
 
@@ -582,7 +582,10 @@ def optimize_fused(win: W.Window, dI_stack, settings: Settings = default_setting
         win, e, conv, nr = ba_iteration(win, dI_stack, it, settings=settings, reduce=reduce)
         energy = e.to(torch.float32)
         nres = nr.to(torch.int32)
-        done = bool(conv) if reduce is None else not bool(reduce((~conv).to(torch.int32)))
+        if reduce is None:
+            done = host.flag(conv)
+        else:
+            done = not host.flag(reduce((~conv).to(torch.int32)))
         if (it + 1 >= settings.min_opt_iterations) and done:
             break
     return win, energy, nres
@@ -819,8 +822,10 @@ def drop_frame_refs(win: W.Window, slot: int):
 
 def marginalize_frames_masked(win: W.Window, flagged, settings: Settings = default_settings()):
     """All flagged-frame marginalizations (drop refs + Schur-eliminate), in
-    slot order. flagged: (F,) bool (numpy or tensor)."""
-    flagged = np.asarray(torch.as_tensor(flagged).cpu())
+    slot order. flagged: (F,) bool (numpy or tensor; a tensor is read)."""
+    if isinstance(flagged, torch.Tensor):
+        flagged = host.tolist(flagged)
+    flagged = np.asarray(flagged, dtype=bool)
     for s_ in range(win.F):
         if flagged[s_]:
             win = marginalize_frame(drop_frame_refs(win, s_), s_, settings=settings)

@@ -95,11 +95,11 @@ class Window:
 
     @property
     def F(self) -> int:
-        return self.frame_valid.shape[0]
+        return self.frame_valid.shape[-1]
 
     @property
     def NP(self) -> int:
-        return self.pt_status.shape[0]
+        return self.pt_status.shape[-1]
 
     @property
     def device(self):
@@ -108,19 +108,21 @@ class Window:
     def state_scale(self):
         return torch.as_tensor(STATE_SCALE, device=self.state.device)
 
+    # The four below also read a window stacked over sequences (every
+    # leaf with a leading axis N): (N, F, ...).
     def state_scaled(self):
-        return self.state * self.state_scale()[None, :]
+        return self.state * self.state_scale()
 
     def w2c(self):
         """PRE_worldToCam = exp(state_scaled[:6]) * evalPT."""
-        return se3.se3_exp(self.state_scaled()[:, :6]) @ self.evalPT
+        return se3.se3_exp(self.state_scaled()[..., :6]) @ self.evalPT
 
     def aff_g2l(self):
-        return self.state_scaled()[:, 6:8]
+        return self.state_scaled()[..., 6:8]
 
     def aff_g2l_0(self):
         """FEJ affine params."""
-        return self.state_zero[:, 6:8] * self.state_scale()[None, 6:8]
+        return self.state_zero[..., 6:8] * self.state_scale()[6:8]
 
 
 def empty_window(F: int, NP: int, c_value, device, dtype=torch.float32) -> Window:

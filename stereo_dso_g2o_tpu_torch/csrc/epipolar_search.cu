@@ -35,6 +35,11 @@
 //     image, so it was left out;
 //   - Gauss-Newton reads the three channels of the stack (12 loads a thread
 //     and iteration; it is a latency chain either way).
+//   - a batch of sequences is the grid's second dimension: block row n
+//     reads image n of an (n_seq, H, W, 3) stack and lanes n of
+//     (n_seq, N, 8) operands, so one launch serves every sequence of a
+//     batched frame (what vmap of the TPU kernel computes), and a batch of
+//     one is the single-image launch, bit for bit.
 // Nothing of the image is staged in shared memory: epipolar_search_slab.cu
 // is this kernel with a staged band, and it is slower on the same lanes
 // (L1/L2 already serve the reuse). Nothing is allocated, and the launch
@@ -113,20 +118,30 @@ struct GlobalTap {
 };
 
 // Dynamic shared memory: S floats (the per-step energies) for each warp.
+// blockIdx.y is the sequence: its image and its N lanes.
 __global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
 epipolar_search_kernel(const float* __restrict__ dI,
                        const float* __restrict__ scal,
                        const float* __restrict__ color,
                        const float* __restrict__ weights,
                        const float* __restrict__ patx,
-                       const float* __restrict__ paty, long long ps0,
-                       long long ps1, float* __restrict__ out, int H, int W,
-                       int N, int S, float huber_th, int gn_iters,
-                       float gn_threshold, int radius, int edge) {
+                       const float* __restrict__ paty, long long psn,
+                       long long ps0, long long ps1, float* __restrict__ out,
+                       int H, int W, int N, int S, float huber_th,
+                       int gn_iters, float gn_threshold, int radius, int edge) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5;
   const int i = blockIdx.x * (blockDim.x >> 5) + warp;
   if (i >= N) return;  // whole warps exit together; no block-wide barrier follows
+  const size_t n = blockIdx.y;
+  const size_t lanes = n * (size_t)N * 8;
+  dI += n * (size_t)H * W * 3;
+  scal += lanes;
+  color += lanes;
+  weights += lanes;
+  out += lanes;
+  patx += (long long)n * psn;
+  paty += (long long)n * psn;
   const Lane L = load_lane(scal, color, patx, paty, ps0, ps1, i, S);
   const GlobalTap g{dI, H, W};
   search_and_refine(g, L, weights, i, smem + warp * S, out, H, W, S, huber_th,
@@ -135,22 +150,26 @@ epipolar_search_kernel(const float* __restrict__ dI,
 
 }  // namespace
 
-// `patx`/`paty` are (N, 8) views with element strides (ps0, ps1); `warps`
-// is the number of lanes (warps) a block takes.
+// `n_seq` sequences, each an (H, W, 3) image of `dI` and N lanes of the
+// contiguous (n_seq, N, 8) `scal`, `color`, `weights` and `out`.
+// `patx`/`paty` are (n_seq, N, 8) views with element strides (psn, ps0,
+// ps1); `warps` is the number of lanes (warps) a block takes.
 extern "C" int sdso_epipolar_search(const float* dI, const float* scal,
                                     const float* color, const float* weights,
                                     const float* patx, const float* paty,
-                                    long long ps0, long long ps1, float* out,
-                                    int H, int W, int N, int S, float huber_th,
-                                    int gn_iters, float gn_threshold, int radius,
-                                    int edge, int warps, cudaStream_t stream) {
-  if (N <= 0) return 0;
+                                    long long psn, long long ps0, long long ps1,
+                                    float* out, int H, int W, int N, int S,
+                                    float huber_th, int gn_iters,
+                                    float gn_threshold, int radius, int edge,
+                                    int n_seq, int warps, cudaStream_t stream) {
+  if (N <= 0 || n_seq <= 0) return 0;
   if (warps < 1 || warps > kMaxWarpsPerBlock) return (int)cudaErrorInvalidValue;
+  if (n_seq > 65535) return (int)cudaErrorInvalidValue;
   const int smem_bytes = warps * S * (int)sizeof(float);
   if (S < 1 || smem_bytes > 48 * 1024) return (int)cudaErrorInvalidValue;
-  const int blocks = (N + warps - 1) / warps;
-  epipolar_search_kernel<<<blocks, warps * 32, smem_bytes, stream>>>(
-      dI, scal, color, weights, patx, paty, ps0, ps1, out, H, W, N, S, huber_th,
-      gn_iters, gn_threshold, radius, edge);
+  const dim3 grid((N + warps - 1) / warps, n_seq);
+  epipolar_search_kernel<<<grid, warps * 32, smem_bytes, stream>>>(
+      dI, scal, color, weights, patx, paty, psn, ps0, ps1, out, H, W, N, S,
+      huber_th, gn_iters, gn_threshold, radius, edge);
   return (int)cudaGetLastError();
 }

@@ -34,9 +34,9 @@ def level_caps(calib: Calib) -> List[int]:
 
 
 def k_levels(calib: Calib):
-    """Per-level (4,) (fx, fy, cx, cy) tensors."""
+    """Per-level (4,) (fx, fy, cx, cy) tensors ((N, 4) for N sequences)."""
     return [
-        torch.stack([calib.fx(l), calib.fy(l), calib.cx(l), calib.cy(l)])
+        torch.stack([calib.fx(l), calib.fy(l), calib.cx(l), calib.cy(l)], -1)
         for l in range(calib.n_levels)
     ]
 

@@ -3,7 +3,13 @@
 Port of `stereo_dso_g2o_tpu/frontend/frame_step.py`. The JAX package fuses
 each of these into one jitted program; here they are plain functions that
 launch torch ops (and the epipolar kernel) eagerly. Pose hypotheses are a
-leading batch dimension (the JAX `vmap`); `lax.cond` is a host branch.
+batch dimension (the JAX `vmap`); `lax.cond` is a host branch.
+
+The non-keyframe step (`frame_step_full`) runs N sequences at once, as the
+JAX package's batched frame program vmaps it: every operand leads with the
+sequence axis, the hypotheses of all sequences run as one (N, K) batch of
+rows, each sequence's winner is picked on the device, and one sequence is
+the batch of one.
 """
 
 from __future__ import annotations
@@ -21,6 +27,9 @@ from stereo_dso_g2o_tpu_torch.models.camera import calib_from_c
 from stereo_dso_g2o_tpu_torch.ops import trace as trace_ops
 from stereo_dso_g2o_tpu_torch.ops import tracker_ops
 from stereo_dso_g2o_tpu_torch.ops.pyramid import build_pyramid
+from stereo_dso_g2o_tpu_torch.utils import host
+from stereo_dso_g2o_tpu_torch.utils.smalls import matmul_fma
+from stereo_dso_g2o_tpu_torch.utils.tree import at_rows, first, lead_one
 
 
 class TrackOut(NamedTuple):
@@ -33,7 +42,8 @@ class TrackOut(NamedTuple):
 
 
 class CascadeCarry(NamedTuple):
-    """Running state of the per-level LM cascade for B hypotheses."""
+    """Running state of the per-level LM cascade for a batch of hypothesis
+    rows: (B,) for one sequence, (N, K) for K hypotheses of N sequences."""
 
     T: torch.Tensor  # (B,4,4)
     aff: torch.Tensor  # (B,2)
@@ -45,30 +55,27 @@ class CascadeCarry(NamedTuple):
     have_repeated: torch.Tensor  # (B,)
 
 
-def _take(nt, j: int):
-    """Select hypothesis j of a batched NamedTuple, keeping the batch dim."""
-    return type(nt)(*[x[j : j + 1] for x in nt])
-
-
 def _cascade_init(T_init, aff_init, n_levels: int) -> CascadeCarry:
-    B = T_init.shape[0]
+    """T_init (B, 4, 4) with aff_init (2,), or (N, K, 4, 4) with (N, 2)."""
+    rows = tuple(T_init.shape[:-2])
     dev = T_init.device
     return CascadeCarry(
         T=T_init.to(torch.float32),
-        aff=aff_init.to(torch.float32).expand(B, 2).clone(),
-        ok=torch.ones(B, dtype=torch.bool, device=dev),
-        residuals=torch.full((B, n_levels), float("nan"), device=dev),
-        flow=torch.tensor([100.0, 0.0, 100.0], device=dev).expand(B, 3).clone(),
-        sat0=torch.zeros(B, device=dev),
-        sat_last=torch.zeros(B, device=dev),
-        have_repeated=torch.zeros(B, dtype=torch.bool, device=dev),
+        aff=aff_init.to(torch.float32)[..., None, :].expand(rows + (2,)).clone(),
+        ok=torch.ones(rows, dtype=torch.bool, device=dev),
+        residuals=torch.full(rows + (n_levels,), float("nan"), device=dev),
+        flow=torch.tensor([100.0, 0.0, 100.0], device=dev).expand(rows + (3,)).clone(),
+        sat0=torch.zeros(rows, device=dev),
+        sat_last=torch.zeros(rows, device=dev),
+        have_repeated=torch.zeros(rows, dtype=torch.bool, device=dev),
     )
 
 
 def _cascade_levels(carry: CascadeCarry, ref, dI_new_pyr, Ks, levels, ref_aff,
                     ref_exposure, new_exposure, min_res_for_abort,
                     settings: Settings) -> CascadeCarry:
-    """Run the per-level LM cascade over `levels` (descending)."""
+    """Run the per-level LM cascade over `levels` (descending). For N
+    sequences every operand leads with N (`tracker_ops.lm_level`)."""
     T, aff, ok = carry.T, carry.aff, carry.ok
     residuals, flow = carry.residuals.clone(), carry.flow
     sat0, sat_last = carry.sat0, carry.sat_last
@@ -87,17 +94,17 @@ def _cascade_levels(carry: CascadeCarry, ref, dI_new_pyr, Ks, levels, ref_aff,
         if lvl <= 2:
             # coverage guard (fine levels only): a diverged hypothesis that
             # throws (nearly) all reference points out of view must not win
-            n_ref = torch.sum(pc_ok).to(torch.float32)
+            n_ref = torch.sum(pc_ok, dim=-1).to(torch.float32)[..., None]
             enough = (out.num_terms >= 10) & (out.num_terms >= 0.25 * n_ref)
             lvl_ok = lvl_ok & enough
         take = ok & lvl_ok
-        T = torch.where(take[:, None, None], out.T, T)
-        aff = torch.where(take[:, None], out.aff, aff)
-        residuals[:, lvl] = torch.where(ok, res, torch.full_like(res, float("nan")))
+        T = torch.where(take[..., None, None], out.T, T)
+        aff = torch.where(take[..., None], out.aff, aff)
+        residuals[..., lvl] = torch.where(ok, res, torch.full_like(res, float("nan")))
         sat_last = torch.where(ok, out.sat_frac, sat_last)
         if lvl == 0:
             f = torch.stack([out.flow_t, torch.zeros_like(out.flow_t), out.flow_rt], -1)
-            flow = torch.where(ok[:, None], f, flow)
+            flow = torch.where(ok[..., None], f, flow)
             sat0 = out.sat_frac
         ok = ok & lvl_ok
     return CascadeCarry(
@@ -110,8 +117,8 @@ def _cascade_finalize(carry: CascadeCarry, settings: Settings) -> TrackOut:
     """Affine sanity gates (trackNewestCoarse :1075-1095); batched TrackOut."""
     s = settings
     aff, ok = carry.aff, carry.ok
-    a_bad = (s.affine_opt_mode_a != 0) & (torch.abs(aff[:, 0]) > 1.2)
-    b_bad = (s.affine_opt_mode_b != 0) & (torch.abs(aff[:, 1]) > 200.0)
+    a_bad = (s.affine_opt_mode_a != 0) & (torch.abs(aff[..., 0]) > 1.2)
+    b_bad = (s.affine_opt_mode_b != 0) & (torch.abs(aff[..., 1]) > 200.0)
     return TrackOut(
         T=carry.T, aff=aff, residuals=carry.residuals, flow=carry.flow,
         ok=ok & ~a_bad & ~b_bad, sat_frac0=carry.sat0,
@@ -122,10 +129,15 @@ def _squeeze(t: TrackOut) -> TrackOut:
     return TrackOut(*[x[0] for x in t])
 
 
+def _squeeze_rows(t: TrackOut) -> TrackOut:
+    """N sequences' one-row TrackOut (N, 1, ...) as (N, ...)."""
+    return TrackOut(*[x[:, 0] for x in t])
+
+
 def track_cascade(ref, dI_new_pyr, calib, T_init, aff_init, ref_aff, ref_exposure,
                   new_exposure, min_res_for_abort, settings: Settings) -> TrackOut:
-    """trackNewestCoarse for a batch of B hypotheses T_init (B,4,4); returns
-    a batched TrackOut."""
+    """trackNewestCoarse for a batch of B hypotheses T_init (B,4,4) (or
+    (N, K, 4, 4) for N sequences); returns a batched TrackOut."""
     n_levels = calib.n_levels
     carry = _cascade_init(T_init, aff_init, n_levels)
     carry = _cascade_levels(
@@ -154,35 +166,45 @@ def _pyramids(left, right, n_levels):
     return dIpL, dIpR
 
 
+def _at_slot(x, slot):
+    """x[slot] of one sequence's per-slot array; x[n, slot[n]] of N
+    sequences' (slot (N,), a device gather)."""
+    if isinstance(slot, torch.Tensor) and slot.dim() == 1:
+        return at_rows(x, slot.long())
+    return x[slot]
+
+
 def _host_transforms(win, T_new, calib):
     """Per host slot: KRKi, Kt, R, t (host -> new frame) and the affine
-    transfer inputs."""
+    transfer inputs (with a leading N for N sequences)."""
     w2c = win.w2c()
     K = calib.K(0)
     Ki = calib.Ki(0)
-    T_hn = torch.einsum("ij,fjk->fik", T_new, torch.linalg.inv(w2c))
-    R_hn = T_hn[:, :3, :3]
-    t_hn = T_hn[:, :3, 3]
-    KRKi = torch.einsum("ij,fjk,kl->fil", K, R_hn, Ki)
-    Kt = torch.einsum("ij,fj->fi", K, t_hn)
+    T_hn = torch.einsum("...ij,...fjk->...fik", T_new, torch.linalg.inv(w2c))
+    R_hn = T_hn[..., :3, :3]
+    t_hn = T_hn[..., :3, 3]
+    KRKi = torch.einsum("...ij,...fjk,...kl->...fil", K, R_hn, Ki)
+    Kt = torch.einsum("...ij,...fj->...fi", K, t_hn)
     return K, KRKi, Kt, R_hn, t_hn
 
 
 def _aff_host_to_new(win, aff_new, new_exposure):
     aff_host = win.aff_g2l()
     a_rel = (
-        torch.exp(aff_new[0] - aff_host[:, 0]) * new_exposure
+        torch.exp(aff_new[..., 0, None] - aff_host[..., 0])
+        * torch.as_tensor(new_exposure)[..., None]
         / torch.clamp(win.ab_exposure, min=1e-9)
     )
-    b_rel = aff_new[1] - a_rel * aff_host[:, 1]
+    b_rel = aff_new[..., 1, None] - a_rel * aff_host[..., 1]
     return torch.stack([a_rel, b_rel], dim=-1)
 
 
 def _nonkey_refine(win, imm, dI_left0, dI_right0, calib, T_ref_new, aff_new,
-                   new_exposure, ref_slot: int, baseline, settings):
+                   new_exposure, ref_slot, baseline, settings):
     """makeNonKeyFrame's depth refinement: per-host transforms to the new
-    frame from window state + the tracked relative pose."""
-    T_new = T_ref_new @ win.w2c()[ref_slot]
+    frame from window state + the tracked relative pose (one sequence, or N
+    with per-sequence (N,) slots)."""
+    T_new = matmul_fma(T_ref_new, _at_slot(win.w2c(), ref_slot))
     K, KRKi, Kt, R_hn, t_hn = _host_transforms(win, T_new, calib)
     aff_ht = _aff_host_to_new(win, aff_new, new_exposure)
     return IMM.trace_on_nonkey(
@@ -282,41 +304,59 @@ def cascade_batch(dIpL, ref, calib_c, baseline, T_inits, aff_init, ref_aff,
     )
 
 
+def _pick(nt, j):
+    """Row j[n] of sequence n of an (N, K, ...) NamedTuple: (N, ...)."""
+    return type(nt)(*[at_rows(x, j) for x in nt])
+
+
 def _sequential_select(tb: TrackOut, last_rmse0, settings: Settings, n_tries: int) -> TrackOut:
     """The reference's hypothesis selection replayed over a pre-computed
-    batch: ladder order, strict improvement, stop at the accept gate."""
-    res_all = tb.residuals[:, 0].cpu()
-    ok_all = (tb.ok & torch.isfinite(tb.residuals[:, 0])).cpu()
-    thr = float(last_rmse0) * settings.re_track_threshold
-    achieved = float("inf")
-    best_k = -1
-    stopped = False
+    batch (N sequences' (N, K) rows, on the device): ladder order, strict
+    improvement, stop at the accept gate."""
+    res_all = tb.residuals[..., 0]
+    ok_all = tb.ok & torch.isfinite(res_all)
+    thr = last_rmse0 * settings.re_track_threshold
+    achieved = torch.full_like(thr, float("inf"))
+    best_k = torch.full(thr.shape, -1, dtype=torch.int64, device=thr.device)
+    stopped = torch.zeros(thr.shape, dtype=torch.bool, device=thr.device)
     for k in range(n_tries):
-        if (not stopped) and bool(ok_all[k]) and float(res_all[k]) < achieved:
-            best_k = k
-            achieved = float(res_all[k])
-        stopped = stopped or (best_k >= 0 and achieved < thr)
-    sel = _squeeze(_take(tb, max(best_k, 0)))
-    return sel._replace(ok=torch.tensor(best_k >= 0, device=tb.ok.device))
+        take = ~stopped & ok_all[:, k] & (res_all[:, k] < achieved)
+        best_k = torch.where(take, torch.full_like(best_k, k), best_k)
+        achieved = torch.where(take, res_all[:, k], achieved)
+        stopped = stopped | ((best_k >= 0) & (achieved < thr))
+    sel = _pick(tb, torch.clamp(best_k, min=0))
+    return sel._replace(ok=best_k >= 0)
 
 
 def _best_of(res_all, ok_all, good0):
-    """Best-of with try-0 preference: index of the winner (host int)."""
-    best0 = res_all[0] if bool(good0) else float("inf")
-    cand = torch.where(ok_all, res_all, torch.full_like(res_all, float("inf")))
-    cand[0] = float("inf")
-    jbest = int(torch.argmin(cand))
-    return jbest if float(cand[jbest]) < best0 else 0
+    """Best-of with try-0 preference over one sequence's K hypotheses: the
+    winner's index as a () device tensor (no host read). Try 0 wins unless
+    another ok hypothesis has a strictly lower residual; ties go to the
+    lowest index."""
+    inf = torch.full_like(res_all, float("inf"))
+    best0 = torch.where(good0, res_all[0], inf[0])
+    cand = torch.cat([inf[:1], torch.where(ok_all, res_all, inf)[1:]])
+    jbest = torch.argmin(cand)
+    return torch.where(cand[jbest] < best0, jbest, torch.zeros_like(jbest))
+
+
+def _winners(res_all, ok_all, good0):
+    """(N,) winners of N sequences' (N, K) hypotheses: `_best_of` on each
+    sequence's row, so that every sequence's selection is its own call."""
+    return torch.stack([
+        torch.as_tensor(_best_of(res_all[n], ok_all[n], good0[n]), device=res_all.device)
+        for n in range(res_all.shape[0])
+    ])
 
 
 def _best_select(tb: TrackOut, settings: Settings) -> TrackOut:
-    """Best-of-residual selection with try-0 preference."""
-    res_all = tb.residuals[:, 0].cpu()
-    ok_all = (tb.ok & torch.isfinite(tb.residuals[:, 0])).cpu()
-    good0 = ok_all[0] & (tb.sat_frac0[0].cpu() <= 0.6)
-    k = _best_of(res_all, ok_all, good0)
-    track = _squeeze(_take(tb, k))
-    return track._replace(ok=(good0 if k == 0 else ok_all[k]).to(tb.ok.device))
+    """Best-of-residual selection with try-0 preference, per sequence."""
+    res_all = tb.residuals[..., 0]
+    ok_all = tb.ok & torch.isfinite(res_all)
+    good0 = ok_all[:, 0] & (tb.sat_frac0[:, 0] <= 0.6)
+    k = _winners(res_all, ok_all, good0)
+    track = _pick(tb, k)
+    return track._replace(ok=torch.where(k == 0, good0, at_rows(ok_all, k)))
 
 
 def _select(tb: TrackOut, last_rmse0, settings: Settings, n_tries: int) -> TrackOut:
@@ -326,27 +366,46 @@ def _select(tb: TrackOut, last_rmse0, settings: Settings, n_tries: int) -> Track
 
 
 def _coarse_select(cb: CascadeCarry, k: int) -> CascadeCarry:
-    """Winner over a batch of coarse cascade carries keyed on the level-k
-    residual (best-of with try-0 preference); returns a B=1 carry."""
-    res_all = cb.residuals[:, k].cpu()
-    ok_all = (cb.ok & torch.isfinite(cb.residuals[:, k])).cpu()
-    good0 = ok_all[0] & (cb.sat_last[0].cpu() <= 0.6)
-    j = _best_of(res_all, ok_all, good0)
-    sel = _take(cb, j)
-    ok = (good0 if j == 0 else ok_all[j]).to(cb.ok.device).reshape(1)
-    return sel._replace(ok=ok)
+    """Winner over N sequences' coarse cascade carries (N, K) keyed on the
+    level-k residual (best-of with try-0 preference), on the device;
+    returns the winners' (N, 1) carry."""
+    res_all = cb.residuals[..., k]
+    ok_all = cb.ok & torch.isfinite(res_all)
+    good0 = ok_all[:, 0] & (cb.sat_last[:, 0] <= 0.6)
+    j = _winners(res_all, ok_all, good0)
+    sel = CascadeCarry(*[at_rows(x, j)[:, None] for x in cb])
+    return sel._replace(ok=torch.where(j == 0, good0, at_rows(ok_all, j))[:, None])
 
 
-def frame_step_full(left, right, ref, win, imm, calib_c, baseline, ref_slot: int,
+def frame_step_full(left, right, ref, win, imm, calib_c, baseline, ref_slot,
                     T_tries, aff_init, ref_aff, ref_exposure, new_exposure, last_rmse0,
                     settings: Settings = default_settings(), n_levels: int = 6,
                     n_tries: int = 5):
     """The complete non-keyframe step including the retry ladder:
     pyramids -> hypotheses -> selection -> speculative depth refinement at
-    the selected pose. Returns ((dIpL, dIpR), imm', TrackOut, used_ladder)."""
-    calib = calib_from_c(calib_c, baseline, left.shape[1], left.shape[0], n_levels)
-    dIpL, dIpR = _pyramids(left, right, n_levels)
+    the selected pose. Returns ((dIpL, dIpR), imm', TrackOut, used_ladder).
+
+    For N sequences (the JAX package's vmap): images (N, H, W), `ref`,
+    `win` and `imm` stacked over N, calib_c (N, 4), baseline (N,),
+    ref_slot (N,), T_tries (N, K, 4, 4), aff_init and ref_aff (N, 2),
+    exposures and last_rmse0 (N,); every output leads with N. One sequence
+    (images (H, W)) runs as the batch of one."""
+    if left.dim() == 2:
+        dev = left.device
+        (dIpL, dIpR), imm_out, track, used = frame_step_full(
+            left[None], right[None], lead_one(tuple(ref)), lead_one(win), lead_one(imm),
+            calib_c[None], torch.as_tensor(baseline, device=dev)[None],
+            torch.as_tensor(ref_slot, device=dev)[None], T_tries[None], aff_init[None],
+            ref_aff[None], torch.as_tensor(ref_exposure, device=dev)[None],
+            torch.as_tensor(new_exposure, device=dev)[None],
+            torch.as_tensor(last_rmse0, device=dev)[None],
+            settings=settings, n_levels=n_levels, n_tries=n_tries,
+        )
+        return first((dIpL, dIpR)), first(imm_out), first(track), used[0]
+    N, H, Wd = left.shape
     dev = left.device
+    calib = calib_from_c(calib_c, baseline, Wd, H, n_levels)
+    dIpL, dIpR = _pyramids(left, right, n_levels)
     abort_inf = torch.full((n_levels,), float("inf"), device=dev)
     Ks = k_levels(calib)
 
@@ -372,21 +431,23 @@ def frame_step_full(left, right, ref, win, imm, calib_c, baseline, ref_slot: int
                 sel, ref, dIpL, Ks, range(kf_ - 1, -1, -1), ref_aff,
                 ref_exposure, new_exposure, abort_inf, settings,
             )
-            track = _squeeze(_cascade_finalize(fine, settings))
+            track = _squeeze_rows(_cascade_finalize(fine, settings))
         else:
             track = _select(tries(T_tries), last_rmse0, settings, n_tries)
-        need_ladder = True
+        need_ladder = torch.ones(N, dtype=torch.bool, device=dev)
     else:
-        t0 = _squeeze(tries(T_tries[:1]))
-        res0 = float(t0.residuals[0])
-        good0 = bool(t0.ok) and res0 == res0 and abs(res0) != float("inf") and float(t0.sat_frac0) <= 0.6
-        need_ladder = not (good0 and res0 < float(last_rmse0) * settings.re_track_threshold)
-        if need_ladder:
-            tb = tries(T_tries[1:])
-            full = TrackOut(*[torch.cat([a[None], b], 0) for a, b in zip(t0, tb)])
-            track = _select(full, last_rmse0, settings, n_tries)
-        else:
-            track = t0
+        # try 0 alone; the other hypotheses (the JAX lax.cond, which vmap
+        # turns into a select) run when some sequence needs them
+        t0 = _squeeze_rows(tries(T_tries[:, :1]))
+        res0 = t0.residuals[..., 0]
+        good0 = t0.ok & torch.isfinite(res0) & (t0.sat_frac0 <= 0.6)
+        need_ladder = ~(good0 & (res0 < last_rmse0 * settings.re_track_threshold))
+        track = t0
+        if host.flag(need_ladder.any()):
+            tb = tries(T_tries[:, 1:])
+            full = TrackOut(*[torch.cat([a[:, None], b], 1) for a, b in zip(t0, tb)])
+            sel = _select(full, last_rmse0, settings, n_tries)
+            track = TrackOut(*[tracker_ops._bsel(need_ladder, a, b) for a, b in zip(sel, t0)])
 
     imm_out = _nonkey_refine(
         win, imm, dIpL[0], dIpR[0], calib, track.T, track.aff,

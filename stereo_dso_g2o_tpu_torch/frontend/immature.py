@@ -5,6 +5,11 @@ lifecycle: makeNewTraces, traceNewCoarseKey, traceNewCoarseNonKey,
 activatePointsMT + optimizeImmaturePoint). Immature points live in a
 fixed-capacity [F, CAP] structure of arrays per keyframe slot; traces run
 on a compacted pool of live rows (`settings.trace_cap` lanes).
+
+The non-keyframe refinement (`trace_on_nonkey` with `_compact_live` and
+`_scatter_trace`) also runs N sequences at once, as the JAX package's
+batched frame program vmaps it: the sets stacked over N ((N, F, CAP)), the
+pools and compactions per sequence row, every size the same for all rows.
 """
 
 from __future__ import annotations
@@ -19,8 +24,10 @@ from stereo_dso_g2o_tpu_torch.config import PATTERN, Settings, default_settings
 from stereo_dso_g2o_tpu_torch.ops import distance_map as DM
 from stereo_dso_g2o_tpu_torch.ops import trace as trace_ops
 from stereo_dso_g2o_tpu_torch.ops.residuals import _bilinear3_frames
+from stereo_dso_g2o_tpu_torch.utils import host
 from stereo_dso_g2o_tpu_torch.utils.fixed import nonzero_fixed, scatter_drop
 from stereo_dso_g2o_tpu_torch.utils.timing import PROF
+from stereo_dso_g2o_tpu_torch.utils.tree import at_rows
 
 
 @dataclasses.dataclass
@@ -104,20 +111,27 @@ def clear_slot(imm: ImmatureSet, slot: int) -> ImmatureSet:
     return imm.replace(valid=_set_slot(imm.valid, slot, False))
 
 
+def _rows(x, idx, batched: bool):
+    """x[idx] along the lane axis: of one sequence, or of each of N."""
+    return at_rows(x, idx) if batched else x[idx]
+
+
 def _compact_live(imm: ImmatureSet, host_valid, settings: Settings):
     """Gather live immature rows into a fixed (trace_cap,) pool. Returns
     (fields dict incl. `host` and `sel_ok`, scatter index (NC,), -1 for
-    unused lanes)."""
-    F, C = imm.u.shape
+    unused lanes). A set stacked over N sequences gives (N, NC) pools."""
+    lead = tuple(imm.u.shape[:-2])
+    F, C = imm.u.shape[-2:]
     NFULL = F * C
     NC = min(NFULL, settings.trace_cap)
-    live = (imm.valid & host_valid[:, None]).reshape(-1)
-    idx = nonzero_fixed(live, NC)
+    live = (imm.valid & host_valid[..., None]).reshape(lead + (NFULL,))
+    idx = nonzero_fixed(live, NC, batched=bool(lead))
     sel_ok = idx >= 0
     safe = torch.clamp(idx, min=0)
 
     def g(x):
-        return x.reshape((NFULL,) + tuple(x.shape[2:]))[safe]
+        flat = x.reshape(lead + (NFULL,) + tuple(x.shape[len(lead) + 2:]))
+        return _rows(flat, safe, bool(lead))
 
     fields = dict(
         u=g(imm.u),
@@ -139,13 +153,14 @@ def _compact_live(imm: ImmatureSet, host_valid, settings: Settings):
 
 def _scatter_trace(imm: ImmatureSet, idx, traced: trace_ops.TraceResult) -> ImmatureSet:
     """Scatter compact-pool trace results back into the (F, C) arrays
-    (unused lanes drop)."""
-    F, C = imm.u.shape
+    (unused lanes drop); per sequence row for (N, F, C) sets."""
+    lead = tuple(imm.u.shape[:-2])
+    F, C = imm.u.shape[-2:]
     NFULL = F * C
 
     def put(full, vals):
-        flat = full.reshape((NFULL,) + tuple(full.shape[2:]))
-        return scatter_drop(flat, idx, vals).reshape(full.shape)
+        flat = full.reshape(lead + (NFULL,) + tuple(full.shape[len(lead) + 2:]))
+        return scatter_drop(flat, idx, vals, batched=bool(lead)).reshape(full.shape)
 
     return imm.replace(
         idepth_min=put(imm.idepth_min, traced.idepth_min),
@@ -354,47 +369,60 @@ def trace_on_nonkey(imm: ImmatureSet, KRKi, Kt, R_new, t_new, aff, dI_new, dI_ri
     to trace_cap//2), and reprojection of the refined interval back into
     the host. Keeps the reference's acceptance quirk: reject only when
     u_delta > 1 AND disparity < 10. Its six steps are `refine.*` sections
-    of the profiler (tools/profile_refine_stages)."""
+    of the profiler (tools/profile_refine_stages).
+
+    For N sequences: imm stacked (N, F, C), KRKi (N, F, 3, 3), Kt, R_new,
+    t_new and aff per sequence and host, images (N, H, W, 3), K (N, 3, 3),
+    baseline and host_valid per sequence; every step runs once for all of
+    them (three K1 launches in all)."""
     dev = imm.u.device
+    batched = dI_new.dim() == 4
+    lead = tuple(imm.u.shape[:-2])
     with PROF.section("refine.compact", True):
         flat, sel = _compact_live(imm, host_valid, settings)
-        host = flat["host"]
+        host_of = flat["host"]
+
+    def rows(x, idx):
+        return _rows(x, idx, batched)
 
     with PROF.section("refine.temporal_trace", True):
         traced = trace_ops.trace_batch(
             flat["u"], flat["v"], flat["idepth_min"], flat["idepth_max"],
             flat["color"], flat["weights"], flat["gradH"], flat["energy_th"],
-            flat["quality"], flat["status"], KRKi[host], Kt[host], aff[host], dI_new,
-            settings=settings,
+            flat["quality"], flat["status"], rows(KRKi, host_of), rows(Kt, host_of),
+            rows(aff, host_of), dI_new, settings=settings,
         )
 
     with PROF.section("refine.project_extract_new", True):
         good = flat["sel_ok"] & (traced.status == trace_ops.IPS_GOOD)
-        Hd, Wd = dI_new.shape[:2]
-        n = flat["u"].shape[0]
+        Hd, Wd = dI_new.shape[-3:-1]
+        n = flat["u"].shape[-1]
 
         NS = max(min(n, settings.trace_cap // 2), 1)
-        gidx = nonzero_fixed(good, NS)
+        gidx = nonzero_fixed(good, NS, batched=batched)
         g_ok = gidx >= 0
         gs_ = torch.clamp(gidx, min=0)
-
-        u2 = torch.clamp(traced.last_uv[gs_, 0], 8.0, Wd - 9.0)
-        v2 = torch.clamp(traced.last_uv[gs_, 1], 8.0, Hd - 9.0)
+        u2 = torch.clamp(rows(traced.last_uv[..., 0], gs_), 8.0, Wd - 9.0)
+        v2 = torch.clamp(rows(traced.last_uv[..., 1], gs_), 8.0, Hd - 9.0)
 
         ones = torch.ones_like(u2)
-        P = torch.stack([flat["u"][gs_], flat["v"][gs_], ones], -1)
-        KRKi_pt = KRKi[host[gs_]]
-        Kt_pt = Kt[host[gs_]]
-        ptp_min = torch.einsum("nij,nj->ni", KRKi_pt, P / traced.idepth_min[gs_, None]) + Kt_pt
-        id_min_proj = 1.0 / ptp_min[:, 2]
-        ptp_max = torch.einsum("nij,nj->ni", KRKi_pt, P / traced.idepth_max[gs_, None]) + Kt_pt
-        id_max_proj = 1.0 / ptp_max[:, 2]
+        P = torch.stack([rows(flat["u"], gs_), rows(flat["v"], gs_), ones], -1)
+        host_g = rows(host_of, gs_)
+        KRKi_pt = rows(KRKi, host_g)
+        Kt_pt = rows(Kt, host_g)
+        ptp_min = torch.einsum(
+            "...nij,...nj->...ni", KRKi_pt, P / rows(traced.idepth_min, gs_)[..., None]) + Kt_pt
+        id_min_proj = 1.0 / ptp_min[..., 2]
+        ptp_max = torch.einsum(
+            "...nij,...nj->...ni", KRKi_pt, P / rows(traced.idepth_max, gs_)[..., None]) + Kt_pt
+        id_max_proj = 1.0 / ptp_max[..., 2]
 
         color2, weights2, gradH2, eth2 = trace_ops.extract_point_data(dI_new, u2, v2, settings)
-        fresh_q = torch.full((NS,), 10000.0, device=dev)
+        fresh_q = torch.full(lead + (NS,), 10000.0, device=dev)
         fresh_st = torch.where(
-            g_ok, torch.full((NS,), trace_ops.IPS_UNINITIALIZED, dtype=torch.int32, device=dev),
-            torch.full((NS,), trace_ops.IPS_OOB, dtype=torch.int32, device=dev),
+            g_ok,
+            torch.full(lead + (NS,), trace_ops.IPS_UNINITIALIZED, dtype=torch.int32, device=dev),
+            torch.full(lead + (NS,), trace_ops.IPS_OOB, dtype=torch.int32, device=dev),
         )
 
     with PROF.section("refine.stereo_lr", True):
@@ -405,8 +433,8 @@ def trace_on_nonkey(imm: ImmatureSet, KRKi, Kt, R_new, t_new, aff, dI_new, dI_ri
         stereo_good = res_lr.status == trace_ops.IPS_GOOD
 
     with PROF.section("refine.extract_stereo_rl", True):
-        u3 = torch.clamp(res_lr.last_uv[:, 0], 8.0, Wd - 9.0)
-        v3 = torch.clamp(res_lr.last_uv[:, 1], 8.0, Hd - 9.0)
+        u3 = torch.clamp(res_lr.last_uv[..., 0], 8.0, Wd - 9.0)
+        v3 = torch.clamp(res_lr.last_uv[..., 1], 8.0, Hd - 9.0)
         color3, weights3, gradH3, eth3 = trace_ops.extract_point_data(dI_right, u3, v3, settings)
         res_rl, _ = trace_ops.trace_stereo(
             u3, v3, id_min_proj, id_max_proj, color3, weights3, gradH3, eth3,
@@ -414,32 +442,32 @@ def trace_on_nonkey(imm: ImmatureSet, KRKi, Kt, R_new, t_new, aff, dI_new, dI_ri
         )
 
     with PROF.section("refine.reproject_scatter", True):
-        u_delta = torch.abs(u2 - res_rl.last_uv[:, 0])
-        disparity = u2 - res_lr.last_uv[:, 0]
+        u_delta = torch.abs(u2 - res_rl.last_uv[..., 0])
+        disparity = u2 - res_lr.last_uv[..., 0]
         reject = stereo_good & (u_delta > 1.0) & (disparity < 10.0)
         accept = stereo_good & ~reject
 
         Ki = torch.linalg.inv(K)
         P2 = torch.stack([u2, v2, torch.ones_like(u2)], -1)
-        KiP2 = torch.einsum("ij,nj->ni", Ki, P2)
-        KRi = torch.einsum("ij,fkj->fik", K, R_new)  # K @ R^T per host
-        KRi_pt = KRi[host[gs_]]
-        t_pt = t_new[host[gs_]]
+        KiP2 = torch.einsum("...ij,...nj->...ni", Ki, P2)
+        KRi = torch.einsum("...ij,...fkj->...fik", K, R_new)  # K @ R^T per host
+        KRi_pt = rows(KRi, host_g)
+        t_pt = rows(t_new, host_g)
 
         def backproj(id_stereo):
-            pinv = torch.einsum("nij,nj->ni", KRi_pt, KiP2 / id_stereo[:, None] - t_pt)
-            return 1.0 / pinv[:, 2]
+            pinv = torch.einsum("...nij,...nj->...ni", KRi_pt, KiP2 / id_stereo[..., None] - t_pt)
+            return 1.0 / pinv[..., 2]
 
         id_min_new = backproj(res_lr.idepth_min)
         id_max_new = backproj(res_lr.idepth_max)
 
         dst = torch.where(g_ok, gidx, torch.full_like(gidx, n))
-        zb = torch.zeros((n,), dtype=torch.bool, device=dev)
-        zf = torch.zeros((n,), dtype=id_min_new.dtype, device=dev)
-        upd_n = scatter_drop(zb, dst, accept & g_ok)
-        rej_n = scatter_drop(zb, dst, reject & g_ok)
-        idmin_n = scatter_drop(zf, dst, id_min_new)
-        idmax_n = scatter_drop(zf, dst, id_max_new)
+        zb = torch.zeros(lead + (n,), dtype=torch.bool, device=dev)
+        zf = torch.zeros(lead + (n,), dtype=id_min_new.dtype, device=dev)
+        upd_n = scatter_drop(zb, dst, accept & g_ok, batched=batched)
+        rej_n = scatter_drop(zb, dst, reject & g_ok, batched=batched)
+        idmin_n = scatter_drop(zf, dst, id_min_new, batched=batched)
+        idmax_n = scatter_drop(zf, dst, id_max_new, batched=batched)
 
         refined = traced._replace(
             idepth_min=torch.where(upd_n, idmin_n, traced.idepth_min),
@@ -461,7 +489,7 @@ def insert_activated(win, imm: ImmatureSet, act: ActivationResult,
     free = nonzero_fixed(win.pt_status == W.PT_INACTIVE, max_insert)
     ok = (src >= 0) & (free >= 0)
     src_safe = torch.clamp(src, min=0)
-    n_ok = int(ok.sum())
+    n_ok = int(host.item(ok.sum()))
     # Reference quirk, reproduced: the JAX package parks the unused lanes
     # at point slot 0 and writes slot 0's old values back; its scatter lets
     # the last write win, so an insertion into a free slot 0 is lost
@@ -469,7 +497,7 @@ def insert_activated(win, imm: ImmatureSet, act: ActivationResult,
     write = ok & ~((free == 0) & (n_ok < max_insert))
     dst = free[write]
     s = src_safe[write]
-    k = int(write.sum())
+    k = int(host.item(write.sum()))
 
     def put(arr, vals):
         out = arr.clone()

@@ -3,6 +3,8 @@
 Port of `stereo_dso_g2o_tpu/models/camera.py`. fx/fy/cx/cy live as a (4,)
 value tensor (optimizable in windowed BA), per-level values follow
 globalCalib.cpp:90-99:  fx_l = fx_0 * 0.5^l ; cx_l = (cx_0 + 0.5) / 2^l - 0.5.
+A Calib of N sequences that share the image size holds (N, 4) intrinsics
+and (N,) baselines; its per-level values and matrices lead with N.
 """
 
 from __future__ import annotations
@@ -17,8 +19,8 @@ from stereo_dso_g2o_tpu_torch import default_device
 
 @dataclasses.dataclass
 class Calib:
-    c: torch.Tensor  # (4,) float32 fx, fy, cx, cy at level 0
-    baseline: torch.Tensor  # () float32 stereo baseline [m]
+    c: torch.Tensor  # (4,) float32 fx, fy, cx, cy at level 0 (or (N, 4))
+    baseline: torch.Tensor  # () float32 stereo baseline [m] (or (N,))
     w: Tuple[int, ...]  # per-level widths
     h: Tuple[int, ...]  # per-level heights
 
@@ -31,16 +33,16 @@ class Calib:
         return self.c.device
 
     def fx(self, lvl: int):
-        return self.c[0] * (0.5**lvl)
+        return self.c[..., 0] * (0.5**lvl)
 
     def fy(self, lvl: int):
-        return self.c[1] * (0.5**lvl)
+        return self.c[..., 1] * (0.5**lvl)
 
     def cx(self, lvl: int):
-        return (self.c[2] + 0.5) / (1 << lvl) - 0.5
+        return (self.c[..., 2] + 0.5) / (1 << lvl) - 0.5
 
     def cy(self, lvl: int):
-        return (self.c[3] + 0.5) / (1 << lvl) - 0.5
+        return (self.c[..., 3] + 0.5) / (1 << lvl) - 0.5
 
     def K(self, lvl: int):
         fx, fy, cx, cy = self.fx(lvl), self.fy(lvl), self.cx(lvl), self.cy(lvl)
@@ -48,10 +50,11 @@ class Calib:
         o = torch.ones_like(fx)
         return torch.stack(
             [
-                torch.stack([fx, z, cx]),
-                torch.stack([z, fy, cy]),
-                torch.stack([z, z, o]),
-            ]
+                torch.stack([fx, z, cx], -1),
+                torch.stack([z, fy, cy], -1),
+                torch.stack([z, z, o], -1),
+            ],
+            -2,
         )
 
     def Ki(self, lvl: int):
@@ -60,19 +63,21 @@ class Calib:
         o = torch.ones_like(fx)
         return torch.stack(
             [
-                torch.stack([1.0 / fx, z, -cx / fx]),
-                torch.stack([z, 1.0 / fy, -cy / fy]),
-                torch.stack([z, z, o]),
-            ]
+                torch.stack([1.0 / fx, z, -cx / fx], -1),
+                torch.stack([z, 1.0 / fy, -cy / fy], -1),
+                torch.stack([z, z, o], -1),
+            ],
+            -2,
         )
 
     def bf(self):
         """baseline * fx — disparity-to-inverse-depth factor."""
-        return self.baseline * self.c[0]
+        return self.baseline * self.c[..., 0]
 
 
 def calib_from_c(c: torch.Tensor, baseline, w0: int, h0: int, n_levels: int) -> Calib:
-    """Calib from a (4,) intrinsics tensor and the level-0 image size."""
+    """Calib from a (4,) intrinsics tensor (or (N, 4) with (N,) baselines)
+    and the level-0 image size."""
     return Calib(
         c=c,
         baseline=torch.as_tensor(baseline, dtype=torch.float32, device=c.device),

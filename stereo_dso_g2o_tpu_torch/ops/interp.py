@@ -8,6 +8,10 @@ bilinear formula
 
 over an arbitrary batch of sample coordinates. Out-of-range coordinates are
 clamped to [0, size - 1.001]; callers mask out-of-bounds samples.
+
+`stacked=True` samples a stack of images, one per sequence (the leading
+axis the JAX package's vmap adds): image n serves the coordinates of row n,
+whose leading axis is the stack's.
 """
 
 from __future__ import annotations
@@ -15,22 +19,32 @@ from __future__ import annotations
 import torch
 
 
-def _corners(img, iy, ix):
+def take(img, iy, ix, stacked: bool = False):
+    """img[iy, ix]; for a stack (N, H, W[, C]) the pixel of image n for row
+    n of the (N, ...) indices."""
+    if not stacked:
+        return img[iy, ix]
+    n = torch.arange(img.shape[0], device=img.device).reshape((-1,) + (1,) * (iy.dim() - 1))
+    return img[n, iy, ix]
+
+
+def _corners(img, iy, ix, stacked):
     return (
-        img[iy, ix],
-        img[iy, ix + 1],
-        img[iy + 1, ix],
-        img[iy + 1, ix + 1],
+        take(img, iy, ix, stacked),
+        take(img, iy, ix + 1, stacked),
+        take(img, iy + 1, ix, stacked),
+        take(img, iy + 1, ix + 1, stacked),
     )
 
 
-def bilinear(img, x, y):
+def bilinear(img, x, y, stacked: bool = False):
     """Sample img at float coords.
 
-    img: (H, W) or (H, W, C); x, y: any matching shape (...,).
+    img: (H, W) or (H, W, C); x, y: any matching shape (...,). Stacked:
+    img (N, H, W[, C]), x, y (N, ...).
     Returns (...,) or (..., C).
     """
-    H, W = img.shape[0], img.shape[1]
+    H, W = img.shape[int(stacked)], img.shape[int(stacked) + 1]
     x = torch.clamp(x, 0.0, W - 1.001)
     y = torch.clamp(y, 0.0, H - 1.001)
     xf = torch.floor(x)
@@ -39,8 +53,8 @@ def bilinear(img, x, y):
     iy = torch.nan_to_num(yf).long()
     dx = x - xf
     dy = y - yf
-    i00, i01, i10, i11 = _corners(img, iy, ix)
-    if img.ndim == 3:
+    i00, i01, i10, i11 = _corners(img, iy, ix, stacked)
+    if img.ndim == 3 + int(stacked):
         dx = dx[..., None]
         dy = dy[..., None]
     dxdy = dx * dy

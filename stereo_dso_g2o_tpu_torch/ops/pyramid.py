@@ -4,7 +4,8 @@ Port of `stereo_dso_g2o_tpu/ops/pyramid.py` (FrameHessian::makeImages):
 level l>0 intensity is 0.25 * the 2x2 box sum of level l-1; gradients are
 central differences with a zero border; absSquaredGrad = dx^2 + dy^2.
 Per level: an (H, W, 3) stack of (intensity, dx, dy) plus the (H, W)
-squared-gradient map.
+squared-gradient map. A stack of images (N, H, W), one per sequence, gives
+(N, H_l, W_l, 3) and (N, H_l, W_l) levels.
 """
 
 from __future__ import annotations
@@ -14,12 +15,12 @@ import torch
 
 def _downsample2(img):
     """0.25 * 2x2 box sum (HessianBlocks.cpp:159-170)."""
-    H, W = img.shape
+    H, W = img.shape[-2:]
     return 0.25 * (
-        img[0 : H - 1 : 2, 0 : W - 1 : 2]
-        + img[0 : H - 1 : 2, 1:W:2]
-        + img[1:H:2, 0 : W - 1 : 2]
-        + img[1:H:2, 1:W:2]
+        img[..., 0 : H - 1 : 2, 0 : W - 1 : 2]
+        + img[..., 0 : H - 1 : 2, 1:W:2]
+        + img[..., 1:H:2, 0 : W - 1 : 2]
+        + img[..., 1:H:2, 1:W:2]
     )
 
 
@@ -27,16 +28,16 @@ def _gradients(img):
     """Central differences with zero border."""
     dx = torch.zeros_like(img)
     dy = torch.zeros_like(img)
-    dx[:, 1:-1] = 0.5 * (img[:, 2:] - img[:, :-2])
-    dy[1:-1, :] = 0.5 * (img[2:, :] - img[:-2, :])
+    dx[..., 1:-1] = 0.5 * (img[..., 2:] - img[..., :-2])
+    dy[..., 1:-1, :] = 0.5 * (img[..., 2:, :] - img[..., :-2, :])
     return dx, dy
 
 
 def build_pyramid(img: torch.Tensor, n_levels: int = 6):
-    """img: (H, W) float32 intensity.
+    """img: (H, W) float32 intensity, or (N, H, W) for N sequences.
 
     Returns (dIp, abs_sq_grad): tuples of n_levels (H_l, W_l, 3) and
-    (H_l, W_l) tensors.
+    (H_l, W_l) tensors (with the leading N of a stack).
     """
     dIp = []
     asg = []

@@ -17,6 +17,12 @@ or the slab one for images over the JAX package's 6 MB gate
 debugging; None means `DEFAULT_ROUTE`, and when that is None too, the
 gate. Everything else is torch ops, masked fixed-shape, as in the JAX
 package.
+
+Every function also runs a batch of sequences at once, as the JAX
+package's vmap of it does: an image stack (N, H, W, 3), the lanes' arrays
+with a leading N ((N, L), (N, L, 8), (N, L, 3, 3), ...) and per-sequence
+camera values ((N, 3, 3) K, (N,) baseline). Each lane's arithmetic is the
+single call's, and one kernel launch serves the batch.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 
 from stereo_dso_g2o_tpu_torch.config import PATTERN, Settings, default_settings
 from stereo_dso_g2o_tpu_torch.ops import trace_cuda as tk
+from stereo_dso_g2o_tpu_torch.ops.interp import take
 from stereo_dso_g2o_tpu_torch.utils.smalls import fma
 
 # the route of a call made with route=None; None means the gate. A tool sets
@@ -63,12 +70,14 @@ def extract_point_data(dI0, u, v, settings: Settings):
     (ImmaturePoint constructor, ImmaturePoint.cpp:33-62).
 
     dI0: (H, W, 3); u, v: (N,). Returns (color (N,8), weights (N,8),
-    gradH (N,2,2), energy_th (N,))."""
+    gradH (N,2,2), energy_th (N,)). A stack dI0 (B, H, W, 3) takes (B, N)
+    points and leads every output with B."""
+    stacked = dI0.dim() == 4
     pat = _pattern(u.dtype, u.device)
-    px = u[:, None] + pat[None, :, 0]
-    py = v[:, None] + pat[None, :, 1]
+    px = u[..., None] + pat[:, 0]
+    py = v[..., None] + pat[:, 1]
     img = dI0[..., 0]
-    H, W = img.shape
+    H, W = img.shape[-2:]
     x = torch.clamp(px, 0.0, W - 1.001)
     y = torch.clamp(py, 0.0, H - 1.001)
     xf = torch.floor(x)
@@ -77,10 +86,10 @@ def extract_point_data(dI0, u, v, settings: Settings):
     iy = torch.nan_to_num(yf).long()
     dx = x - xf
     dy = y - yf
-    tl = img[iy, ix]
-    tr = img[iy, ix + 1]
-    bl = img[iy + 1, ix]
-    br = img[iy + 1, ix + 1]
+    tl = take(img, iy, ix, stacked)
+    tr = take(img, iy, ix + 1, stacked)
+    bl = take(img, iy + 1, ix, stacked)
+    br = take(img, iy + 1, ix + 1, stacked)
     top = dx * tr + (1 - dx) * tl
     bot = dx * br + (1 - dx) * bl
     left = dy * bl + (1 - dy) * tl
@@ -110,7 +119,7 @@ def _search(dI, ptx, pty, dx, dy, num_steps, aff_a, aff_b, color, weights,
     if route not in (None, "resident", "slab"):
         raise ValueError(f"route must be None, 'resident' or 'slab', got {route!r}")
     if route is None:
-        route = "slab" if tk.uses_slab_route(dI.shape[0], dI.shape[1]) else "resident"
+        route = "slab" if tk.uses_slab_route(dI.shape[-3], dI.shape[-2]) else "resident"
     search = tk.epipolar_search_slab if route == "slab" else tk.epipolar_search
 
     def safe(x):
@@ -120,7 +129,7 @@ def _search(dI, ptx, pty, dx, dy, num_steps, aff_a, aff_b, color, weights,
     scal = torch.stack(
         [safe(ptx), safe(pty), safe(dx), safe(dy), ns.to(torch.float32),
          aff_a, aff_b, torch.zeros_like(ptx)],
-        dim=1,
+        dim=-1,
     )
     # patx / paty go as they are: slices of the rotated (N, 8, 2) pattern or
     # one pattern broadcast over the lanes; the kernels read them by stride
@@ -138,8 +147,9 @@ def trace_batch(u, v, idepth_min, idepth_max, color, weights, gradH, energy_th,
                 quality, status, KRKi, Kt, aff, dI_target,
                 settings: Settings = default_settings(), route=None) -> TraceResult:
     """Trace every point's epipolar interval onto the target image, with
-    per-point KRKi (N,3,3), Kt (N,3), aff (N,2) (traceOn)."""
-    H, W = dI_target.shape[:2]
+    per-point KRKi (N,3,3), Kt (N,3), aff (N,2) (traceOn); or, for a stack
+    dI_target (B, H, W, 3), B sequences' points (B, N, ...) at once."""
+    H, W = dI_target.shape[-3:-1]
     w_f = float(W)
     h_f = float(H)
     max_pix_search = (w_f + h_f) * settings.max_pix_search
@@ -158,24 +168,24 @@ def trace_batch(u, v, idepth_min, idepth_max, color, weights, gradH, energy_th,
     # start's sub-pixel jitter (u_min*1000 - floor(u_min*1000), below)
     # keeps only the last bits of u_min, so one rounding there moves the
     # whole search by up to 2^-6 px.
-    pr = fma(KRKi[:, :, 1], v[:, None], KRKi[:, :, 0] * u[:, None]) + KRKi[:, :, 2]
-    ptp_min = fma(Kt, idepth_min[:, None], pr)
-    u_min = ptp_min[:, 0] / ptp_min[:, 2]
-    v_min = ptp_min[:, 1] / ptp_min[:, 2]
+    pr = fma(KRKi[..., 1], v[..., None], KRKi[..., 0] * u[..., None]) + KRKi[..., 2]
+    ptp_min = fma(Kt, idepth_min[..., None], pr)
+    u_min = ptp_min[..., 0] / ptp_min[..., 2]
+    v_min = ptp_min[..., 1] / ptp_min[..., 2]
     oob_min = ~inb(u_min, v_min)
 
     finite_max = torch.isfinite(idepth_max)
     id_max_safe = torch.where(finite_max, idepth_max, zero)
-    ptp_max = fma(Kt, id_max_safe[:, None], pr)
-    u_max_f = ptp_max[:, 0] / ptp_max[:, 2]
-    v_max_f = ptp_max[:, 1] / ptp_max[:, 2]
+    ptp_max = fma(Kt, id_max_safe[..., None], pr)
+    u_max_f = ptp_max[..., 0] / ptp_max[..., 2]
+    v_max_f = ptp_max[..., 1] / ptp_max[..., 2]
     oob_max_f = finite_max & ~inb(u_max_f, v_max_f)
     dist_f = torch.sqrt((u_min - u_max_f) ** 2 + (v_min - v_max_f) ** 2)
     skipped = finite_max & (dist_f < settings.trace_slack_interval)
 
     ptp_dir = fma(Kt, torch.full_like(Kt, 0.01), pr)
-    u_dir = ptp_dir[:, 0] / ptp_dir[:, 2]
-    v_dir = ptp_dir[:, 1] / ptp_dir[:, 2]
+    u_dir = ptp_dir[..., 0] / ptp_dir[..., 2]
+    v_dir = ptp_dir[..., 1] / ptp_dir[..., 2]
     ddx = u_dir - u_min
     ddy = v_dir - v_min
     dnorm = 1.0 / torch.sqrt(ddx * ddx + ddy * ddy + 1e-20)
@@ -188,14 +198,14 @@ def trace_batch(u, v, idepth_min, idepth_max, color, weights, gradH, energy_th,
     dist = torch.where(finite_max, dist_f, torch.full_like(dist_f, max_pix_search))
 
     # scale-change gate (:574-581)
-    oob_scale = ~((idepth_min < 0) | ((ptp_min[:, 2] > 0.75) & (ptp_min[:, 2] < 1.5)))
+    oob_scale = ~((idepth_min < 0) | ((ptp_min[..., 2] > 0.75) & (ptp_min[..., 2] < 1.5)))
 
     # -- STEP 2: error bound from gradient-vs-epipolar angle (:585-606) --
     dx0 = settings.trace_stepsize * (u_max - u_min)
     dy0 = settings.trace_stepsize * (v_max - v_min)
-    gxx = gradH[:, 0, 0]
-    gxy = gradH[:, 0, 1]
-    gyy = gradH[:, 1, 1]
+    gxx = gradH[..., 0, 0]
+    gxy = gradH[..., 0, 1]
+    gyy = gradH[..., 1, 1]
     a = dx0 * dx0 * gxx + 2 * dx0 * dy0 * gxy + dy0 * dy0 * gyy
     b = dy0 * dy0 * gxx - 2 * dx0 * dy0 * gxy + dx0 * dx0 * gyy
     error_in_pixel = 0.2 + 0.2 * (a + b) / torch.clamp(a, min=1e-20)
@@ -220,22 +230,22 @@ def trace_batch(u, v, idepth_min, idepth_max, color, weights, gradH, energy_th,
     pty = v_min - rand_shift * dy
 
     # pattern rotated by the in-plane 2x2 of KRKi (:633-645)
-    rot_pat = torch.einsum("nij,pj->npi", KRKi[:, :2, :2], _pattern(f32, u.device))
+    rot_pat = torch.einsum("...ij,pj->...pi", KRKi[..., :2, :2], _pattern(f32, u.device))
 
     pre_masked = (
         oob_min | oob_max_f | oob_max_i | skipped | oob_scale | badcond
         | oob_dxdy | (status == IPS_OOB)
     )
     out = _search(
-        dI_target, ptx, pty, dx, dy, num_steps, aff[:, 0], aff[:, 1], color,
-        weights, rot_pat[:, :, 0], rot_pat[:, :, 1], pre_masked, S, settings,
+        dI_target, ptx, pty, dx, dy, num_steps, aff[..., 0], aff[..., 1], color,
+        weights, rot_pat[..., 0], rot_pat[..., 1], pre_masked, S, settings,
         tk.EDGE_CLAMP, route,
     )
-    best_u = out[:, tk.OUT_BEST_U]
-    best_v = out[:, tk.OUT_BEST_V]
-    best_energy_search = out[:, tk.OUT_E_SEARCH]
-    second_best = out[:, tk.OUT_SECOND_BEST]
-    best_energy = out[:, tk.OUT_E_GN]
+    best_u = out[..., tk.OUT_BEST_U]
+    best_v = out[..., tk.OUT_BEST_V]
+    best_energy_search = out[..., tk.OUT_E_SEARCH]
+    second_best = out[..., tk.OUT_SECOND_BEST]
+    best_energy = out[..., tk.OUT_E_GN]
 
     # quality updates only for points that reached the discrete search
     # (the reference's traceOn early-returns before its quality update)
@@ -259,12 +269,12 @@ def trace_batch(u, v, idepth_min, idepth_max, color, weights, gradH, energy_th,
     e = error_in_pixel
 
     def interval(coord, d, pr_c, kt_c):
-        lo = (pr[:, 2] * (coord - e * d) - pr_c) / (kt_c - Kt[:, 2] * (coord - e * d))
-        hi = (pr[:, 2] * (coord + e * d) - pr_c) / (kt_c - Kt[:, 2] * (coord + e * d))
+        lo = (pr[..., 2] * (coord - e * d) - pr_c) / (kt_c - Kt[..., 2] * (coord - e * d))
+        hi = (pr[..., 2] * (coord + e * d) - pr_c) / (kt_c - Kt[..., 2] * (coord + e * d))
         return lo, hi
 
-    lo_u, hi_u = interval(best_u, dx, pr[:, 0], Kt[:, 0])
-    lo_v, hi_v = interval(best_v, dy, pr[:, 1], Kt[:, 1])
+    lo_u, hi_u = interval(best_u, dx, pr[..., 0], Kt[..., 0])
+    lo_v, hi_v = interval(best_v, dy, pr[..., 1], Kt[..., 1])
     id_lo = torch.where(horiz, lo_u, lo_v)
     id_hi = torch.where(horiz, hi_u, hi_v)
     id_min_new = torch.minimum(id_lo, id_hi)
@@ -391,7 +401,7 @@ def _stereo_finish(
         quality=quality_out,
         best_energy=best_energy,
     )
-    idepth_stereo = (u_stereo - res.last_uv[:, 0]) / bf
+    idepth_stereo = (u_stereo - res.last_uv[..., 0]) / bf
     return res, idepth_stereo
 
 
@@ -406,20 +416,23 @@ def trace_stereo(u_stereo, v_stereo, idepth_min_stereo, idepth_max_stereo,
     idepth_stereo) with idepth_stereo = (u_stereo - bestU)/bf, valid where
     status == GOOD. The epipolar line is horizontal, so the search runs the
     kernel with (dx, dy) = (dirx, 0), an unrotated pattern and zeros outside
-    the image (the JAX "xla" strip formulation)."""
-    H, W = dI_target.shape[:2]
+    the image (the JAX "xla" strip formulation). A stack dI_target
+    (B, H, W, 3) takes B sequences' (B, N) points with their (B, 3, 3) K and
+    (B,) baselines."""
+    H, W = dI_target.shape[-3:-1]
     w_f, h_f = float(W), float(H)
     max_pix_search = (w_f + h_f) * settings.max_pix_search
     S = min(settings.trace_max_steps, int(np.ceil(max_pix_search)) + 3)
 
     sign = -1.0 if mode_right else 1.0
-    ktx = sign * K[0, 0] * baseline
-    bf = K[0, 0] * baseline * (1.0 if mode_right else -1.0)
+    ktx = sign * K[..., 0, 0] * baseline
+    bf = K[..., 0, 0] * baseline * (1.0 if mode_right else -1.0)
+    if dI_target.dim() == 4:  # one value per sequence, over its points
+        ktx, bf = ktx[..., None], bf[..., None]
     dirx = -1.0 if mode_right else 1.0
 
     u = u_stereo.to(torch.float32)
     v = v_stereo.to(torch.float32)
-    n = u.shape[0]
 
     def inb(x, y):
         return (x > 4.0) & (y > 4.0) & (x < w_f - 5.0) & (y < h_f - 5.0)
@@ -439,8 +452,8 @@ def trace_stereo(u_stereo, v_stereo, idepth_min_stereo, idepth_max_stereo,
     u_max = torch.where(finite_max, u_max_f, u_max_i)
     dist = torch.where(finite_max, dist_f, torch.full_like(dist_f, max_pix_search))
 
-    gxx = gradH[:, 0, 0]
-    gyy = gradH[:, 1, 1]
+    gxx = gradH[..., 0, 0]
+    gyy = gradH[..., 1, 1]
     error_in_pixel = 0.2 + 0.2 * (gxx + gyy) / torch.clamp(gxx, min=1e-20)
     badcond = (error_in_pixel * settings.trace_min_improvement_factor > dist) & finite_max
     error_in_pixel = torch.clamp(error_in_pixel, max=10.0)
@@ -459,16 +472,17 @@ def trace_stereo(u_stereo, v_stereo, idepth_min_stereo, idepth_max_stereo,
         oob_min | oob_max_f | oob_max_i | skipped | badcond | (status == IPS_OOB)
     )
     pat = _pattern(torch.float32, u.device)
+    lanes = tuple(u.shape) + (8,)
     out = _search(
         dI_target, ptx, v, torch.full_like(ptx, dirx), torch.zeros_like(ptx),
         num_steps, torch.ones_like(ptx), torch.zeros_like(ptx), color, weights,
-        pat[None, :, 0].expand(n, 8), pat[None, :, 1].expand(n, 8), pre_masked,
+        pat[:, 0].expand(lanes), pat[:, 1].expand(lanes), pre_masked,
         S, settings, tk.EDGE_ZERO, route,
     )
-    best_u = out[:, tk.OUT_BEST_U]
-    best_energy_search = out[:, tk.OUT_E_SEARCH]
-    second_best = out[:, tk.OUT_SECOND_BEST]
-    best_energy = out[:, tk.OUT_E_GN]
+    best_u = out[..., tk.OUT_BEST_U]
+    best_energy_search = out[..., tk.OUT_E_SEARCH]
+    second_best = out[..., tk.OUT_SECOND_BEST]
+    best_energy = out[..., tk.OUT_E_GN]
 
     new_quality = second_best / torch.clamp(best_energy_search, min=1e-20)
     quality_out = torch.where(

@@ -31,6 +31,13 @@ Inputs (all float32, on one device):
 Output (N, 8): best_u, best_v (after GN), e_search, second_best, e_gn,
 best_idx, 0, 0.
 
+`epipolar_search` also takes a batch of sequences, as the JAX package's
+vmap of its kernel does: dI (B, H, W, 3) and every lane operand (B, N, 8),
+lanes b searching image b; the output is (B, N, 8). One launch serves the
+batch (the sequence is the kernel's second grid dimension), and a batch of
+one gives the bits of the single-image call. The slab kernel takes one
+image: a batch of one is accepted, a larger batch raises.
+
 Sampling rules follow the JAX "xla" backend exactly:
   - EDGE_CLAMP (temporal search): `_pattern_energy`'s formula with sample
     coordinates clamped to [0, size - 1.001];
@@ -66,7 +73,7 @@ from typing import NamedTuple
 
 import torch
 
-from stereo_dso_g2o_tpu_torch.ops.interp import bilinear
+from stereo_dso_g2o_tpu_torch.ops.interp import bilinear, take
 
 OUT_BEST_U = 0
 OUT_BEST_V = 1
@@ -166,7 +173,8 @@ def build(names=None) -> dict:
 
 
 _PTR = ctypes.c_void_p
-_LANES = [_PTR] * 5 + [ctypes.c_longlong] * 2  # scal color weights patx paty, pattern strides
+_LANES = [_PTR] * 5  # scal color weights patx paty
+_STRIDES = [ctypes.c_longlong] * 2  # pattern strides (lane, pixel)
 _TAIL = [
     _PTR,  # out
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # H W N S
@@ -174,9 +182,12 @@ _TAIL = [
     ctypes.c_int,  # edge
 ]
 _WARPS_STREAM = [ctypes.c_int, _PTR]
-_ARGTYPES = {  # image, lanes, tail, (slab: band length,) warps per block, stream
-    "epipolar_search": [_PTR] + _LANES + _TAIL + _WARPS_STREAM,
-    "epipolar_search_slab": [_PTR] + _LANES + _TAIL + [ctypes.c_int] + _WARPS_STREAM,
+_ARGTYPES = {
+    # image, lanes, pattern strides (resident: sequence, lane, pixel), tail,
+    # (resident: sequences; slab: band length,) warps per block, stream
+    "epipolar_search": [_PTR] + _LANES + [ctypes.c_longlong] + _STRIDES + _TAIL
+    + [ctypes.c_int] + _WARPS_STREAM,
+    "epipolar_search_slab": [_PTR] + _LANES + _STRIDES + _TAIL + [ctypes.c_int] + _WARPS_STREAM,
 }
 
 
@@ -190,14 +201,18 @@ def _load(name: str):
     return _LIBS[name]
 
 
-def _check(dI, scal, color, weights, patx, paty, edge):
-    if dI.dim() != 3 or dI.shape[2] != 3:
-        raise ValueError(f"dI must be (H, W, 3), got {tuple(dI.shape)}")
-    N = scal.shape[0]
+def _check(dI, scal, color, weights, patx, paty, edge) -> bool:
+    """Raise unless the operands are one image (H, W, 3) with (N, 8) lanes
+    or a batch (B, H, W, 3) with (B, N, 8) lanes; True for a batch."""
+    if dI.dim() not in (3, 4) or dI.shape[-1] != 3:
+        raise ValueError(f"dI must be (H, W, 3) or (B, H, W, 3), got {tuple(dI.shape)}")
+    batched = dI.dim() == 4
+    lead = tuple(dI.shape[:1]) if batched else ()
+    N = scal.shape[-2] if scal.dim() >= 2 else -1
     for name, t in (("scal", scal), ("color", color), ("weights", weights),
                     ("patx", patx), ("paty", paty)):
-        if t.shape != (N, 8):
-            raise ValueError(f"{name} must be ({N}, 8), got {tuple(t.shape)}")
+        if tuple(t.shape) != lead + (N, 8):
+            raise ValueError(f"{name} must be {lead + (N, 8)}, got {tuple(t.shape)}")
     for name, t in (("dI", dI), ("scal", scal), ("color", color),
                     ("weights", weights), ("patx", patx), ("paty", paty)):
         if t.dtype != torch.float32:
@@ -206,22 +221,25 @@ def _check(dI, scal, color, weights, patx, paty, edge):
             raise ValueError(f"{name} is on {t.device}, dI on {dI.device}")
         if name not in ("patx", "paty") and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if dI.shape[0] < 2 or dI.shape[1] < 2:
+    if dI.shape[-3] < 2 or dI.shape[-2] < 2:
         raise ValueError("image must be at least 2x2")
     if edge not in (EDGE_CLAMP, EDGE_ZERO):
         raise ValueError(f"unknown edge rule {edge}")
     if dI.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dI.device}")
+    return batched
 
 
 def _launch(name, image, scal, color, weights, patx, paty, H, W, S, huber_th,
             gn_iters, gn_threshold, radius, edge, *extra):
     """Launch kernel `name` on the current stream of `image` (the tensor it
-    reads pixels from); `extra`: its arguments after `edge`. (N, 8) float32."""
-    N = scal.shape[0]
-    if patx.stride() != paty.stride():  # the kernel takes one pair of strides
+    reads pixels from); `extra`: its arguments after `edge`. The lanes are
+    (N, 8), or (B, N, 8) for the resident kernel, whose pattern strides
+    then lead with the sequence's; the output has their shape."""
+    N = scal.shape[-2]
+    if patx.stride() != paty.stride():  # the kernel takes one set of strides
         patx, paty = patx.contiguous(), paty.contiguous()
-    out = torch.empty((N, 8), dtype=torch.float32, device=scal.device)
+    out = torch.empty(scal.shape, dtype=torch.float32, device=scal.device)
     fn = _load(name)
     with torch.cuda.device(scal.device):
         stream = torch.cuda.current_stream(scal.device).cuda_stream
@@ -239,22 +257,25 @@ def _launch(name, image, scal, color, weights, patx, paty, H, W, S, huber_th,
 def epipolar_search(dI, scal, color, weights, patx, paty, *, S: int,
                     huber_th: float, gn_iters: int, gn_threshold: float,
                     radius: int, edge: int):
-    """Discrete epipolar search + GN refinement per lane; (N, 8) float32."""
+    """Discrete epipolar search + GN refinement per lane: (N, 8) float32
+    for one image, (B, N, 8) for a batch of B sequences (one launch)."""
     global LAUNCHES
-    _check(dI, scal, color, weights, patx, paty, edge)
+    batched = _check(dI, scal, color, weights, patx, paty, edge)
     if not 1 <= S <= MAX_STEPS:
         raise ValueError(f"S must be in [1, {MAX_STEPS}], got {S}")
     kw = dict(S=S, huber_th=huber_th, gn_iters=gn_iters, gn_threshold=gn_threshold,
               radius=radius, edge=edge)
     if dI.device.type == "cpu":
         return epipolar_search_ref(dI, scal, color, weights, patx, paty, **kw)
-    if scal.shape[0] == 0:
-        return torch.empty((0, 8), dtype=torch.float32, device=dI.device)
-    out = _launch("epipolar_search", dI, scal, color, weights, patx, paty,
-                  dI.shape[0], dI.shape[1], S, huber_th, gn_iters, gn_threshold,
-                  radius, edge, WARPS)
-    LAUNCHES += 1
-    return out
+    ops = (dI, scal, color, weights, patx, paty)
+    if not batched:  # the kernel takes a batch: one image is a batch of one
+        ops = tuple(x[None] for x in ops)
+    out = torch.empty(ops[1].shape, dtype=torch.float32, device=dI.device)
+    if out.numel():
+        out = _launch("epipolar_search", *ops, dI.shape[-3], dI.shape[-2], S, huber_th,
+                      gn_iters, gn_threshold, radius, edge, ops[0].shape[0], WARPS)
+        LAUNCHES += 1
+    return out if batched else out[0]
 
 
 class SearchBound(NamedTuple):
@@ -266,8 +287,9 @@ class SearchBound(NamedTuple):
 
 def search_bound(H: int, W: int, scal, S: int, gn_iters: int) -> SearchBound:
     """The least time the card could take for one search of an (H, W)
-    image on the lanes `scal`, the same for both kernels (they compute one
-    function). Bytes, each once, over the memory rate: the five (N, 8)
+    image on the lanes `scal` (N, 8), the same for both kernels (they
+    compute one function); for a batch (B, N, 8) of B sequences, the sum of
+    the B searches, each on its own plane. Bytes, each once, over the memory rate: the five (N, 8)
     operands, the (N, 8) output and the pixels of the intensity plane these
     lanes need, which is what the search reads (the gradients Gauss-Newton
     uses are differences of it). A lane needs the band under its valid
@@ -280,9 +302,11 @@ def search_bound(H: int, W: int, scal, S: int, gn_iters: int) -> SearchBound:
     floors, 2 subs, 8 mul/add for the weights, 7 for the sum), residual and
     Huber energy (9): 30; per GN iteration and pixel: three such samples
     with differenced gradients and the step: 80."""
-    n = scal.shape[0]
-    steps = float(torch.ceil(torch.clamp(torch.nan_to_num(scal[:, 4], nan=0.0), 0, S)).sum())
-    pixels = min(H * W, 8 * (steps + 7 * n))
+    scal = scal.reshape((-1,) + tuple(scal.shape[-2:]))  # (B, N, 8)
+    n = scal.shape[0] * scal.shape[1]
+    per_seq = torch.ceil(torch.clamp(torch.nan_to_num(scal[..., 4], nan=0.0), 0, S)).sum(-1)
+    steps = float(per_seq.sum())
+    pixels = sum(min(H * W, 8 * (float(k) + 7 * scal.shape[1])) for k in per_seq)
     nbytes = 4 * (pixels + 5 * n * 8 + n * 8)
     flops = 8 * (30 * steps + 80 * gn_iters * n)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
@@ -341,7 +365,11 @@ def epipolar_search_slab(dI, scal, color, weights, patx, paty, *, S: int,
     staged band's length (a multiple of 4; default from S): taps beyond it
     read global memory, so it changes the time and never the answer."""
     global LAUNCHES_SLAB
-    _check(dI, scal, color, weights, patx, paty, edge)
+    batched = _check(dI, scal, color, weights, patx, paty, edge)
+    if batched:
+        if dI.shape[0] != 1:
+            raise ValueError(f"the slab kernel takes one image, got a batch of {dI.shape[0]}")
+        dI, scal, color, weights, patx, paty = (x[0] for x in (dI, scal, color, weights, patx, paty))
     if band_len is not None and (band_len < 4 or band_len % 4):
         raise ValueError(f"band_len must be a positive multiple of 4, got {band_len}")
     cross, band_len, smem = slab_window(S, band_len)
@@ -353,14 +381,15 @@ def epipolar_search_slab(dI, scal, color, weights, patx, paty, *, S: int,
     kw = dict(S=S, huber_th=huber_th, gn_iters=gn_iters, gn_threshold=gn_threshold,
               radius=radius, edge=edge)
     if dI.device.type == "cpu":
-        return epipolar_search_slab_ref(dI, scal, color, weights, patx, paty, **kw)
-    if scal.shape[0] == 0:
-        return torch.empty((0, 8), dtype=torch.float32, device=dI.device)
-    out = _launch("epipolar_search_slab", intensity_plane(dI), scal, color, weights,
-                  patx, paty, dI.shape[0], dI.shape[1], S, huber_th, gn_iters,
-                  gn_threshold, radius, edge, band_len, SLAB_WARPS)
-    LAUNCHES_SLAB += 1
-    return out
+        out = epipolar_search_slab_ref(dI, scal, color, weights, patx, paty, **kw)
+    elif scal.shape[0] == 0:
+        out = torch.empty((0, 8), dtype=torch.float32, device=dI.device)
+    else:
+        out = _launch("epipolar_search_slab", intensity_plane(dI), scal, color, weights,
+                      patx, paty, dI.shape[0], dI.shape[1], S, huber_th, gn_iters,
+                      gn_threshold, radius, edge, band_len, SLAB_WARPS)
+        LAUNCHES_SLAB += 1
+    return out[None] if batched else out
 
 
 # ---------------------------------------------------------------------------
@@ -370,9 +399,9 @@ def epipolar_search_slab(dI, scal, color, weights, patx, paty, *, S: int,
 
 def _sum8(x):
     """Sum over the 8 pattern pixels in pattern order (the kernel's order)."""
-    s = x[:, 0]
+    s = x[..., 0]
     for p in range(1, 8):
-        s = s + x[:, p]
+        s = s + x[..., p]
     return s
 
 
@@ -386,9 +415,9 @@ def _huber_energy(r, th):
     return hw, hw * r * r * (2.0 - hw)
 
 
-def _sample_clamped(img, px, py):
+def _sample_clamped(img, px, py, stacked):
     """`_pattern_energy`'s bilinear formula with clamped coordinates."""
-    H, W = img.shape
+    H, W = img.shape[-2:]
     x = torch.clamp(px, 0.0, W - 1.001)
     y = torch.clamp(py, 0.0, H - 1.001)
     xf = torch.floor(x)
@@ -398,27 +427,27 @@ def _sample_clamped(img, px, py):
     fx = x - xf
     fy = y - yf
     return (
-        (1 - fx) * (1 - fy) * img[iy, ix]
-        + fx * (1 - fy) * img[iy, ix + 1]
-        + (1 - fx) * fy * img[iy + 1, ix]
-        + fx * fy * img[iy + 1, ix + 1]
+        (1 - fx) * (1 - fy) * take(img, iy, ix, stacked)
+        + fx * (1 - fy) * take(img, iy, ix + 1, stacked)
+        + (1 - fx) * fy * take(img, iy + 1, ix, stacked)
+        + fx * fy * take(img, iy + 1, ix + 1, stacked)
     )
 
 
-def _sample_zero_rows(img, ix0, fu, iy0, fv, steps, dirx, patx_i, paty_i):
+def _sample_zero_rows(img, ix0, fu, iy0, fv, steps, dirx, patx_i, paty_i, stacked):
     """Strip formulation: columns ix0 + s*dirx + dxp, rows iy0 + dyp, zero
-    outside the image, vertical lerp then horizontal lerp. -> (N, S, 8)."""
-    H, W = img.shape
-    col = ix0[:, None, None] + steps[None, :, None] * dirx[:, None, None] + patx_i[:, None, :]
-    row = (iy0[:, None] + paty_i)[:, None, :].expand_as(col)
+    outside the image, vertical lerp then horizontal lerp. -> (..., N, S, 8)."""
+    H, W = img.shape[-2:]
+    col = ix0[..., None, None] + steps[:, None] * dirx[..., None, None] + patx_i[..., None, :]
+    row = (iy0[..., None] + paty_i)[..., None, :].expand_as(col)
 
     def tap(r, c):
         ok = (r >= 0) & (r < H) & (c >= 0) & (c < W)
-        v = img[torch.clamp(r, 0, H - 1), torch.clamp(c, 0, W - 1)]
+        v = take(img, torch.clamp(r, 0, H - 1), torch.clamp(c, 0, W - 1), stacked)
         return torch.where(ok, v, torch.zeros_like(v))
 
-    fv_ = fv[:, None, None]
-    fu_ = fu[:, None, None]
+    fv_ = fv[..., None, None]
+    fu_ = fu[..., None, None]
     row0 = (1.0 - fv_) * tap(row, col) + fv_ * tap(row + 1, col)
     row1 = (1.0 - fv_) * tap(row, col + 1) + fv_ * tap(row + 1, col + 1)
     return (1.0 - fu_) * row0 + fu_ * row1
@@ -459,9 +488,12 @@ def _sample3_plane(img, x, y):
 
 def epipolar_search_ref(dI, scal, color, weights, patx, paty, **kw):
     """Plain PyTorch version of the resident kernel: the search + GN part of
-    the JAX "xla" branch (ops/trace.py:329-410 temporal, :852-963 stereo)."""
-    return _search_ref(dI[..., 0], lambda x, y: bilinear(dI, x, y),
-                       scal, color, weights, patx, paty, **kw)
+    the JAX "xla" branch (ops/trace.py:329-410 temporal, :852-963 stereo).
+    One image (H, W, 3) with (N, 8) lanes, or a batch (B, H, W, 3) with
+    (B, N, 8) lanes, every op over the whole batch."""
+    stacked = dI.dim() == 4
+    return _search_ref(dI[..., 0], lambda x, y: bilinear(dI, x, y, stacked=stacked),
+                       scal, color, weights, patx, paty, stacked=stacked, **kw)
 
 
 def epipolar_search_slab_ref(dI, scal, color, weights, patx, paty, **kw):
@@ -469,34 +501,35 @@ def epipolar_search_slab_ref(dI, scal, color, weights, patx, paty, **kw):
     Gauss-Newton gradients differenced from the intensity plane."""
     img = dI[..., 0]
     return _search_ref(img, lambda x, y: _sample3_plane(img, x, y),
-                       scal, color, weights, patx, paty, **kw)
+                       scal, color, weights, patx, paty, stacked=False, **kw)
 
 
 def _search_ref(img, sample3, scal, color, weights, patx, paty, *, S: int,
                 huber_th: float, gn_iters: int, gn_threshold: float,
-                radius: int, edge: int):
-    """The search on the (H, W) plane `img`; `sample3(x, y)` gives the
-    (..., 3) bilinear sample of (I, dI/dx, dI/dy) for Gauss-Newton."""
-    N = scal.shape[0]
+                radius: int, edge: int, stacked: bool):
+    """The search on the (H, W) plane `img` (or the (B, H, W) planes of a
+    batch, `stacked`, lanes (B, N, 8)); `sample3(x, y)` gives the (..., 3)
+    bilinear sample of (I, dI/dx, dI/dy) for Gauss-Newton."""
+    lead = tuple(scal.shape[:-1])
     dev = img.device
     f32 = torch.float32
-    ptx = _finite_or_zero(scal[:, 0])
-    pty = _finite_or_zero(scal[:, 1])
-    dx = _finite_or_zero(scal[:, 2])
-    dy = _finite_or_zero(scal[:, 3])
-    nsteps = scal[:, 4]
-    aff_a = scal[:, 5]
-    aff_b = scal[:, 6]
-    H, W = img.shape
+    ptx = _finite_or_zero(scal[..., 0])
+    pty = _finite_or_zero(scal[..., 1])
+    dx = _finite_or_zero(scal[..., 2])
+    dy = _finite_or_zero(scal[..., 3])
+    nsteps = scal[..., 4]
+    aff_a = scal[..., 5]
+    aff_b = scal[..., 6]
+    H, W = img.shape[-2:]
     steps = torch.arange(S, dtype=f32, device=dev)
 
-    energies = torch.zeros((N, S), dtype=f32, device=dev)
+    energies = torch.zeros(lead + (S,), dtype=f32, device=dev)
     if edge == EDGE_CLAMP:
-        sx = ptx[:, None] + steps[None, :] * dx[:, None]
-        sy = pty[:, None] + steps[None, :] * dy[:, None]
+        sx = ptx[..., None] + steps * dx[..., None]
+        sy = pty[..., None] + steps * dy[..., None]
         for p in range(8):
-            hit = _sample_clamped(img, sx + patx[:, None, p], sy + paty[:, None, p])
-            r = hit - (aff_a[:, None] * color[:, None, p] + aff_b[:, None])
+            hit = _sample_clamped(img, sx + patx[..., None, p], sy + paty[..., None, p], stacked)
+            r = hit - (aff_a[..., None] * color[..., None, p] + aff_b[..., None])
             energies = energies + _huber_energy(r, huber_th)[1]
     else:
         lim = float(S + 16)
@@ -509,18 +542,18 @@ def _search_ref(img, sample3, scal, color, weights, patx, paty, *, S: int,
         stepi = torch.arange(S, dtype=torch.long, device=dev)
         vals = _sample_zero_rows(
             img, ix0.long(), fu, iy0.long(), fv, stepi, torch.round(dx).long(),
-            torch.round(patx).long(), torch.round(paty).long(),
+            torch.round(patx).long(), torch.round(paty).long(), stacked,
         )
         for p in range(8):
-            r = vals[:, :, p] - (aff_a[:, None] * color[:, None, p] + aff_b[:, None])
+            r = vals[..., p] - (aff_a[..., None] * color[..., None, p] + aff_b[..., None])
             energies = energies + _huber_energy(r, huber_th)[1]
 
-    step_valid = steps[None, :] < nsteps[:, None]
+    step_valid = steps < nsteps[..., None]
     energies = torch.where(step_valid, energies, torch.full_like(energies, float("inf")))
-    best_e, best_idx = torch.min(energies, dim=1)  # first index on ties
-    outside = torch.abs(torch.arange(S, device=dev)[None, :] - best_idx[:, None]) > radius
+    best_e, best_idx = torch.min(energies, dim=-1)  # first index on ties
+    outside = torch.abs(torch.arange(S, device=dev) - best_idx[..., None]) > radius
     second = torch.min(
-        torch.where(outside, energies, torch.full_like(energies, float("inf"))), dim=1
+        torch.where(outside, energies, torch.full_like(energies, float("inf"))), dim=-1
     ).values
     bidx_f = best_idx.to(f32)
     bu = ptx + bidx_f * dx
@@ -531,11 +564,11 @@ def _search_ref(img, sample3, scal, color, weights, patx, paty, *, S: int,
         u_bak, v_bak = bu, bv
         step_back = torch.zeros_like(bu)
         be = torch.full_like(bu, 1e5)
-        done = torch.zeros(N, dtype=torch.bool, device=dev)
+        done = torch.zeros(lead, dtype=torch.bool, device=dev)
         for _ in range(gn_iters):
-            hit = sample3(bu[:, None] + patx, bv[:, None] + paty)  # (N,8,3)
-            r = hit[..., 0] - (aff_a[:, None] * color + aff_b[:, None])
-            d_res = dx[:, None] * hit[..., 1] + dy[:, None] * hit[..., 2]
+            hit = sample3(bu[..., None] + patx, bv[..., None] + paty)  # (..., N, 8, 3)
+            r = hit[..., 0] - (aff_a[..., None] * color + aff_b[..., None])
+            d_res = dx[..., None] * hit[..., 1] + dy[..., None] * hit[..., 2]
             hw, _ = _huber_energy(r, huber_th)
             Hgn = 1.0 + _sum8(hw * d_res * d_res)
             bgn = _sum8(hw * r * d_res)
@@ -559,4 +592,4 @@ def _search_ref(img, sample3, scal, color, weights, patx, paty, *, S: int,
         e_gn = be
 
     zero = torch.zeros_like(bu)
-    return torch.stack([bu, bv, best_e, second, e_gn, bidx_f, zero, zero], dim=1)
+    return torch.stack([bu, bv, best_e, second, e_gn, bidx_f, zero, zero], dim=-1)

@@ -8,10 +8,18 @@ Port of `stereo_dso_g2o_tpu/ops/tracker_ops.py` (CoarseTracker):
 - `calc_res`, `calc_gs`: warped Huber residuals and the 8x8 GN system.
 - `lm_level`: the per-level LM loop with the in-loop cutoff repeat.
 
-The JAX package vmaps the tracker over pose hypotheses; here the
-hypotheses are a leading batch dimension B of the pose arguments. The JAX
-`lax.while_loop` becomes a host loop that runs until every hypothesis is
-done and freezes the finished ones, which is what a vmapped while_loop does.
+The JAX package vmaps the tracker over pose hypotheses, and the batched
+frame program over sequences too; here the hypotheses are a batch
+dimension K of the pose arguments, and sequences a leading dimension N of
+everything per sequence: reference points (N, P), the new image
+(N, H, W, 3), intrinsics (N, 4), affine and exposures, with poses
+(N, K, 4, 4). B = N*K rows run as one: every reduction is along a row's own
+points, so a row rounds as it does alone. Without the leading N (points
+(P,), image (H, W, 3), K (4,), poses (K, 4, 4)) the same code is the one
+sequence. The JAX `lax.while_loop` becomes a host loop that runs until
+every row is done and freezes the finished ones, which is what a vmapped
+while_loop does; its read of the flag is one host read an iteration for
+the whole batch.
 """
 
 from __future__ import annotations
@@ -28,7 +36,8 @@ from stereo_dso_g2o_tpu_torch.config import (
     Settings,
     default_settings,
 )
-from stereo_dso_g2o_tpu_torch.utils import se3
+from stereo_dso_g2o_tpu_torch.ops.interp import take
+from stereo_dso_g2o_tpu_torch.utils import host, se3
 from stereo_dso_g2o_tpu_torch.utils.fixed import nonzero_fixed
 from stereo_dso_g2o_tpu_torch.utils.smalls import cholesky_solve_small, fma
 
@@ -166,8 +175,10 @@ class ResStats(NamedTuple):
 
 
 def _bilinear3(dI, x, y):
-    """Bilinear (I, gx, gy) sample of an (H, W, 3) level at (x, y)."""
-    H, W = dI.shape[:2]
+    """Bilinear (I, gx, gy) sample of an (H, W, 3) level at (x, y); of
+    image n of an (N, H, W, 3) stack for row n of (N, ...) coordinates."""
+    stacked = dI.dim() == 4
+    H, W = dI.shape[-3:-1]
     x = torch.clamp(x, 0.0, W - 1.001)
     y = torch.clamp(y, 0.0, H - 1.001)
     xf = torch.floor(x)
@@ -176,8 +187,8 @@ def _bilinear3(dI, x, y):
     iy = torch.nan_to_num(yf).long()
     fx = (x - xf)[..., None]
     fy = (y - yf)[..., None]
-    top = (1 - fx) * dI[iy, ix] + fx * dI[iy, ix + 1]
-    bot = (1 - fx) * dI[iy + 1, ix] + fx * dI[iy + 1, ix + 1]
+    top = (1 - fx) * take(dI, iy, ix, stacked) + fx * take(dI, iy, ix + 1, stacked)
+    bot = (1 - fx) * take(dI, iy + 1, ix, stacked) + fx * take(dI, iy + 1, ix + 1, stacked)
     return (1 - fy) * top + fy * bot
 
 
@@ -190,41 +201,45 @@ def calc_res(
     cutoff_th, settings: Settings = default_settings(), compute_flow: bool = True,
 ) -> ResStats:
     """Photometric residuals of all reference points warped into the new frame
-    (calcRes legacy semantics), for B pose hypotheses at once.
+    (calcRes legacy semantics), for K pose hypotheses at once.
 
-    pc_*: (N,); K_lvl: (4,); T_ref_new: (B,4,4); aff_ab: (B,2);
-    cutoff_th: (B,)."""
-    H, W = dI_new.shape[:2]
-    fx, fy, cx, cy = K_lvl[0], K_lvl[1], K_lvl[2], K_lvl[3]
-    R = T_ref_new[:, :3, :3]
-    t = T_ref_new[:, :3, 3]
+    pc_*: (P,); K_lvl: (4,); T_ref_new: (K,4,4); aff_ab: (K,2);
+    cutoff_th: (K,). For N sequences (module docstring): pc_* (N, P),
+    dI_new (N, H, W, 3), K_lvl (N, 4), T_ref_new (N, K, 4, 4), aff_ab
+    (N, K, 2), cutoff_th (N, K)."""
+    H, W = dI_new.shape[-3:-1]
+    # per sequence, broadcast over its points ((..., 1)) and its rows' points
+    fx, fy, cx, cy = (K_lvl[..., j, None] for j in range(4))
+    fxr, fyr, cxr, cyr = (k[..., None] for k in (fx, fy, cx, cy))
+    R = T_ref_new[..., :3, :3]
+    t = T_ref_new[..., :3, 3]
 
     xn = (pc_u - cx) / fx
     yn = (pc_v - cy) / fy
-    P = torch.stack([xn, yn, torch.ones_like(xn)], -1)  # (N, 3)
-    PR = torch.einsum("nk,bjk->bnj", P, R)  # P @ R^T
-    pt = PR + t[:, None, :] * pc_idepth[None, :, None]
+    P = torch.stack([xn, yn, torch.ones_like(xn)], -1)  # (..., P, 3)
+    PR = torch.einsum("...nk,...bjk->...bnj", P, R)  # P @ R^T
+    pt = PR + t[..., None, :] * pc_idepth[..., None, :, None]
     u_n = pt[..., 0] / pt[..., 2]
     v_n = pt[..., 1] / pt[..., 2]
     # XLA contracts these multiply-adds into FMAs (one rounding). At the
     # identity pose an integer reference pixel lands exactly on the in-bounds
     # edge (Ku > 2), so the rounding decides the test: round it the same way.
-    Ku = fma(fx, u_n, cx)
-    Kv = fma(fy, v_n, cy)
-    new_idepth = pc_idepth[None, :] / pt[..., 2]
+    Ku = fma(fxr, u_n, cxr)
+    Kv = fma(fyr, v_n, cyr)
+    new_idepth = pc_idepth[..., None, :] / pt[..., 2]
 
     inb = (
-        pc_ok[None, :]
+        pc_ok[..., None, :]
         & (Ku > 2) & (Kv > 2) & (Ku < W - 3) & (Kv < H - 3)
         & (new_idepth > 0)
     )
 
     hit = _bilinear3(dI_new, Ku, Kv)
-    residual = hit[..., 0] - (aff_ab[:, 0:1] * pc_color[None, :] + aff_ab[:, 1:2])
+    residual = hit[..., 0] - (aff_ab[..., 0:1] * pc_color[..., None, :] + aff_ab[..., 1:2])
     ar = torch.abs(residual)
     hw = _huber_w(ar, settings.huber_th)
 
-    cut = cutoff_th[:, None]
+    cut = cutoff_th[..., None]
     saturated = inb & (ar > cut)
     good = inb & ~saturated
     max_energy = 2.0 * settings.huber_th * cut - settings.huber_th**2
@@ -236,36 +251,37 @@ def calc_res(
     num_terms = torch.sum(inb, dim=-1)
     num_saturated = torch.sum(saturated, dim=-1)
 
-    B = T_ref_new.shape[0]
+    rows = tuple(T_ref_new.shape[:-2])
     if compute_flow:
-        ti = t[:, None, :] * pc_idepth[None, :, None]
-        ptT = P[None] + ti
-        KuT = fx * ptT[..., 0] / ptT[..., 2] + cx
-        KvT = fy * ptT[..., 1] / ptT[..., 2] + cy
-        ptT2 = P[None] - ti
-        KuT2 = fx * ptT2[..., 0] / ptT2[..., 2] + cx
-        KvT2 = fy * ptT2[..., 1] / ptT2[..., 2] + cy
+        ti = t[..., None, :] * pc_idepth[..., None, :, None]
+        ptT = P[..., None, :, :] + ti
+        KuT = fxr * ptT[..., 0] / ptT[..., 2] + cxr
+        KvT = fyr * ptT[..., 1] / ptT[..., 2] + cyr
+        ptT2 = P[..., None, :, :] - ti
+        KuT2 = fxr * ptT2[..., 0] / ptT2[..., 2] + cxr
+        KvT2 = fyr * ptT2[..., 1] / ptT2[..., 2] + cyr
         pt3 = PR - ti
-        Ku3 = fx * pt3[..., 0] / pt3[..., 2] + cx
-        Kv3 = fy * pt3[..., 1] / pt3[..., 2] + cy
+        Ku3 = fxr * pt3[..., 0] / pt3[..., 2] + cxr
+        Kv3 = fyr * pt3[..., 1] / pt3[..., 2] + cyr
 
-        m = pc_ok[None, :]
-        nsel = torch.clamp(torch.sum(pc_ok), min=1)
+        m = pc_ok[..., None, :]
+        nsel = torch.clamp(torch.sum(pc_ok, dim=-1), min=1)[..., None]
+        u_ref, v_ref = pc_u[..., None, :], pc_v[..., None, :]
 
         def msum(x):
             return torch.sum(torch.where(m, x, torch.zeros_like(x)), dim=-1)
 
         flow_t = (
-            msum((KuT - pc_u) ** 2 + (KvT - pc_v) ** 2)
-            + msum((KuT2 - pc_u) ** 2 + (KvT2 - pc_v) ** 2)
+            msum((KuT - u_ref) ** 2 + (KvT - v_ref) ** 2)
+            + msum((KuT2 - u_ref) ** 2 + (KvT2 - v_ref) ** 2)
         ) / (2.0 * nsel + 0.1)
         flow_rt = (
-            msum((Ku - pc_u) ** 2 + (Kv - pc_v) ** 2)
-            + msum((Ku3 - pc_u) ** 2 + (Kv3 - pc_v) ** 2)
+            msum((Ku - u_ref) ** 2 + (Kv - v_ref) ** 2)
+            + msum((Ku3 - u_ref) ** 2 + (Kv3 - v_ref) ** 2)
         ) / (2.0 * nsel + 0.1)
     else:
-        flow_t = torch.zeros(B, dtype=dI_new.dtype, device=dI_new.device)
-        flow_rt = torch.zeros(B, dtype=dI_new.dtype, device=dI_new.device)
+        flow_t = torch.zeros(rows, dtype=dI_new.dtype, device=dI_new.device)
+        flow_rt = torch.zeros(rows, dtype=dI_new.dtype, device=dI_new.device)
 
     return ResStats(
         energy=energy,
@@ -282,7 +298,7 @@ def calc_res(
         buf_dy=hit[..., 2],
         buf_residual=residual,
         buf_weight=hw,
-        buf_ref_color=pc_color[None, :].expand_as(residual),
+        buf_ref_color=pc_color[..., None, :].expand_as(residual),
     )
 
 
@@ -297,8 +313,10 @@ def calc_gs(stats: ResStats, K_lvl, a_coeff, b0):
     """(B,8,8) H and (B,8) b from the warped buffers (calcGSSSE), scaled by
     the reference's preconditioners (including its rot/trans scale swap).
 
-    a_coeff: (B,) photometric transfer slope; b0: reference frame's aff b."""
-    fx, fy = K_lvl[0], K_lvl[1]
+    a_coeff: (B,) photometric transfer slope; b0: reference frame's aff b.
+    For N sequences: K_lvl (N, 4), rows (N, K), b0 (N,)."""
+    fx, fy = K_lvl[..., 0, None, None], K_lvl[..., 1, None, None]
+    b0 = torch.as_tensor(b0)[..., None, None]
     ok = stats.buf_ok
     n = torch.clamp(torch.sum(ok, dim=-1), min=1).to(torch.float32)
 
@@ -316,16 +334,26 @@ def calc_gs(stats: ResStats, K_lvl, a_coeff, b0):
             -(u * v * dx + dy * (1.0 + v * v)),
             u * v * dy + dx * (1.0 + u * u),
             u * dy - v * dx,
-            a_coeff[:, None] * (b0 - stats.buf_ref_color),
+            a_coeff[..., None] * (b0 - stats.buf_ref_color),
             -torch.ones_like(u),
             stats.buf_residual,
         ],
         dim=-1,
     )  # (B, N, 9)
     w = torch.where(ok, stats.buf_weight, torch.zeros_like(stats.buf_weight))
-    Hfull = torch.einsum("bni,bnj->bij", J * w[..., None], J) / n[:, None, None]
-    Hm = Hfull[:, :8, :8]
-    bv = Hfull[:, :8, 8]
+    Jw = J * w[..., None]
+    if K_lvl.dim() == 2 and ok.shape[-2] == 1:
+        # one row per sequence (the winners on the fine levels): a lone row
+        # is a GEMM of its own, whose point sum the BLAS may split among
+        # threads, and a batch of rows is summed otherwise; so each
+        # sequence's row is its own GEMM, as the sequence alone computes it
+        Hfull = torch.cat([torch.einsum("...ni,...nj->...ij", Jw[k:k + 1], J[k:k + 1])
+                           for k in range(J.shape[0])])
+    else:
+        Hfull = torch.einsum("...ni,...nj->...ij", Jw, J)
+    Hfull = Hfull / n[..., None, None]
+    Hm = Hfull[..., :8, :8]
+    bv = Hfull[..., :8, 8]
     scale = _precond_scale(Hm)
     return Hm * scale[:, None] * scale[None, :], bv * scale
 
@@ -336,7 +364,7 @@ def calc_gs(stats: ResStats, K_lvl, a_coeff, b0):
 
 
 class LevelResult(NamedTuple):
-    T: torch.Tensor  # (B,4,4) refined refToNew
+    T: torch.Tensor  # (B,4,4) refined refToNew (rows (N, K) for N sequences)
     aff: torch.Tensor  # (B,2)
     res_per_point: torch.Tensor  # (B,) sqrt(E/num)
     flow_t: torch.Tensor
@@ -347,27 +375,30 @@ class LevelResult(NamedTuple):
 
 
 def _aff_transfer(ref_exposure, new_exposure, ref_aff, new_aff):
-    """AffLight::fromToVecExposure; new_aff: (B, 2) -> (B, 2)."""
-    a = torch.exp(new_aff[:, 0] - ref_aff[0]) * new_exposure / ref_exposure
-    b = new_aff[:, 1] - a * ref_aff[1]
+    """AffLight::fromToVecExposure; new_aff: (B, 2) -> (B, 2); for N
+    sequences ref_aff (N, 2), exposures (N,), new_aff (N, K, 2)."""
+    ref_exposure = torch.as_tensor(ref_exposure)[..., None]
+    new_exposure = torch.as_tensor(new_exposure)[..., None]
+    a = torch.exp(new_aff[..., 0] - ref_aff[..., 0, None]) * new_exposure / ref_exposure
+    b = new_aff[..., 1] - a * ref_aff[..., 1, None]
     return torch.stack([a, b], dim=-1)
 
 
 def _cutoff_rep_of(ar, inb, settings: Settings):
     """Closed-form while-doubling of levelCutoffRepeat: doubles while the
-    saturated fraction exceeds 0.6 and rep < 50. ar, inb: (B, N)."""
+    saturated fraction exceeds 0.6 and rep < 50. ar, inb: (..., P)."""
     n = torch.clamp(torch.sum(inb, dim=-1), min=1)
-    rep = torch.ones(ar.shape[0], dtype=torch.float32, device=ar.device)
+    rep = torch.ones(ar.shape[:-1], dtype=torch.float32, device=ar.device)
     for _ in range(7):
-        sat = torch.sum(inb & (ar > settings.coarse_cutoff_th * rep[:, None]), dim=-1) / n
+        sat = torch.sum(inb & (ar > settings.coarse_cutoff_th * rep[..., None]), dim=-1) / n
         rep = torch.where((sat > 0.6) & (rep < 50.0), rep * 2.0, rep)
     return rep
 
 
 def _energy_at_cutoff(ar, inb, cutoff, settings: Settings):
-    """(energy, num_terms, sat_frac) at cutoff (B,) from |residual| (B, N)."""
+    """(energy, num_terms, sat_frac) at cutoff (...,) from |residual| (..., P)."""
     hw = _huber_w(ar, settings.huber_th)
-    cut = cutoff[:, None]
+    cut = cutoff[..., None]
     saturated = inb & (ar > cut)
     good = inb & ~saturated
     max_energy = 2.0 * settings.huber_th * cut - settings.huber_th**2
@@ -380,28 +411,30 @@ def _energy_at_cutoff(ar, inb, cutoff, settings: Settings):
 
 
 def _bsel(mask, new, old):
-    """Per-hypothesis select: mask (B,), tensors (B, ...)."""
-    return torch.where(mask.reshape(mask.shape + (1,) * (new.ndim - 1)), new, old)
+    """Per-row select: mask (B,), tensors (B, ...) (rows of any rank)."""
+    return torch.where(mask.reshape(mask.shape + (1,) * (new.ndim - mask.ndim)), new, old)
 
 
 def lm_level(
     pc_u, pc_v, pc_idepth, pc_color, pc_ok, dI_new, K_lvl,
-    T_init,  # (B, 4, 4)
-    aff_init,  # (B, 2)
-    ref_aff,  # (2,)
-    ref_exposure,
-    new_exposure,
-    have_repeated,  # (B,) bool
+    T_init,  # (K, 4, 4), or (N, K, 4, 4) for N sequences
+    aff_init,  # (K, 2) / (N, K, 2)
+    ref_aff,  # (2,) / (N, 2)
+    ref_exposure,  # () / (N,)
+    new_exposure,  # () / (N,)
+    have_repeated,  # (K,) / (N, K) bool
     settings: Settings = default_settings(),
     max_iterations: int = 10,
 ) -> LevelResult:
     """One pyramid level of the tracker's LM (legacy loop), including the
-    cutoff-repeat machinery, for B hypotheses (see module docstring)."""
+    cutoff-repeat machinery, for K hypotheses of one sequence or of each of
+    N sequences (see module docstring)."""
     s = settings
     lambda_extrap_limit = 0.001
-    B = T_init.shape[0]
+    rows = tuple(T_init.shape[:-2])
     dev = T_init.device
     f32 = torch.float32
+    b_ref = ref_aff[..., 1]
 
     def res_of(T, aff, cutoff, compute_flow=False):
         ab = _aff_transfer(ref_exposure, new_exposure, ref_aff, aff)
@@ -410,14 +443,14 @@ def lm_level(
             cutoff, settings=settings, compute_flow=compute_flow,
         ), ab
 
-    stats_p, ab0 = res_of(T_init, aff_init, torch.full((B,), 1e30, dtype=f32, device=dev))
+    stats_p, ab0 = res_of(T_init, aff_init, torch.full(rows, 1e30, dtype=f32, device=dev))
     ar0 = torch.abs(stats_p.buf_residual)
     inb0 = stats_p.buf_inb
     rep0 = _cutoff_rep_of(ar0, inb0, s)
     cutoff0 = s.coarse_cutoff_th * rep0
-    stats0 = stats_p._replace(buf_ok=inb0 & (ar0 <= cutoff0[:, None]))
+    stats0 = stats_p._replace(buf_ok=inb0 & (ar0 <= cutoff0[..., None]))
     E0, n0, _ = _energy_at_cutoff(ar0, inb0, cutoff0, s)
-    H0, b0v = calc_gs(stats0, K_lvl, ab0[:, 0], ref_aff[1])
+    H0, b0v = calc_gs(stats0, K_lvl, ab0[..., 0], b_ref)
     rep_pending0 = (rep0 > 1.0) & ~have_repeated
 
     opt_a = settings.affine_opt_mode_a >= 0
@@ -425,51 +458,51 @@ def lm_level(
     scale = _precond_scale(H0)
 
     def solve(Hm, bv, lam):
-        Hl = Hm + torch.diag_embed(torch.diagonal(Hm, dim1=-2, dim2=-1)) * lam[:, None, None]
+        Hl = Hm + torch.diag_embed(torch.diagonal(Hm, dim1=-2, dim2=-1)) * lam[..., None, None]
         if opt_a and opt_b:
             inc = cholesky_solve_small(Hl, -bv)
         elif not opt_a and not opt_b:
-            inc6 = cholesky_solve_small(Hl[:, :6, :6], -bv[:, :6])
-            inc = torch.cat([inc6, torch.zeros(B, 2, dtype=Hl.dtype, device=dev)], -1)
+            inc6 = cholesky_solve_small(Hl[..., :6, :6], -bv[..., :6])
+            inc = torch.cat([inc6, torch.zeros(rows + (2,), dtype=Hl.dtype, device=dev)], -1)
         elif opt_a and not opt_b:
-            inc7 = cholesky_solve_small(Hl[:, :7, :7], -bv[:, :7])
-            inc = torch.cat([inc7, torch.zeros(B, 1, dtype=Hl.dtype, device=dev)], -1)
+            inc7 = cholesky_solve_small(Hl[..., :7, :7], -bv[..., :7])
+            inc = torch.cat([inc7, torch.zeros(rows + (1,), dtype=Hl.dtype, device=dev)], -1)
         else:  # fix a, optimize b (stitch trick)
             idx = torch.tensor([0, 1, 2, 3, 4, 5, 7], device=dev)
-            Hs = Hl[:, idx][:, :, idx]
-            inc7 = cholesky_solve_small(Hs, -bv[:, idx])
-            inc = torch.zeros(B, 8, dtype=Hl.dtype, device=dev)
-            inc[:, :6] = inc7[:, :6]
-            inc[:, 7] = inc7[:, 6]
+            Hs = Hl[..., idx, :][..., idx]
+            inc7 = cholesky_solve_small(Hs, -bv[..., idx])
+            inc = torch.zeros(rows + (8,), dtype=Hl.dtype, device=dev)
+            inc[..., :6] = inc7[..., :6]
+            inc[..., 7] = inc7[..., 6]
         extrap = torch.where(
             lam < lambda_extrap_limit,
             torch.sqrt(torch.sqrt(lambda_extrap_limit / torch.clamp(lam, min=1e-12))),
             torch.ones_like(lam),
         )
-        inc = inc * extrap[:, None]
+        inc = inc * extrap[..., None]
         inc_scaled = inc * scale
         fin = torch.isfinite(inc_scaled).all(dim=-1, keepdim=True)
         return torch.where(fin, inc_scaled, torch.zeros_like(inc_scaled)), inc
 
-    it = torch.zeros(B, dtype=torch.int64, device=dev)
-    total = torch.zeros(B, dtype=torch.int64, device=dev)
+    it = torch.zeros(rows, dtype=torch.int64, device=dev)
+    total = torch.zeros(rows, dtype=torch.int64, device=dev)
     T, aff, E_old, n_old = T_init, aff_init, E0, n0
-    lam = torch.full((B,), 0.01, dtype=f32, device=dev)
+    lam = torch.full(rows, 0.01, dtype=f32, device=dev)
     Hm, bv, cutoff, ar, inb = H0, b0v, cutoff0, ar0, inb0
     rep_pending = rep_pending0
-    done = torch.full((B,), max_iterations <= 0, dtype=torch.bool, device=dev)
+    done = torch.full(rows, max_iterations <= 0, dtype=torch.bool, device=dev)
 
-    while not bool(done.all()):
+    while not host.flag(done.all()):
         run = ~done
         inc_scaled, inc_raw = solve(Hm, bv, lam)
-        T_new = se3.se3_exp(inc_scaled[:, :6]) @ T
-        aff_new = aff + inc_scaled[:, 6:8]
+        T_new = se3.se3_exp(inc_scaled[..., :6]) @ T
+        aff_new = aff + inc_scaled[..., 6:8]
         stats_new, ab_new = res_of(T_new, aff_new, cutoff)
         accept = (stats_new.energy / torch.clamp(stats_new.num_terms, min=1)) < (
             E_old / torch.clamp(n_old, min=1)
         )
 
-        Hn, bn = calc_gs(stats_new, K_lvl, ab_new[:, 0], ref_aff[1])
+        Hn, bn = calc_gs(stats_new, K_lvl, ab_new[..., 0], b_ref)
         T_out = _bsel(accept, T_new, T)
         aff_out = _bsel(accept, aff_new, aff)
         E_out = torch.where(accept, stats_new.energy, E_old)

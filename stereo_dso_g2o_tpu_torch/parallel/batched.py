@@ -2,19 +2,20 @@
 
 Port of `stereo_dso_g2o_tpu/parallel/batched.py`. There the whole frame
 program is `vmap`ped over a leading sequence axis, so stepping N sequences
-is one dispatch and one small fetch per frame. This module carries the same
-semantics: the state of all sequences lives stacked (every leaf of
-`GraphState` with a leading axis N), the three dispatch modes, the deferred
-keyframe hand-off, the keyframe subset and the lagged drain. The three
-`*_batched` functions compute what `vmap` computes, by mapping the frame
-program over the leading axis sequence by sequence: the frame program here
-is eager, branches on the host at `need_kf` and takes Python ints for
-window slots, so it is not one launch, and a batched frame costs about N
-single frames: 2255 and 2229 ms (mean, two runs) for 4 sequences at 1216x352
-in "deferred" against 4 x 625 and 4 x 553 ms for the single-sequence frame
-program in the same runs on an NVIDIA H100 80GB HBM3 at 700 W
-(chip_smoke.py, PERF.md §5; host-bound either way, and no speed-up over N
-single runs is claimed).
+is one dispatch and one small fetch per frame. Here the state of all
+sequences lives stacked (every leaf of `GraphState` with a leading axis N)
+and the track half, which every frame runs, is one program over that axis:
+`frame_track_batched` is `graph_system.frame_track` on the stacked state,
+each op once for all N sequences (the N x 5 pose hypotheses as rows of one
+LM loop, one K1 launch per search for all sequences), and one sequence is
+its batch of one. The keyframe pipeline (`frame_kf_subset_batched`) and
+"fused" (`frame_auto_batched`) still run sequence by sequence. Measured on
+an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py [batched], 4 sequences
+at 1216x352, "deferred", frames 14-31): 708.2 and 548.1 ms per batched
+frame (mean, two runs) against 4 x 414.6 and 4 x 428.0 ms for the
+single-sequence frame program in the same runs, 0.43 and 0.32 of N single
+frames; 3 K1 launches on a batched frame without a keyframe, 5.85 on
+average with the keyframes; 67.6 host reads a batched frame.
 
 Three dispatch modes (`kf_mode`):
 
@@ -42,14 +43,12 @@ steps changed a sequence's potential, the two modes select other pixels
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from stereo_dso_g2o_tpu_torch.config import Settings, default_settings
-from stereo_dso_g2o_tpu_torch.frontend import graph_system as GSYS
 from stereo_dso_g2o_tpu_torch.frontend.full_system import device_image
 from stereo_dso_g2o_tpu_torch.frontend.graph_system import (
     FrameBundle,
@@ -59,26 +58,12 @@ from stereo_dso_g2o_tpu_torch.frontend.graph_system import (
     frame_kf,
     frame_track,
 )
+from stereo_dso_g2o_tpu_torch.utils import host
+from stereo_dso_g2o_tpu_torch.utils.tree import tree_map
 
 # ---------------------------------------------------------------------------
-# trees of tensors: NamedTuples, dataclasses, tuples and lists down to tensors
+# trees of tensors (utils/tree.py): stack, slice and scatter over sequences
 # ---------------------------------------------------------------------------
-
-
-def tree_map(fn: Callable, tree, *rest):
-    """`fn` over the tensor leaves of `tree` (and of `rest`, trees of the
-    same structure), rebuilt in the structure of `tree`."""
-    if isinstance(tree, torch.Tensor):
-        return fn(tree, *rest)
-    if dataclasses.is_dataclass(tree):
-        return type(tree)(**{
-            f.name: tree_map(fn, getattr(tree, f.name), *[getattr(r, f.name) for r in rest])
-            for f in dataclasses.fields(tree)
-        })
-    if isinstance(tree, (tuple, list)):
-        items = [tree_map(fn, x, *[r[i] for r in rest]) for i, x in enumerate(tree)]
-        return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
-    raise TypeError(f"tree_map: a {type(tree).__name__} is neither a tensor nor a container")
 
 
 def _tree_stack(trees):
@@ -157,16 +142,14 @@ def frame_track_batched(
     w0: int = 0,
     h0: int = 0,
 ):
-    """`frame_track` over the sequence axis: (states, bundles, aux), stacked."""
-    outs = [
-        frame_track(
-            _tree_slice(states, k), lefts[k], rights[k], calib_cs[k], baselines[k],
-            exposures[k], settings=settings, n_levels=n_levels, n_tries=n_tries,
-            w0=w0, h0=h0,
-        )
-        for k in range(lefts.shape[0])
-    ]
-    return tuple(_tree_stack([o[j] for o in outs]) for j in range(3))
+    """`frame_track` over the sequence axis, as one program: (states,
+    bundles, aux), stacked. The whole track half runs once for all N
+    sequences (`frame_track` with a leading axis), as the JAX package's
+    vmap of it does."""
+    return frame_track(
+        states, lefts, rights, calib_cs, baselines, exposures, settings=settings,
+        n_levels=n_levels, n_tries=n_tries, w0=w0, h0=h0,
+    )
 
 
 def frame_kf_subset_batched(
@@ -307,7 +290,7 @@ class BatchedRunner:
                 states_pre, lefts, rights, self.calib_cs, self.baselines,
                 expos, n_tries=5, **common,
             )
-            need = np.nonzero(np.asarray(GSYS._host(bundles.need_kf)))[0]
+            need = np.nonzero(np.asarray(host.tolist(bundles.need_kf)))[0]
             if need.size:
                 st_b, b_b, idx = self._dispatch_kf_subset(
                     states_pre, aux, expos, pots, need, common
@@ -341,7 +324,7 @@ class BatchedRunner:
             return
         states_pre, aux, bundles, expos, entry = self._pending_kf
         self._pending_kf = None
-        need = np.nonzero(np.asarray(GSYS._host(bundles.need_kf)))[0]
+        need = np.nonzero(np.asarray(host.tolist(bundles.need_kf)))[0]
         if not need.size:
             return
         st_b, b_b, idx = self._dispatch_kf_subset(
@@ -368,7 +351,7 @@ class BatchedRunner:
 
     def _drain_one(self):
         bundles, frame_id, timestamp = self._pending_q.pop(0)
-        GSYS.HOST_READS += 1  # one wait for the frame; the copies after it find it done
+        host.count()  # one wait for the frame; the copies after it find it done
         b_all = FrameBundle(*[x.cpu().numpy() for x in bundles])
         for k, gs in enumerate(self.systems):
             bk = FrameBundle(*[x[k] for x in b_all])

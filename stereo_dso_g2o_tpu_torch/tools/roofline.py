@@ -115,7 +115,7 @@ def main(traced=12, seq=0, small=False, device=None) -> dict:
     host = dict(host_split(host_prof, host_ms, HOST_FRAMES), untraced_wall_ms_per_frame=untraced_ms)
 
     search = [(name, us) for name, us in launches if search_kernel(name)]
-    search_bytes = sum(tk.search_bound(*ops[0].shape[:2], ops[1], kw["S"], kw["gn_iters"]).bytes
+    search_bytes = sum(tk.search_bound(*ops[0].shape[-3:-1], ops[1], kw["S"], kw["gn_iters"]).bytes
                        for _, ops, kw in calls)
     peak_GBps = tk.HBM_BYTES_PER_S / 1e9
     out = {"backend": str(dev), "wall_ms_per_frame": wall_ms, "n_frames_traced": n_tr,

@@ -68,13 +68,15 @@ def so3_log(R):
     return w * scale[..., None]
 
 
-def se3_exp(xi):
-    """xi: (..., 6) with (trans[3], rot[3]) Sophus ordering -> T: (..., 4, 4)."""
+def se3_exp(xi, matmul=torch.matmul):
+    """xi: (..., 6) with (trans[3], rot[3]) Sophus ordering -> T: (..., 4, 4).
+    `matmul`: the product of the 3x3 blocks (utils/smalls.matmul_fma rounds
+    it as a single 2-D product rounds)."""
     rho, w = xi[..., :3], xi[..., 3:]
     theta2 = torch.sum(w * w, dim=-1)
     theta = torch.sqrt(theta2 + _EPS * _EPS)
     W = hat(w)
-    W2 = W @ W
+    W2 = matmul(W, W)
     small = theta2 < 1e-8
     A = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
     B = torch.where(
@@ -88,15 +90,15 @@ def se3_exp(xi):
     return rt_to_mat(R, t)
 
 
-def se3_log(T):
-    """T: (..., 4, 4) -> xi: (..., 6) = (trans, rot)."""
+def se3_log(T, matmul=torch.matmul):
+    """T: (..., 4, 4) -> xi: (..., 6) = (trans, rot); `matmul` as in se3_exp."""
     R = T[..., :3, :3]
     t = T[..., :3, 3]
     w = so3_log(R)
     theta2 = torch.sum(w * w, dim=-1)
     theta = torch.sqrt(theta2 + _EPS * _EPS)
     W = hat(w)
-    W2 = W @ W
+    W2 = matmul(W, W)
     small = theta2 < 1e-8
     A = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
     B = torch.where(

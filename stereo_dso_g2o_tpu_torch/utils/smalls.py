@@ -3,7 +3,8 @@
 Port of `stereo_dso_g2o_tpu/utils/smalls.py`: the n <= 8 normal-equation
 solves of the tracker and the immature-point optimizer run as one unrolled
 Cholesky chain over arbitrary leading batch dimensions. Also `fma`, for the
-few products whose rounding decides a comparison.
+few products whose rounding decides a comparison, and `matmul_fma`, small
+matrix products rounded as one product alone rounds on the BLAS.
 """
 
 from __future__ import annotations
@@ -50,3 +51,17 @@ def fma(a, b, c):
     """a*b + c in float32 with a single rounding, as XLA contracts it (a
     float64 product of two float32 values is exact)."""
     return (a.double() * b.double() + c.double()).float()
+
+
+def matmul_fma(A, B):
+    """A @ B of small matrices over any leading dimensions, every entry a
+    chain of fused multiply-adds over k in order (a0*b0, then fma(ak, bk,
+    acc)): how the BLAS rounds a single small 2-D product, and XLA its dot.
+    A batched `@` on the CPU sums without fusing, so a sequence's pose
+    products would round one way alone and another in a batch; this rounds
+    them the same in both."""
+    a, b = A.double(), B.double()
+    acc = (a[..., :, 0, None] * b[..., None, 0, :]).float()
+    for k in range(1, A.shape[-1]):
+        acc = (a[..., :, k, None] * b[..., None, k, :] + acc.double()).float()
+    return acc

@@ -27,6 +27,27 @@ def n(x):
     return x.detach().cpu().numpy()
 
 
+class ReadCounter:
+    """Counts, through `monkeypatch`, every Python-level read of a tensor's
+    value on the host (`bool`, `int`, `float`, `index`, `.item`, `.tolist`,
+    `.cpu`, `.numpy`) while `on`; `n` is the count, `by` per method."""
+
+    READS = ("__bool__", "__int__", "__float__", "__index__", "item", "tolist", "cpu", "numpy")
+
+    def __init__(self, monkeypatch):
+        self.n, self.by, self.on = 0, {}, True
+        for name in self.READS:
+            inner = getattr(torch.Tensor, name)
+
+            def spy(*a, _inner=inner, _name=name, **kw):
+                if self.on:
+                    self.n += 1
+                    self.by[_name] = self.by.get(_name, 0) + 1
+                return _inner(*a, **kw)
+
+            monkeypatch.setattr(torch.Tensor, name, spy)
+
+
 def jax_uniform(salt, shape, device="cpu"):
     """The JAX package's selector thinning draw, for PixelSelector(uniform=)."""
     u = jax.random.uniform(jax.random.PRNGKey(salt & 0x7FFFFFFF), shape)

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_parity import fields, gs_snapshot, jax_graph_uniform, jax_uniform, n, t
+from _torch_parity import ReadCounter, fields, gs_snapshot, jax_graph_uniform, jax_uniform, n, t
 from test_graph_system import BASE, H_, SET, W_, _frames
 
 from stereo_dso_g2o_tpu.backend import window as jW
@@ -222,20 +222,35 @@ def test_graph_system_slice_matches_jax(jax_run):
     assert cloud["xyz"].shape[0] > 100 and np.isfinite(cloud["xyz"]).all()
 
 
-def test_graph_chain_from_jax_freeze_matches_jax(jax_run):
+def test_graph_chain_from_jax_freeze_matches_jax(jax_run, monkeypatch):
     """Eight chained graph frames (add_frame, lagged drain, potential
     adaptation) from the JAX system's freeze point: same keyframes,
     per-frame translation <= 1e-3 m, ATE within 5e-4 m."""
     K, poses, frames = jax_run["K"], jax_run["poses"], jax_run["frames"]
     gs = bridge.graph_system_from_snapshot(jax_run["snaps"][N_BOOT], _tcalib(K), _tset(),
                                            device="cpu", uniform=jax_graph_uniform)
+    counter = ReadCounter(monkeypatch)
+    drain = gs._drain_one
+
+    def drain_apart():
+        counter.on = False
+        try:
+            return drain()
+        finally:
+            counter.on = True
+
+    gs._drain_one = drain_apart
     tgs.reset_host_reads()
     for i in range(N_BOOT, N_FRAMES):
         gs.add_frame(frames[i][0], frames[i][1], i, timestamp=0.1 * i)
     tt = gs.trajectory()
+    monkeypatch.undo()
     n_kf = len(gs.kf_shells) - len(jax_run["snaps"][N_BOOT]["kf_shells"])
-    # per frame: the reference slot, need_kf, the drain; per keyframe one more
-    assert tgs.HOST_READS == 3 * (N_FRAMES - N_BOOT) + n_kf
+    # every read the frame program makes (each LM iteration, need_kf, a
+    # keyframe's packed read, its activation counts and BA flags) and the
+    # drain's one wait per frame
+    assert n_kf >= 1 and counter.n > 2 * (N_FRAMES - N_BOOT)
+    assert tgs.HOST_READS == counter.n + (N_FRAMES - N_BOOT), counter.by
     assert [s.id for s in gs.kf_shells] == jax_run["kf_ids"] and gs.pot == jax_run["gs"].pot
     dt = [np.linalg.norm(a[:3, 3] - b[:3, 3]) for a, b in zip(jax_run["traj"], tt)]
     assert max(dt) <= 1e-3, dt
