@@ -57,6 +57,22 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
      printed), and the lanes of a batched frame without a keyframe go to K1
      as one launch, held bit for bit to a launch per sequence and to the
      plain version, all three timed;
+     The "gated" run also runs "fused" from the same pre-frame state every
+     frame (keyframe flags equal, poses within 1e-5), and its keyframe
+     dispatches are held to one sequence's keyframe pipeline: K1 launched
+     as often whatever the subset's size (also in the long run), host reads
+     per dispatch printed, the batched keyframe's window poses within 1e-5
+     of the single one's, and the lanes of the largest dispatch go to K1 as
+     one launch, held bit for bit to a launch per sequence and to the plain
+     version (temporal and stereo);
+  9b. batched-slab: 2 corridor sequences at 2048x1024 (over the gate),
+     bootstrapped 12 frames each, then 8 "gated" frames: K2 launched on
+     the main path and K1 not, a keyframe dispatch held as in 9, no
+     sequence lost, finite poses, every frame's poses within 1e-5 of the
+     single-sequence program from the same pre-frame state, and K2 on a
+     batched frame's temporal lanes and on the keyframe dispatch's lanes
+     as one launch, held bit for bit to a launch per sequence and to the
+     plain version;
   10. checkpoint: FullSystem over 16 frames, saved at frame 10, loaded and
      continued: trajectory and window equal the uninterrupted run's exactly;
   11. diagnostics: eigenvalue_record of phase 7's final window: finite, the
@@ -126,6 +142,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 PKG = ROOT / "stereo_dso_g2o_tpu_torch"
 if not (PKG / "__init__.py").is_file():
@@ -151,6 +168,12 @@ GRAPH_ATE_MAX = 2 * 0.0279 + 0.01
 # frames and settings (`JAX_PLATFORMS=cpu python tests/_torch_parity.py 1216
 # 352 0.54 12 32 <seq> 40`, PERF.md): (KFs, ATE in m). Bounds as above.
 N_SEQ, BATCH_FRAMES, GATED_FRAMES = 4, 32, 8
+# "fused" against "gated" from the same pre-frame state, and the batched
+# keyframe pipeline against one sequence's: cuBLAS may pick another
+# algorithm for another batch size, so poses are held to this bound
+BATCH_POSE_TOL = 1e-5
+# the batched path over the 6 MB gate: 2 corridor sequences at 2048x1024
+SLAB_SEQ, SLAB_FRAMES = 2, 8
 BATCH_JAX = ((8, 0.02297), (9, 0.03354), (8, 0.01902), (9, 0.01257))
 CKPT_FRAMES, CKPT_AT = 16, 10
 MULTISEQ_FRAMES = 14
@@ -391,13 +414,100 @@ def check_batched_k1(tensors, kw, tag):
                   uv_tol=BATCH_UV_TOL_PX, e_tol=BATCH_E_TOL_REL)
     k_ms, p_ms, raw = time_pair(lambda: tk.epipolar_search(*tensors, **kw),
                                 lambda: tk.epipolar_search_ref(*tensors, **kw))
-    one_by_one = cuda_ms(lambda: [tk.epipolar_search(*(x[k] for x in tensors), **kw)
-                                  for k in range(n_seq)])
+    rows = [tuple(x[k] for x in tensors) for k in range(n_seq)]
+    one_by_one = cuda_ms(lambda: [tk.epipolar_search(*r, **kw) for r in rows], reps=10)
     b = search_bound(tensors[0].shape[1], tensors[0].shape[2], tensors[1], kw["S"], kw["gn_iters"])
     print(f"[kernel] epipolar_search {tag}: one launch {raw[0]:.4f}/{raw[1]:.4f} ms, {n_seq} single "
           f"launches {one_by_one:.4f} ms, plain {raw[2]:.4f}/{raw[3]:.4f} ms (device time); bound "
           f"{b.ms:.5f} ms by {b.by}, share {100 * b.ms / k_ms:.1f} %")
     return err, (k_ms, p_ms), (b.ms, b.by), one_by_one
+
+
+def check_batched_k2(tensors, kw, tag):
+    """K2 on N sequences' lanes of one batched launch, as `check_batched_k1`
+    holds K1: one launch against a launch per sequence (bit for bit) and
+    against the plain version; all three timed, beside the bound."""
+    from stereo_dso_g2o_tpu_torch.ops import trace_cuda as tk
+
+    n_seq = tensors[0].shape[0]
+    out = tk.epipolar_search_slab(*tensors, **kw)
+    singles = [tk.epipolar_search_slab(*(x[k] for x in tensors), **kw) for k in range(n_seq)]
+    plain = tk.epipolar_search_slab_ref(*tensors, **kw)
+    torch.cuda.synchronize()
+    compare(out.reshape(-1, 8), torch.cat(singles), f"epipolar_search_slab batched vs {n_seq} "
+            f"single launches, {tag}", exact=True)
+    err = compare(out.reshape(-1, 8), plain.reshape(-1, 8),
+                  f"epipolar_search_slab batched vs plain, {tag}",
+                  uv_tol=BATCH_UV_TOL_PX, e_tol=BATCH_E_TOL_REL)
+    k_ms, p_ms, raw = time_pair(lambda: tk.epipolar_search_slab(*tensors, **kw),
+                                lambda: tk.epipolar_search_slab_ref(*tensors, **kw))
+    rows = [tuple(x[k] for x in tensors) for k in range(n_seq)]
+    one_by_one = cuda_ms(lambda: [tk.epipolar_search_slab(*r, **kw) for r in rows], reps=10)
+    b = search_bound(tensors[0].shape[1], tensors[0].shape[2], tensors[1], kw["S"], kw["gn_iters"])
+    print(f"[kernel] epipolar_search_slab {tag}: one launch {raw[0]:.4f}/{raw[1]:.4f} ms, {n_seq} "
+          f"single launches {one_by_one:.4f} ms, plain {raw[2]:.4f}/{raw[3]:.4f} ms (device "
+          f"time); bound {b.ms:.5f} ms by {b.by}, share {100 * b.ms / k_ms:.1f} %")
+    return err, (k_ms, p_ms), (b.ms, b.by), one_by_one
+
+
+def kf_dispatch_probe(runner, log):
+    """Wrap `runner._dispatch_kf_subset`: every keyframe dispatch notes
+    (subset size, K1 launches, host reads) in log["dispatches"]; the first
+    also runs one of its sequences through the single-sequence keyframe
+    pipeline (`frame_kf`, on a copy of the pyramid stack it writes) and
+    notes that pipeline's K1 launches and host reads, and the largest
+    difference of the window poses between the two; the lanes of the
+    dispatch with the most sequences are kept."""
+    from stereo_dso_g2o_tpu_torch.frontend import graph_system as tgs
+    from stereo_dso_g2o_tpu_torch.ops import trace_cuda as tk
+    from stereo_dso_g2o_tpu_torch.parallel.batched import _tree_slice
+
+    inner = runner._dispatch_kf_subset
+
+    def probe(states_pre, aux, expos, pots, need, common):
+        single = None
+        if "single" not in log:
+            k = int(need[0])
+            st = _tree_slice(states_pre, k)
+            st = st._replace(dI0_slots=st.dI0_slots.clone())
+            k0, r0 = tk.LAUNCHES + tk.LAUNCHES_SLAB, tgs.HOST_READS
+            _, single = tgs.frame_kf(
+                st, _tree_slice(aux, k), runner.calib_cs[k], runner.baselines[k], expos[k],
+                pot=pots[k], caps=runner.caps, imm_cap=runner.settings.immature_cap,
+                uniform=runner.uniforms[k], **common)
+            log["single"] = (tk.LAUNCHES + tk.LAUNCHES_SLAB - k0, tgs.HOST_READS - r0)
+        k0, r0 = tk.LAUNCHES + tk.LAUNCHES_SLAB, tgs.HOST_READS
+        with recorded_searches() as calls:
+            out = inner(states_pre, aux, expos, pots, need, common)
+        log["dispatches"].append((int(need.size), tk.LAUNCHES + tk.LAUNCHES_SLAB - k0,
+                                  tgs.HOST_READS - r0))
+        if single is not None:
+            log["kf_pose_dev"] = float((out[1].w2c[0] - single.w2c).abs().max())
+        if int(need.size) > log.get("lanes_size", 0):
+            log["lanes_size"], log["lanes"] = int(need.size), calls
+        return out
+
+    runner._dispatch_kf_subset = probe
+
+
+def check_kf_dispatches(log, tag):
+    """Print the keyframe dispatches by subset size; fail unless each
+    launched the epipolar kernels as often as one sequence's keyframe
+    pipeline and the batched poses agree with it."""
+    single_k, single_reads = log["single"]
+    by_size = {}
+    for size, k, reads in log["dispatches"]:
+        by_size.setdefault(size, []).append((k, reads))
+    print(f"[{tag}] keyframe dispatches (subset size: [(kernel launches, host reads)]) "
+          f"{dict(sorted(by_size.items()))}; one sequence's keyframe pipeline {single_k} launches, "
+          f"{single_reads} host reads; largest window-pose difference of the batched keyframe "
+          f"from the single-sequence one {log['kf_pose_dev']:.3g}")
+    if any(k != single_k for _, k, _ in log["dispatches"]):
+        fail(f"{tag}: a keyframe dispatch launched the epipolar kernels another number of times "
+             f"than one sequence's keyframe pipeline ({single_k}): {by_size}")
+    if not log["kf_pose_dev"] <= BATCH_POSE_TOL:
+        fail(f"{tag}: batched keyframe poses off the single-sequence keyframe by "
+             f"{log['kf_pose_dev']} > {BATCH_POSE_TOL}")
 
 
 def phase_batched(dev, settings, calib, K, poses_cw, seq0, graph_ms, launches):
@@ -409,7 +519,7 @@ def phase_batched(dev, settings, calib, K, poses_cw, seq0, graph_ms, launches):
     from stereo_dso_g2o_tpu_torch.frontend.full_system import FullSystem
     from stereo_dso_g2o_tpu_torch.io import synthetic, trajectory
     from stereo_dso_g2o_tpu_torch.ops import trace_cuda as tk
-    from stereo_dso_g2o_tpu_torch.parallel.batched import BatchedRunner, _tree_slice
+    from stereo_dso_g2o_tpu_torch.parallel.batched import BatchedRunner, _tree_slice, tree_map
 
     t0 = time.perf_counter()
     seqs = [(seq0[0][:BATCH_FRAMES], seq0[1][:BATCH_FRAMES])]
@@ -447,18 +557,35 @@ def phase_batched(dev, settings, calib, K, poses_cw, seq0, graph_ms, launches):
     # also held to the single-sequence program from the same pre-frame
     # state, and the lanes of a batched frame without a keyframe are kept
     short, pose_dev, k1_calls, single_k1 = {}, [], None, []
+    kf_log = {"dispatches": []}
+    fused_dev, fused_kf_differ, fused_k1 = [], 0, []
     expos = torch.ones(N_SEQ, device=dev)
     for mode in ("deferred", "gated"):
         r = runner_from_freeze(mode)
+        if mode == "gated":
+            kf_dispatch_probe(r, kf_log)
+            fz = runner_from_freeze("fused")
         for i in range(BOOT, BOOT + GATED_FRAMES):
             if mode == "deferred":
                 r.add_frames((L_all[:, i], R_all[:, i]), i, timestamp=0.1 * i)
                 continue
-            pre = r.states
+            pre, pots = r.states, r._current_pots()
             with recorded_searches() as calls:
                 r.add_frames((L_all[:, i], R_all[:, i]), i, timestamp=0.1 * i)
             if k1_calls is None and len(calls) == 3 and all(c[1][0].dim() == 4 for c in calls):
                 k1_calls = calls
+            # "fused" from the same pre-frame state and potentials
+            fz.states = tree_map(torch.clone, pre)
+            for g, pot in zip(fz.systems, pots):
+                g.pot = pot
+            k0 = tk.LAUNCHES
+            fz.add_frames((L_all[:, i], R_all[:, i]), i, timestamp=0.1 * i)
+            fused_k1.append(tk.LAUNCHES - k0)
+            b_g, b_f = r._pending_q[-1][0], fz._pending_q[-1][0]
+            fused_kf_differ += int((b_g.need_kf != b_f.need_kf).sum())
+            for k in range(N_SEQ):
+                fused_dev.append(max(float((b_g.T[k] - b_f.T[k]).abs().max()),
+                                     float((b_g.w2c[k] - b_f.w2c[k]).abs().max())))
             T_b = r._pending_q[-1][0].T
             for k in range(N_SEQ):
                 k0 = tk.LAUNCHES
@@ -474,6 +601,23 @@ def phase_batched(dev, settings, calib, K, poses_cw, seq0, graph_ms, launches):
           f"single-sequence program over {N_SEQ} sequences {max(pose_dev):.3g} (median "
           f"{float(np.median(pose_dev)):.3g}); K1 launches of a single-sequence frame_track "
           f"{sorted(set(single_k1))}")
+    print(f"[batched] {GATED_FRAMES} frames \"fused\" against \"gated\" from the same pre-frame "
+          f"state: keyframe flags differ in {fused_kf_differ} of {GATED_FRAMES * N_SEQ}; largest "
+          f"pose difference (track pose and window poses) {max(fused_dev):.3g} (median "
+          f"{float(np.median(fused_dev)):.3g}); K1 launches a \"fused\" frame "
+          f"{sorted(set(fused_k1))}")
+    if fused_kf_differ:
+        fail(f'batched: "fused" and "gated" keyframe flags differ in {fused_kf_differ} places')
+    if not max(fused_dev) <= BATCH_POSE_TOL:
+        fail(f'batched: "fused" poses off "gated" by {max(fused_dev)} > {BATCH_POSE_TOL}')
+    if not kf_log["dispatches"]:
+        fail('batched: no keyframe dispatch in the "gated" run')
+    check_kf_dispatches(kf_log, "batched")
+    for j, (_, tensors, kw) in enumerate(kf_log["lanes"]):
+        edge = "stereo" if kw["edge"] == tk.EDGE_ZERO else "temporal"
+        check_batched_k1(tensors, kw, f"keyframe dispatch launch {j} ({edge}, "
+                         f"{tensors[0].shape[0]} x N={tensors[1].shape[1]})")
+    del fz
     if k1_calls is None:
         fail("batched: no frame of the short run launched K1 once per search for all sequences")
     k1_rows = []
@@ -500,12 +644,14 @@ def phase_batched(dev, settings, calib, K, poses_cw, seq0, graph_ms, launches):
     torch.cuda.reset_peak_memory_stats()
     tk.reset_launches()
     tgs.reset_host_reads()
-    dispatches = []
+    dispatches = []  # (subset size, K1 launches, host reads) of each keyframe dispatch
     inner = runner._dispatch_kf_subset
 
     def counting(states_pre, aux, expos, pots, need, common):
-        dispatches.append(int(need.size))
-        return inner(states_pre, aux, expos, pots, need, common)
+        k0, r0 = tk.LAUNCHES, tgs.HOST_READS
+        out = inner(states_pre, aux, expos, pots, need, common)
+        dispatches.append((int(need.size), tk.LAUNCHES - k0, tgs.HOST_READS - r0))
+        return out
 
     runner._dispatch_kf_subset = counting
     step_k1 = []  # (K1 launches of the step, a keyframe pipeline ran in it)
@@ -531,7 +677,17 @@ def phase_batched(dev, settings, calib, K, poses_cw, seq0, graph_ms, launches):
           f"single-sequence graph path of this call: median {N_SEQ * graph_ms[0]:.1f} mean "
           f"{N_SEQ * graph_ms[1]:.1f}; ratio of the means {mean / (N_SEQ * graph_ms[1]):.3f}")
     nonkf = [n for n, kf in step_k1 if not kf]
-    print(f"[batched] keyframe dispatches by subset size {sorted(dispatches)}, kernel launches "
+    by_size = {}
+    for size, k, r_ in dispatches:
+        by_size.setdefault(size, []).append((k, r_))
+    print(f"[batched] keyframe dispatches (subset size: [(K1 launches, host reads)]) "
+          f"{dict(sorted(by_size.items()))}; one sequence's keyframe pipeline "
+          f"{kf_log['single'][0]} K1 launches, {kf_log['single'][1]} host reads")
+    if any(k != kf_log["single"][0] for _, k, _ in dispatches):
+        fail(f"batched: a keyframe dispatch launched K1 another number of times than one "
+             f"sequence's keyframe pipeline: {by_size}")
+    print(f"[batched] keyframe dispatches by subset size {sorted(d[0] for d in dispatches)}, "
+          f"kernel launches "
           f"{launches['batched']} ({launches['batched'][0] / n_graph:.2f} a batched frame, "
           f"{launches['batched'][0] / (N_SEQ * n_graph):.2f} a sequence frame; K1 in the "
           f"{len(nonkf)} batched frames without a keyframe {sorted(set(nonkf))}), host reads "
@@ -565,6 +721,113 @@ def phase_batched(dev, settings, calib, K, poses_cw, seq0, graph_ms, launches):
         if not ate <= 2 * jax_ate + 0.01:
             fail(f"batched: sequence {s}: ATE {ate} > {2 * jax_ate + 0.01}")
     return (L_all, R_all), k1_rows
+
+
+def phase_batched_slab(dev, settings, launches):
+    """Phase 9b: the batched runner over the 6 MB gate, where every trace
+    takes K2 with the sequence as its grid dimension y. SLAB_SEQ corridor
+    sequences at W2 x H2, each bootstrapped BOOT frames and frozen, then
+    SLAB_FRAMES "gated" frames. Returns K2 on a batched frame's lanes
+    (max |d uv| against the plain version, (ms, plain ms), (bound ms, by),
+    ms of the single launches, its tag)."""
+    import dataclasses
+
+    from stereo_dso_g2o_tpu_torch.frontend import graph_system as tgs
+    from stereo_dso_g2o_tpu_torch.frontend.full_system import FullSystem
+    from stereo_dso_g2o_tpu_torch.io import synthetic
+    from stereo_dso_g2o_tpu_torch.models.camera import make_calib
+    from stereo_dso_g2o_tpu_torch.ops import trace_cuda as tk
+    from stereo_dso_g2o_tpu_torch.parallel.batched import BatchedRunner, _tree_slice
+
+    t_phase = time.perf_counter()
+    if not tk.uses_slab_route(H2, W2):
+        fail(f"batched-slab: {W2}x{H2} is under the gate")
+    settings2 = dataclasses.replace(settings, max_pix_search=MAX_PIX_SEARCH2)
+    K2 = synthetic.default_K(W2, H2, fov_deg=80.0)
+    calib2 = make_calib(K2[0, 0], K2[1, 1], K2[0, 2], K2[1, 2], BASE, W2, H2, n_levels=6,
+                        device=dev)
+    n = BOOT + SLAB_FRAMES
+    poses = synthetic.forward_trajectory(n, step=STEP, yaw_amp=0.10, yaw_period=80.0, seed=0)
+    seqs = []
+    for s in range(SLAB_SEQ):
+        scene = synthetic.corridor_scene(seed=100 + s, length=STEP * N_FRAMES + 40.0,
+                                         box_spacing=9.0, lateral=14.0)
+        expos = 1.0 + 0.12 * np.sin(0.25 * np.arange(n) + s)
+        seqs.append(synthetic.render_stereo_sequence_fast(scene, K2, W2, H2, BASE, poses, expos,
+                                                          device=dev))
+    L_all = torch.stack([q[0] for q in seqs])
+    R_all = torch.stack([q[1] for q in seqs])
+    boots = []
+    for s in range(SLAB_SEQ):
+        fs = FullSystem(calib2, settings2, device=dev)
+        for i in range(BOOT):
+            fs.add_frame(L_all[s, i], R_all[s, i], i, timestamp=0.1 * i)
+        if fs.is_lost:
+            fail(f"batched-slab: sequence {s} lost in its bootstrap")
+        boots.append(fs)
+    torch.cuda.synchronize()
+    print(f"[batched-slab] {SLAB_SEQ} sequences {W2}x{H2} rendered and bootstrapped {BOOT} frames "
+          f"each in {time.perf_counter() - t_phase:.1f} s, KFs "
+          f"{[len(fs.kf_shells) for fs in boots]}")
+
+    runner = BatchedRunner([tgs.GraphSystem.from_full_system(fs) for fs in boots], kf_mode="gated")
+    log = {"dispatches": []}
+    kf_dispatch_probe(runner, log)
+    expos = torch.ones(SLAB_SEQ, device=dev)
+    pose_dev, frame_ms, lanes, main_k = [], [], None, [0, 0]
+    for i in range(BOOT, n):
+        pre = runner.states
+        k0 = (tk.LAUNCHES, tk.LAUNCHES_SLAB)
+        t1 = time.perf_counter()
+        with recorded_searches() as calls:
+            runner.add_frames((L_all[:, i], R_all[:, i]), i, timestamp=0.1 * i)
+        torch.cuda.synchronize()
+        frame_ms.append(1000.0 * (time.perf_counter() - t1))
+        main_k[0] += tk.LAUNCHES - k0[0]
+        main_k[1] += tk.LAUNCHES_SLAB - k0[1]
+        if lanes is None:
+            lanes = next((c for c in calls if c[0] == "epipolar_search_slab"
+                          and c[1][0].dim() == 4 and c[2]["edge"] == tk.EDGE_CLAMP), None)
+        if any(g.is_lost for g in runner.systems):
+            fail(f"batched-slab: a sequence was lost at frame {i}")
+        T_b = runner._pending_q[-1][0].T
+        for k in range(SLAB_SEQ):
+            _, b1, _ = tgs.frame_track(
+                _tree_slice(pre, k), L_all[k, i], R_all[k, i], runner.calib_cs[k],
+                runner.baselines[k], expos[k], n_tries=5, **runner._common())
+            pose_dev.append(float((T_b[k] - b1.T).abs().max()))
+    trajs = runner.trajectories()
+    # the single-sequence keyframe pipeline the probe ran is no main-path launch
+    main_k[1] -= log["single"][0] if "single" in log else 0
+    launches["batched-slab"] = tuple(main_k)
+    print(f"[batched-slab] {SLAB_SEQ} sequences x {SLAB_FRAMES} frames \"gated\": ms per batched "
+          f"frame median {float(np.median(frame_ms)):.1f} mean {float(np.mean(frame_ms)):.1f}; "
+          f"kernel launches (K1, K2) {tuple(main_k)}; largest per-frame pose difference from the "
+          f"single-sequence program {max(pose_dev):.3g} (median {float(np.median(pose_dev)):.3g})")
+    if main_k[1] <= 0:
+        fail("batched-slab: the slab kernel was not launched")
+    if main_k[0] != 0:
+        fail("batched-slab: the resident kernel ran on an image over the gate")
+    if not log["dispatches"]:
+        fail("batched-slab: no keyframe dispatch ran")
+    check_kf_dispatches(log, "batched-slab")
+    if not max(pose_dev) <= BATCH_POSE_TOL:
+        fail(f"batched-slab: batched poses off the single-sequence program by {max(pose_dev)} > "
+             f"{BATCH_POSE_TOL}")
+    for s, (g, traj) in enumerate(zip(runner.systems, trajs)):
+        if g.is_lost or len(traj) != n or not all(np.isfinite(T).all() for T in traj):
+            fail(f"batched-slab: sequence {s} lost, or non-finite or missing poses")
+    if lanes is None:
+        fail("batched-slab: no batched frame gave K2 its temporal lanes in one launch")
+    _, tensors, kw = lanes
+    tag = f"batched-slab track launch (temporal, {SLAB_SEQ} x N={tensors[1].shape[1]})"
+    out = check_batched_k2(tensors, kw, tag)
+    for j, (_, t_kf, kw_kf) in enumerate(log["lanes"]):
+        edge = "stereo" if kw_kf["edge"] == tk.EDGE_ZERO else "temporal"
+        check_batched_k2(t_kf, kw_kf, f"batched-slab keyframe dispatch launch {j} ({edge}, "
+                         f"{t_kf[0].shape[0]} x N={t_kf[1].shape[1]})")
+    print(f"[batched-slab] phase {time.perf_counter() - t_phase:.1f} s")
+    return out + (f"batched {SLAB_SEQ} x temporal N={tensors[1].shape[1]}",)
 
 
 def phase_checkpoint(dev, settings, calib, lefts, rights, launches):
@@ -1442,6 +1705,10 @@ def main() -> int:
         key = ("epipolar_search", f"{W_}x{H_}", f"batched {N_SEQ} x {edge} N={n_l}")
         timing[key], bounds[key] = times, bound
         max_err["epipolar_search"] = max(max_err["epipolar_search"], err)
+    err, times, bound, _, shape_b = phase_batched_slab(dev, settings, launches)
+    key_b = ("epipolar_search_slab", f"{W2}x{H2}", shape_b)
+    timing[key_b], bounds[key_b] = times, bound
+    max_err["epipolar_search_slab"] = max(max_err["epipolar_search_slab"], err)
     phase_checkpoint(dev, settings, calib, lefts, rights, launches)
     phase_diagnostics(gs.state.win, settings)
     phase_dist_and_multiseq(dev, settings, calib, gs.state.win, gs.state.dI0_slots, seqs_all,
@@ -1490,6 +1757,14 @@ def main() -> int:
             "stereo_dso_g2o_tpu/ops/trace_pallas.py:194",
             ("epipolar_search_slab", f"{W2}x{H2}", f"stereo L->R N={N_MATCH}"), 1),
     ]}
+    # K2 with the sequence as its grid dimension y, on the batched path over
+    # the gate: its launches are that path's
+    k2b = row("epipolar_search_slab", "stereo_dso_g2o_tpu_torch/csrc/epipolar_search_slab.cu",
+              "stereo_dso_g2o_tpu/ops/trace_pallas.py:194", key_b, 1)
+    k2b["launches"] = launches["batched-slab"][1]
+    k2b["launches_by_path"] = {"batched-slab": launches["batched-slab"][1]}
+    report["kernels"].append(k2b)
+    print(f"[total] chip_smoke.py {time.perf_counter() - T_START:.1f} s")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

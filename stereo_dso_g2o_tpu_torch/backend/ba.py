@@ -15,6 +15,13 @@ the shards (`parallel/dist_ba.py` passes an all-reduce), applied at the
 same places: the pair-block sums before the replicated priors are added,
 the residual count, the Schur part, the active-point count and idepth sum
 of the convergence test, and the energy. `None` is the one-shard path.
+
+Every function also takes a window stacked over N sequences (each leaf with
+a leading axis N, image stacks (N, F, H, W, 3), slots (N,)), as the JAX
+package's batched keyframe program vmaps them: each op runs once for all
+sequences, and the products that sum over a sequence's points run one per
+sequence (`_per_seq`), so that a sequence's bits are the same alone and in
+a batch. One window is the unbatched code it always was.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from stereo_dso_g2o_tpu_torch.config import (
 )
 from stereo_dso_g2o_tpu_torch.ops import residuals as R
 from stereo_dso_g2o_tpu_torch.utils import host, se3
+from stereo_dso_g2o_tpu_torch.utils.tree import per_row, select_rows
 
 C_SCALE = np.asarray([SCALE_F, SCALE_F, SCALE_C, SCALE_C], dtype=np.float32)
 
@@ -53,6 +61,28 @@ def _row_scale(win):
     )
 
 
+def _lead(win: W.Window):
+    """() for one window, (N,) for a window stacked over N sequences."""
+    return tuple(win.frame_valid.shape[:-1])
+
+
+def _per_seq(fn, win: W.Window, *xs):
+    """fn(*xs) for one window; for a stacked window, fn on each sequence's
+    rows, stacked (`utils/tree.per_row`): the products that sum over the
+    point axis, the solve, and the long sums, whose rounding would depend
+    on the batch (on the card a long sum splits over blocks by how many
+    sums run beside it, and a batched LU takes another algorithm than a
+    single one). A sequence's bits are the same alone and in a batch of any
+    size."""
+    return per_row(fn, bool(_lead(win)), *xs)
+
+
+def _ein(win: W.Window, eq: str, *ops):
+    """torch.einsum(eq, *ops) of one window, per sequence for a stacked one
+    (`_per_seq`): every product of the BA rounds as one sequence's alone."""
+    return _per_seq(lambda *o: torch.einsum(eq, *o), win, *ops)
+
+
 # ---------------------------------------------------------------------------
 # adjoints & deltas
 # ---------------------------------------------------------------------------
@@ -61,19 +91,20 @@ def _row_scale(win):
 def adjoints(win: W.Window):
     """adHost/adTarget per (host, target) pair (setAdjointsF)."""
     ev = win.evalPT
-    T_th = torch.einsum("tij,hjk->htik", ev, se3.inverse(ev))
+    T_th = _ein(win, "tij,hjk->htik", ev, se3.inverse(ev))
     Adj = se3.adjoint(T_th)
     F = win.F
     dt, dev = ev.dtype, ev.device
-    AH = torch.zeros((F, F, 8, 8), dtype=dt, device=dev)
-    AT = torch.zeros((F, F, 8, 8), dtype=dt, device=dev)
+    lead = _lead(win)
+    AH = torch.zeros(lead + (F, F, 8, 8), dtype=dt, device=dev)
+    AT = torch.zeros(lead + (F, F, 8, 8), dtype=dt, device=dev)
     AH[..., :6, :6] = -torch.swapaxes(Adj, -1, -2)
     AT[..., :6, :6] = torch.eye(6, dtype=dt, device=dev)
 
     aff0 = win.aff_g2l_0()
     affLL = W.aff_transfer(
-        win.ab_exposure[:, None], win.ab_exposure[None, :],
-        aff0[:, None, :], aff0[None, :, :],
+        win.ab_exposure[..., :, None], win.ab_exposure[..., None, :],
+        aff0[..., :, None, :], aff0[..., None, :, :],
     )
     a = affLL[..., 0]
     AT[..., 6, 6] = -a
@@ -82,7 +113,7 @@ def adjoints(win: W.Window):
     AH[..., 7, 7] = a
 
     rs = _row_scale(win)
-    return AH * rs[None, None, :, None], AT * rs[None, None, :, None]
+    return AH * rs[:, None], AT * rs[:, None]
 
 
 def deltas(win: W.Window):
@@ -95,33 +126,33 @@ def deltas(win: W.Window):
 
 def ht_delta(win: W.Window, AH, AT, d_frame):
     """adHTdeltaF: per-pair relative 8-dof delta row vectors."""
-    return torch.einsum("hi,htij->htj", d_frame, AH) + torch.einsum(
-        "ti,htij->htj", d_frame, AT
+    return _ein(win, "hi,htij->htj", d_frame, AH) + _ein(win, "ti,htij->htj", d_frame, AT
     )
 
 
 def stitched_delta(win: W.Window, d_frame, dc):
     """getStitchedDeltaF: (D,) = [dc, d_frame_0, ..., d_frame_{F-1}]."""
-    return torch.cat([dc, d_frame.reshape(-1)])
+    return torch.cat([dc, d_frame.flatten(-2)], -1)
 
 
 def frame_priors(win: W.Window, settings: Settings):
     """FrameHessian::getPrior, per slot."""
     F = win.F
     first = win.frame_id == 0
-    p = torch.zeros((F, 8), dtype=win.state.dtype, device=win.device)
+    p = torch.zeros(_lead(win) + (F, 8), dtype=win.state.dtype, device=win.device)
     a_other = (settings.initial_aff_a_prior if settings.affine_opt_mode_a < 0
                else settings.affine_opt_mode_a)
     b_other = (settings.initial_aff_b_prior if settings.affine_opt_mode_b < 0
                else settings.affine_opt_mode_b)
-    p[:, 6] = torch.where(first, torch.full_like(p[:, 6], settings.initial_aff_a_prior),
-                          torch.full_like(p[:, 6], a_other))
-    p[:, 7] = torch.where(first, torch.full_like(p[:, 7], settings.initial_aff_b_prior),
-                          torch.full_like(p[:, 7], b_other))
-    zero = torch.zeros_like(p[:, 0:3])
-    p[:, 0:3] = torch.where(first[:, None], torch.full_like(zero, settings.initial_trans_prior), zero)
-    p[:, 3:6] = torch.where(first[:, None], torch.full_like(zero, settings.initial_rot_prior), zero)
-    return p * win.frame_valid[:, None]
+    p[..., 6] = torch.where(first, torch.full_like(p[..., 6], settings.initial_aff_a_prior),
+                            torch.full_like(p[..., 6], a_other))
+    p[..., 7] = torch.where(first, torch.full_like(p[..., 7], settings.initial_aff_b_prior),
+                            torch.full_like(p[..., 7], b_other))
+    zero = torch.zeros_like(p[..., 0:3])
+    first3 = first[..., None]
+    p[..., 0:3] = torch.where(first3, torch.full_like(zero, settings.initial_trans_prior), zero)
+    p[..., 3:6] = torch.where(first3, torch.full_like(zero, settings.initial_rot_prior), zero)
+    return p * win.frame_valid[..., None]
 
 
 # ---------------------------------------------------------------------------
@@ -138,35 +169,39 @@ class Accum(NamedTuple):
     nres: torch.Tensor  # ()
 
 
+def _jp_delta(win: W.Window, dp, dc, d_pt):
+    """Jp * delta along x and y of every residual: (NP, F) each."""
+    def along(k):
+        return (
+            _ein(win, "nfk,nfk->nf",
+                     win.J_pdxi[..., k, :], dp[..., :6])
+            + _ein(win, "nfk,k->nf", win.J_pdc[..., k, :], dc)
+            + win.J_pdd[..., k] * d_pt[..., None]
+        )
+
+    return along(0), along(1)
+
+
 def _res_approx(win: W.Window, mode: int, dp, dc, d_pt):
     """resApprox per mode, from the accepted Jacobians."""
     if mode == 0:
         return win.J_resF
     if mode == 2:
         return win.res_to_zero
-    Jp_dx = (
-        torch.einsum("nfk,nfk->nf", win.J_pdxi[:, :, 0, :], dp[..., :6])
-        + torch.einsum("nfk,k->nf", win.J_pdc[:, :, 0, :], dc)
-        + win.J_pdd[:, :, 0] * d_pt[:, None]
-    )
-    Jp_dy = (
-        torch.einsum("nfk,nfk->nf", win.J_pdxi[:, :, 1, :], dp[..., :6])
-        + torch.einsum("nfk,k->nf", win.J_pdc[:, :, 1, :], dc)
-        + win.J_pdd[:, :, 1] * d_pt[:, None]
-    )
+    Jp_dx, Jp_dy = _jp_delta(win, dp, dc, d_pt)
     return (
         win.res_to_zero
-        + win.J_Idx[:, :, 0, :] * Jp_dx[..., None]
-        + win.J_Idx[:, :, 1, :] * Jp_dy[..., None]
-        + win.J_abF[:, :, 0, :] * dp[..., 6][..., None]
-        + win.J_abF[:, :, 1, :] * dp[..., 7][..., None]
+        + win.J_Idx[..., 0, :] * Jp_dx[..., None]
+        + win.J_Idx[..., 1, :] * Jp_dy[..., None]
+        + win.J_abF[..., 0, :] * dp[..., 6][..., None]
+        + win.J_abF[..., 1, :] * dp[..., 7][..., None]
     )
 
 
 def _onehot_host(win, dtype):
     F = win.F
     return (
-        win.pt_host[:, None].long() == torch.arange(F, device=win.device)[None, :]
+        win.pt_host[..., None].long() == torch.arange(F, device=win.device)
     ).to(dtype)
 
 
@@ -176,8 +211,9 @@ def accumulate_top(win: W.Window, AH, AT, mask, mode: int, settings: Settings,
     F = win.F
     dtype = win.state.dtype
     dev = win.device
+    lead = _lead(win)
     d_frame, dc, d_pt = deltas(win)
-    dp = ht_delta(win, AH, AT, d_frame)[win.pt_host.long()]  # (NP, F, 8)
+    dp = R.by_host(ht_delta(win, AH, AT, d_frame), win)  # (NP, F, 8)
 
     resA = _res_approx(win, mode, dp, dc, d_pt)
     m = mask.to(dtype)
@@ -188,46 +224,47 @@ def accumulate_top(win: W.Window, AH, AT, mask, mode: int, settings: Settings,
     Jpdc = win.J_pdc
     Jpdd = win.J_pdd
 
-    JI_r = torch.einsum("nfp,nfkp->nfk", resA, JIdx)
-    JIdx2 = torch.einsum("nfip,nfjp->nfij", JIdx, JIdx)
+    JI_r = _ein(win, "nfp,nfkp->nfk", resA, JIdx)
+    JIdx2 = _ein(win, "nfip,nfjp->nfij", JIdx, JIdx)
 
     G = torch.cat([Jpdc, Jpdxi], dim=-1)  # (NP, F, 2, 10)
-    u10 = torch.einsum("nfip,nfia->nfpa", JIdx, G)  # (NP, F, 8, 10)
+    u10 = _ein(win, "nfip,nfia->nfpa", JIdx, G)  # (NP, F, 8, 10)
     V = torch.cat([u10, torch.swapaxes(JabF, -1, -2), resA[..., None]], dim=-1)
 
     onehot = _onehot_host(win, dtype)
     Vm = V * m[..., None, None]
     # pair[h, f] = sum_n onehot[n, h] * sum_p Vm[n,f,p,:]^T V[n,f,p,:]
-    per = torch.einsum("nfpa,nfpb->nfab", Vm, V)  # (NP, F, 13, 13)
-    pair = torch.einsum("nh,nfab->hfab", onehot, per)
+    per = _ein(win, "nfpa,nfpb->nfab", Vm, V)  # (NP, F, 13, 13)
+    pair = _ein(win, "nh,nfab->hfab", onehot, per)
 
     A8 = pair[..., 4:12, 4:12]
     Ac = pair[..., 4:12, 0:4]
-    Acc = torch.sum(pair[..., 0:4, 0:4], dim=(0, 1))
+    Acc = _per_seq(lambda q: torch.sum(q[..., 0:4, 0:4], dim=(0, 1)), win, pair)
     br = pair[..., 4:12, 12]
-    bc = torch.sum(pair[..., 0:4, 12], dim=(0, 1))
+    bc = _per_seq(lambda q: torch.sum(q[..., 0:4, 12], dim=(0, 1)), win, pair)
 
     eyeF = torch.eye(F, dtype=dtype, device=dev)
-    Hoff = torch.einsum("htab,htbc,htdc->htad", AH, A8, AT)
-    Hsym = Hoff + torch.swapaxes(torch.swapaxes(Hoff, 0, 1), -1, -2)
+    Hoff = _ein(win, "htab,htbc,htdc->htad", AH, A8, AT)
+    Hsym = Hoff + torch.swapaxes(torch.swapaxes(Hoff, -4, -3), -1, -2)
     Hsym = Hsym * (1.0 - eyeF)[:, :, None, None]
-    diag_h = torch.einsum("htab,htbc,htdc->had", AH, A8, AH)
-    diag_t = torch.einsum("htab,htbc,htdc->tad", AT, A8, AT)
+    diag_h = _ein(win, "htab,htbc,htdc->had", AH, A8, AH)
+    diag_t = _ein(win, "htab,htbc,htdc->tad", AT, A8, AT)
 
     D = CPARS + 8 * F
-    Hout = torch.zeros((D, D), dtype=dtype, device=dev)
-    bout = torch.zeros((D,), dtype=dtype, device=dev)
+    Hout = torch.zeros(lead + (D, D), dtype=dtype, device=dev)
+    bout = torch.zeros(lead + (D,), dtype=dtype, device=dev)
 
-    Hff_total = Hsym + torch.einsum("had,ht->htad", diag_h + diag_t, eyeF)
-    Hout[CPARS:, CPARS:] = Hff_total.permute(0, 2, 1, 3).reshape(8 * F, 8 * F)
-    Hfc = torch.einsum("htab,htbc->hac", AH, Ac) + torch.einsum("htab,htbc->tac", AT, Ac)
-    Hout[CPARS:, :CPARS] = Hfc.reshape(8 * F, CPARS)
-    Hout[:CPARS, CPARS:] = Hfc.reshape(8 * F, CPARS).T
-    Hout[:CPARS, :CPARS] = Acc
+    Hff_total = Hsym + _per_seq(lambda d: torch.einsum("had,ht->htad", d, eyeF), win,
+                                diag_h + diag_t)
+    Hout[..., CPARS:, CPARS:] = Hff_total.transpose(-3, -2).reshape(lead + (8 * F, 8 * F))
+    Hfc = _ein(win, "htab,htbc->hac", AH, Ac) + _ein(win, "htab,htbc->tac", AT, Ac)
+    Hout[..., CPARS:, :CPARS] = Hfc.reshape(lead + (8 * F, CPARS))
+    Hout[..., :CPARS, CPARS:] = Hfc.reshape(lead + (8 * F, CPARS)).transpose(-1, -2)
+    Hout[..., :CPARS, :CPARS] = Acc
 
-    bf = torch.einsum("htab,htb->ha", AH, br) + torch.einsum("htab,htb->ta", AT, br)
-    bout[CPARS:] = bf.reshape(-1)
-    bout[:CPARS] = bc
+    bf = _ein(win, "htab,htb->ha", AH, br) + _ein(win, "htab,htb->ta", AT, br)
+    bout[..., CPARS:] = bf.flatten(-2)
+    bout[..., :CPARS] = bc
 
     if reduce is not None:
         # the pair-block sums are partial over the local point shard: summed
@@ -239,21 +276,21 @@ def accumulate_top(win: W.Window, AH, AT, mask, mode: int, settings: Settings,
         prior_f = frame_priors(win, settings)
         d_prior = win.state
         ci = torch.arange(CPARS, device=dev)
-        Hout[ci, ci] += settings.initial_calib_hessian
-        bout[:CPARS] += settings.initial_calib_hessian * dc
+        Hout[..., ci, ci] += settings.initial_calib_hessian
+        bout[..., :CPARS] += settings.initial_calib_hessian * dc
         idx = CPARS + torch.arange(8 * F, device=dev)
-        Hout[idx, idx] += prior_f.reshape(-1)
-        bout[CPARS:] += (prior_f * d_prior).reshape(-1)
+        Hout[..., idx, idx] += prior_f.flatten(-2)
+        bout[..., CPARS:] += (prior_f * d_prior).flatten(-2)
 
-    JJd = torch.einsum("nfij,nfj->nfi", JIdx2, Jpdd)
-    bd = torch.sum(m * torch.einsum("nfi,nfi->nf", JI_r, Jpdd), dim=1)
-    Hdd = torch.sum(m * torch.einsum("nfi,nfi->nf", JJd, Jpdd), dim=1)
+    JJd = _ein(win, "nfij,nfj->nfi", JIdx2, Jpdd)
+    bd = torch.sum(m * _ein(win, "nfi,nfi->nf", JI_r, Jpdd), dim=-1)
+    Hdd = torch.sum(m * _ein(win, "nfi,nfi->nf", JJd, Jpdd), dim=-1)
     Hcd = torch.sum(
         m[..., None]
-        * (Jpdc[:, :, 0, :] * JJd[:, :, 0, None] + Jpdc[:, :, 1, :] * JJd[:, :, 1, None]),
-        dim=1,
+        * (Jpdc[..., 0, :] * JJd[..., 0, None] + Jpdc[..., 1, :] * JJd[..., 1, None]),
+        dim=-2,
     )
-    nres = torch.sum(mask)
+    nres = torch.sum(mask, dim=(-2, -1))
     if reduce is not None:
         nres = reduce(nres)
     return Accum(H=Hout, b=bout, Hdd=Hdd, bd=bd, Hcd=Hcd, nres=nres)
@@ -287,9 +324,10 @@ def accumulate_sc(win: W.Window, AH, AT, active, acc: Accum, prior_pt,
     F = win.F
     dtype = win.state.dtype
     dev = win.device
+    lead = _lead(win)
     _, _, d_pt = deltas(win)
 
-    ngood = torch.sum(active, dim=1)
+    ngood = torch.sum(active, dim=-1)
     has = ngood > 0
 
     Hdd = torch.clamp(acc.Hdd + prior_pt, min=1e-10)
@@ -300,43 +338,45 @@ def accumulate_sc(win: W.Window, AH, AT, active, acc: Accum, prior_pt,
     if shift_prior_to_zero:
         bdSum = bdSum + prior_pt * d_pt
     bdSum = torch.where(has, bdSum, zero)
-    Hcd = torch.where(has[:, None], acc.Hcd, torch.zeros_like(acc.Hcd))
+    Hcd = torch.where(has[..., None], acc.Hcd, torch.zeros_like(acc.Hcd))
 
-    JIdx2 = torch.einsum("nfip,nfjp->nfij", win.J_Idx, win.J_Idx)
-    JJd = torch.einsum("nfij,nfj->nfi", JIdx2, win.J_pdd)
-    JabJIdx = torch.einsum("nfip,nfjp->nfij", win.J_abF, win.J_Idx)
-    JpJd_pose = torch.einsum("nfki,nfk->nfi", win.J_pdxi, JJd)
-    JpJd_ab = torch.einsum("nfij,nfj->nfi", JabJIdx, win.J_pdd)
+    JIdx2 = _ein(win, "nfip,nfjp->nfij", win.J_Idx, win.J_Idx)
+    JJd = _ein(win, "nfij,nfj->nfi", JIdx2, win.J_pdd)
+    JabJIdx = _ein(win, "nfip,nfjp->nfij", win.J_abF, win.J_Idx)
+    JpJd_pose = _ein(win, "nfki,nfk->nfi", win.J_pdxi, JJd)
+    JpJd_ab = _ein(win, "nfij,nfj->nfi", JabJIdx, win.J_pdd)
     JpJdF = torch.cat([JpJd_pose, JpJd_ab], dim=-1) * active[..., None]
 
     D = CPARS + 8 * F
-    Hout = torch.zeros((D, D), dtype=dtype, device=dev)
-    bout = torch.zeros((D,), dtype=dtype, device=dev)
+    Hout = torch.zeros(lead + (D, D), dtype=dtype, device=dev)
+    bout = torch.zeros(lead + (D,), dtype=dtype, device=dev)
 
-    Hout[:CPARS, :CPARS] = torch.einsum("ni,nj->ij", Hcd * HdiF[:, None], Hcd)
-    bout[:CPARS] = torch.einsum("ni,n->i", Hcd, bdSum * HdiF)
+    Hout[..., :CPARS, :CPARS] = _ein(win, "ni,nj->ij", Hcd * HdiF[..., None], Hcd)
+    bout[..., :CPARS] = _ein(win, "ni,n->i", Hcd, bdSum * HdiF)
 
     onehot = _onehot_host(win, dtype)
-    X = JpJdF.reshape(JpJdF.shape[0], F * 8)
-    Xw = X * HdiF[:, None]
-    Dflat = torch.einsum("nh,na,nb->hab", onehot, Xw, X)
-    Dacc = Dflat.reshape(F, F, 8, F, 8).permute(0, 1, 3, 2, 4)
-    Eacc = torch.einsum("nh,nti,nj->htij", onehot, JpJdF, Hcd * HdiF[:, None])
-    EBacc = torch.einsum("nh,nti,n->hti", onehot, JpJdF, HdiF * bdSum)
+    X = JpJdF.flatten(-2)
+    Xw = X * HdiF[..., None]
+    Dflat = _ein(win, "nh,na,nb->hab", onehot, Xw, X)
+    Dacc = Dflat.reshape(lead + (F, F, 8, F, 8)).transpose(-3, -2)
+    Eacc = _ein(win, "nh,nti,nj->htij",
+                    onehot, JpJdF, Hcd * HdiF[..., None])
+    EBacc = _ein(win, "nh,nti,n->hti",
+                     onehot, JpJdF, HdiF * bdSum)
 
-    Hfc = torch.einsum("ijab,ijbc->iac", AH, Eacc) + torch.einsum("ijab,ijbc->jac", AT, Eacc)
-    Hout[CPARS:, :CPARS] += Hfc.reshape(8 * F, CPARS)
-    Hout[:CPARS, CPARS:] += Hfc.reshape(8 * F, CPARS).T
-    bf = torch.einsum("ijab,ijb->ia", AH, EBacc) + torch.einsum("ijab,ijb->ja", AT, EBacc)
-    bout[CPARS:] += bf.reshape(-1)
+    Hfc = _ein(win, "ijab,ijbc->iac", AH, Eacc) + _ein(win, "ijab,ijbc->jac", AT, Eacc)
+    Hout[..., CPARS:, :CPARS] += Hfc.reshape(lead + (8 * F, CPARS))
+    Hout[..., :CPARS, CPARS:] += Hfc.reshape(lead + (8 * F, CPARS)).transpose(-1, -2)
+    bf = _ein(win, "ijab,ijb->ia", AH, EBacc) + _ein(win, "ijab,ijb->ja", AT, EBacc)
+    bout[..., CPARS:] += bf.flatten(-2)
 
     eyeF = torch.eye(F, dtype=dtype, device=dev)
-    t1 = torch.einsum("ijab,ijkbc,ikdc->iad", AH, Dacc, AH)
-    Hff = torch.einsum("iad,ij->ijad", t1, eyeF)
-    Hff = Hff + torch.einsum("ijab,ijkbc,ikdc->jkad", AT, Dacc, AT)
-    Hff = Hff + torch.einsum("ijab,ijkbc,ikdc->jiad", AT, Dacc, AH)
-    Hff = Hff + torch.einsum("ijab,ijkbc,ikdc->ikad", AH, Dacc, AT)
-    Hout[CPARS:, CPARS:] += Hff.permute(0, 2, 1, 3).reshape(8 * F, 8 * F)
+    t1 = _ein(win, "ijab,ijkbc,ikdc->iad", AH, Dacc, AH)
+    Hff = _per_seq(lambda d: torch.einsum("iad,ij->ijad", d, eyeF), win, t1)
+    Hff = Hff + _ein(win, "ijab,ijkbc,ikdc->jkad", AT, Dacc, AT)
+    Hff = Hff + _ein(win, "ijab,ijkbc,ikdc->jiad", AT, Dacc, AH)
+    Hff = Hff + _ein(win, "ijab,ijkbc,ikdc->ikad", AH, Dacc, AT)
+    Hout[..., CPARS:, CPARS:] += Hff.transpose(-3, -2).reshape(lead + (8 * F, 8 * F))
     if reduce is not None:
         Hout = reduce(Hout)
         bout = reduce(bout)
@@ -353,22 +393,23 @@ def nullspaces(win: W.Window):
     """Gauge nullspace columns N (D, 7): 6 pose + 1 scale."""
     F = win.F
     dtype, dev = win.state.dtype, win.device
+    lead = _lead(win)
     Adj = se3.adjoint(win.evalPT)
-    t = win.evalPT[:, :3, 3]
+    t = win.evalPT[..., :3, 3]
     inv_scale = torch.tensor(
         [1.0 / SCALE_XI_TRANS] * 3 + [1.0 / SCALE_XI_ROT] * 3, dtype=dtype, device=dev
     )
-    zc = torch.zeros(CPARS, dtype=dtype, device=dev)
-    valid = win.frame_valid[:, None]
+    zc = torch.zeros(lead + (CPARS,), dtype=dtype, device=dev)
+    valid = win.frame_valid[..., None]
     cols = []
     for i in range(6):
-        n = torch.zeros((F, 8), dtype=dtype, device=dev)
-        n[:, :6] = Adj[:, :, i] * inv_scale[None, :]
-        cols.append(torch.cat([zc, (n * valid).reshape(-1)]))
-    n = torch.zeros((F, 8), dtype=dtype, device=dev)
-    n[:, :3] = t * (1.0 / SCALE_XI_TRANS)
-    cols.append(torch.cat([zc, (n * valid).reshape(-1)]))
-    return torch.stack(cols, dim=1)
+        n = torch.zeros(lead + (F, 8), dtype=dtype, device=dev)
+        n[..., :6] = Adj[..., :, i] * inv_scale
+        cols.append(torch.cat([zc, (n * valid).flatten(-2)], -1))
+    n = torch.zeros(lead + (F, 8), dtype=dtype, device=dev)
+    n[..., :3] = t * (1.0 / SCALE_XI_TRANS)
+    cols.append(torch.cat([zc, (n * valid).flatten(-2)], -1))
+    return torch.stack(cols, dim=-1)
 
 
 def orthogonalize(x, N):
@@ -398,56 +439,56 @@ def solve_system(win: W.Window, acc_A: Accum, sc: Schur, settings: Settings,
     F = win.F
     D = CPARS + 8 * F
     dev = win.device
+    lead = _lead(win)
     d_frame, dc, _ = deltas(win)
 
-    bM_top = win.bM + win.HM @ stitched_delta(win, d_frame, dc)
+    bM_top = win.bM + _per_seq(torch.matmul, win, win.HM, stitched_delta(win, d_frame, dc))
     HFinal = acc_A.H + win.HM
     bFinal = acc_A.b + bM_top - sc.b
 
     diag = torch.arange(D, device=dev)
     HFinal = HFinal.clone()
-    HFinal[diag, diag] = HFinal[diag, diag] * (1.0 + lam)
+    HFinal[..., diag, diag] = HFinal[..., diag, diag] * (1.0 + lam)
     HFinal = HFinal - sc.H * (1.0 / (1.0 + lam))
 
     slot_active = torch.cat(
-        [torch.ones(CPARS, dtype=torch.bool, device=dev),
-         torch.repeat_interleave(win.frame_valid, 8)]
+        [torch.ones(lead + (CPARS,), dtype=torch.bool, device=dev),
+         torch.repeat_interleave(win.frame_valid, 8, dim=-1)], -1
     )
     HFinal = torch.where(
-        slot_active[:, None] & slot_active[None, :], HFinal, torch.zeros_like(HFinal)
+        slot_active[..., :, None] & slot_active[..., None, :], HFinal, torch.zeros_like(HFinal)
     )
-    HFinal[diag, diag] += torch.where(slot_active, 0.0, 1.0)
+    HFinal[..., diag, diag] += torch.where(slot_active, 0.0, 1.0)
     bFinal = torch.where(slot_active, bFinal, torch.zeros_like(bFinal))
 
     # zero-information dimensions are unit-pinned (zero step), not solved
-    no_info = torch.abs(HFinal[diag, diag]) < 1e-6
-    HFinal[diag, diag] += torch.where(no_info, 1.0, 0.0)
+    no_info = torch.abs(HFinal[..., diag, diag]) < 1e-6
+    HFinal[..., diag, diag] += torch.where(no_info, 1.0, 0.0)
     bFinal = torch.where(no_info, torch.zeros_like(bFinal), bFinal)
 
-    SVecI = 1.0 / torch.sqrt(torch.abs(HFinal[diag, diag]) + 10.0)
-    Hs = SVecI[:, None] * HFinal * SVecI[None, :]
+    SVecI = 1.0 / torch.sqrt(torch.abs(HFinal[..., diag, diag]) + 10.0)
+    Hs = SVecI[..., :, None] * HFinal * SVecI[..., None, :]
     bs = SVecI * bFinal
-    xs = torch.linalg.solve(Hs, bs)
+    xs = _per_seq(torch.linalg.solve, win, Hs, bs)
     x = SVecI * xs
 
     if do_orth and iteration >= 2:
-        x = orthogonalize(x, nullspaces(win))
+        x = _per_seq(orthogonalize, win, x, nullspaces(win))
 
     # a non-finite solve must not poison the window state
-    x = torch.where(torch.isfinite(x).all(), x, torch.zeros_like(x))
+    x = torch.where(torch.isfinite(x).all(-1, keepdim=True), x, torch.zeros_like(x))
 
-    step_c = -x[:CPARS]
-    step_f = -x[CPARS:].reshape(F, 8) * win.frame_valid[:, None]
+    step_c = -x[..., :CPARS]
+    step_f = -x[..., CPARS:].reshape(lead + (F, 8)) * win.frame_valid[..., None]
 
     AH, AT = adjoints(win)
-    xf = x[CPARS:].reshape(F, 8)
-    xAd = torch.einsum("hi,htij->htj", xf, AH) + torch.einsum("ti,htij->htj", xf, AT)
+    xf = x[..., CPARS:].reshape(lead + (F, 8))
+    xAd = _ein(win, "hi,htij->htj", xf, AH) + _ein(win, "ti,htij->htj", xf, AT)
 
     active = win.res_exists & (win.res_state == W.RES_IN)
-    ngood = torch.sum(active, dim=1)
-    b_pt = sc.bdSum - x[:CPARS] @ sc.Hcd.T
-    b_pt = b_pt - torch.einsum(
-        "nfj,nfj->n", xAd[win.pt_host.long()], sc.JpJdF * active[..., None]
+    ngood = torch.sum(active, dim=-1)
+    b_pt = sc.bdSum - _per_seq(lambda a, b: a @ b.T, win, x[..., :CPARS], sc.Hcd)
+    b_pt = b_pt - _ein(win, "nfj,nfj->n", R.by_host(xAd, win), sc.JpJdF * active[..., None]
     )
     step_pt = torch.where(ngood > 0, -b_pt * sc.HdiF, torch.zeros_like(b_pt))
     step_pt = torch.where(torch.isfinite(step_pt), step_pt, torch.zeros_like(step_pt))
@@ -467,15 +508,17 @@ def apply_step(win: W.Window, out: SolveOut) -> W.Window:
 
 
 def step_converged(win: W.Window, out: SolveOut, settings: Settings, reduce=None):
-    """Convergence test of doStepFromBackup; () bool tensor."""
-    nf = torch.clamp(torch.sum(win.frame_valid), min=1)
-    sumA = torch.sum(out.step_f[:, 6] ** 2) / nf
-    sumB = torch.sum(out.step_f[:, 7] ** 2) / nf
-    sumT = torch.sum(out.step_f[:, 0:3] ** 2) / nf
-    sumR = torch.sum(out.step_f[:, 3:6] ** 2) / nf
+    """Convergence test of doStepFromBackup; () bool tensor ((N,) for a
+    stacked window)."""
+    nf = torch.clamp(torch.sum(win.frame_valid, dim=-1), min=1)
+    sumA = torch.sum(out.step_f[..., 6] ** 2, dim=-1) / nf
+    sumB = torch.sum(out.step_f[..., 7] ** 2, dim=-1) / nf
+    sumT = torch.sum(out.step_f[..., 0:3] ** 2, dim=(-2, -1)) / nf
+    sumR = torch.sum(out.step_f[..., 3:6] ** 2, dim=(-2, -1)) / nf
     pt_ok = win.pt_status == W.PT_ACTIVE
-    n_pt = torch.sum(pt_ok)
-    sum_id = torch.sum(torch.where(pt_ok, torch.abs(win.pt_idepth), torch.zeros_like(win.pt_idepth)))
+    n_pt = torch.sum(pt_ok, dim=-1)
+    sum_id = _per_seq(torch.sum, win, torch.where(pt_ok, torch.abs(win.pt_idepth),
+                                                  torch.zeros_like(win.pt_idepth)))
     if reduce is not None:
         n_pt = reduce(n_pt)
         sum_id = reduce(sum_id)
@@ -499,24 +542,30 @@ def accumulate_priors(win: W.Window, settings: Settings):
     F = win.F
     D = CPARS + 8 * F
     dtype, dev = win.state.dtype, win.device
+    lead = _lead(win)
     _, dc, _ = deltas(win)
-    H = torch.zeros((D, D), dtype=dtype, device=dev)
-    b = torch.zeros((D,), dtype=dtype, device=dev)
+    H = torch.zeros(lead + (D, D), dtype=dtype, device=dev)
+    b = torch.zeros(lead + (D,), dtype=dtype, device=dev)
     prior_f = frame_priors(win, settings)
     ci = torch.arange(CPARS, device=dev)
-    H[ci, ci] += settings.initial_calib_hessian
-    b[:CPARS] += settings.initial_calib_hessian * dc
+    H[..., ci, ci] += settings.initial_calib_hessian
+    b[..., :CPARS] += settings.initial_calib_hessian * dc
     idx = CPARS + torch.arange(8 * F, device=dev)
-    H[idx, idx] += prior_f.reshape(-1)
-    b[CPARS:] += (prior_f * win.state).reshape(-1)
+    H[..., idx, idx] += prior_f.flatten(-2)
+    b[..., CPARS:] += (prior_f * win.state).flatten(-2)
     NP = win.NP
     return Accum(
         H=H, b=b,
-        Hdd=torch.zeros((NP,), dtype=dtype, device=dev),
-        bd=torch.zeros((NP,), dtype=dtype, device=dev),
-        Hcd=torch.zeros((NP, CPARS), dtype=dtype, device=dev),
-        nres=torch.zeros((), dtype=torch.int64, device=dev),
+        Hdd=torch.zeros(lead + (NP,), dtype=dtype, device=dev),
+        bd=torch.zeros(lead + (NP,), dtype=dtype, device=dev),
+        Hcd=torch.zeros(lead + (NP, CPARS), dtype=dtype, device=dev),
+        nres=torch.zeros(lead, dtype=torch.int64, device=dev),
     )
+
+
+def _masked_energy(win: W.Window, mask, energy):
+    """The energy summed over the residuals in `mask`, per sequence."""
+    return _per_seq(torch.sum, win, torch.where(mask, energy, torch.zeros_like(energy)))
 
 
 def ba_iteration(win: W.Window, dI_stack, iteration: int,
@@ -525,7 +574,8 @@ def ba_iteration(win: W.Window, dI_stack, iteration: int,
     solve -> step). Returns (win, energy, converged, nres). With `reduce`
     the window holds one shard of the points; the camera system, the counts
     and the energy are summed over the shards, the solve is replicated and
-    the point steps stay local."""
+    the point steps stay local. A window stacked over N sequences (image
+    stacks (N, F, H, W, 3)) iterates every sequence once."""
     active_set = win.res_exists & ~win.res_linearized
     lin = R.linearize(win, dI_stack, settings=settings)
     win = R.apply_res(win, lin, active_set)
@@ -545,7 +595,7 @@ def ba_iteration(win: W.Window, dI_stack, iteration: int,
     win = apply_step(win, out)
     win = win.replace(pt_idepth_hessian=sc.idepth_hessian)
 
-    energy = torch.sum(torch.where(active_set, lin.energy, torch.zeros_like(lin.energy)))
+    energy = _masked_energy(win, active_set, lin.energy)
     if reduce is not None:
         energy = reduce(energy)
     converged = step_converged(win, out, settings, reduce=reduce)
@@ -568,25 +618,40 @@ def optimize(win: W.Window, dI_stack, settings: Settings = default_settings(), m
 def optimize_fused(win: W.Window, dI_stack, settings: Settings = default_settings(),
                    max_its: int = 6, reduce=None):
     """The whole GN loop (FullSystem::optimize, legacy) with the JAX
-    package's early exit: stop once an iteration converged and at least
-    min_opt_iterations ran. Returns (win, energy, nres).
+    package's early exit: a window stops once an iteration converged and
+    at least min_opt_iterations ran. Returns (win, energy, nres).
+
+    A window stacked over N sequences is the JAX package's vmap of its
+    `while_loop`: every iteration runs once for all sequences, a sequence
+    that stopped keeps the window, energy and count it stopped with (it is
+    never stepped again), and the loop ends when every sequence stopped or
+    `max_its` ran. The flags of all sequences are one host read an
+    iteration.
 
     With `reduce` (see `ba_iteration`) every shard computes the flag from the
     same summed system, so it is the same everywhere; but it is read on the
     host, and a shard that left the loop alone would leave the others waiting
-    in the next sum. So the count of shards that have not converged goes
+    in the next sum. So the count of shards that have not stopped goes
     through `reduce` too, and all stop together."""
-    energy = torch.zeros((), dtype=torch.float32, device=win.device)
-    nres = torch.zeros((), dtype=torch.int32, device=win.device)
+    lead = _lead(win)
+    energy = torch.zeros(lead, dtype=torch.float32, device=win.device)
+    nres = torch.zeros(lead, dtype=torch.int32, device=win.device)
+    running = [True] * max(1, int(np.prod(lead)))  # per sequence, on the host
     for it in range(max_its):
-        win, e, conv, nr = ba_iteration(win, dI_stack, it, settings=settings, reduce=reduce)
-        energy = e.to(torch.float32)
-        nres = nr.to(torch.int32)
-        if reduce is None:
-            done = host.flag(conv)
+        w_n, e, conv, nr = ba_iteration(win, dI_stack, it, settings=settings, reduce=reduce)
+        if all(running):
+            win, energy, nres = w_n, e.to(torch.float32), nr.to(torch.int32)
         else:
-            done = not host.flag(reduce((~conv).to(torch.int32)))
-        if (it + 1 >= settings.min_opt_iterations) and done:
+            keep = torch.as_tensor(running, device=win.device)
+            win = select_rows(keep, w_n, win)
+            energy = torch.where(keep, e.to(torch.float32), energy)
+            nres = torch.where(keep, nr.to(torch.int32), nres)
+        stop = conv & (it + 1 >= settings.min_opt_iterations)
+        if reduce is not None:
+            stop = reduce((~stop).to(torch.int32)) == 0
+        go = host.tolist((~stop).reshape(-1))
+        running = [r and g for r, g in zip(running, go)]
+        if not any(running):
             break
     return win, energy, nres
 
@@ -596,10 +661,25 @@ def optimize_fused(win: W.Window, dI_stack, settings: Settings = default_setting
 # ---------------------------------------------------------------------------
 
 
-def linearize_all_final(win: W.Window, dI_stack, newest_slot: int,
+def _slot_mask(win: W.Window, slot):
+    """(F,) bool, True at `slot` (an int, or (N,) for N stacked sequences:
+    (N, F))."""
+    s = torch.as_tensor(slot, device=win.device)
+    return torch.arange(win.F, device=win.device) == s[..., None]
+
+
+def _at_col(x, slot):
+    """x[..., slot] of a per-(point, frame) tensor (NP, F); x[n, :, slot[n]]
+    of N stacked sequences' (N, NP, F) for a (N,) slot."""
+    if not isinstance(slot, torch.Tensor) or slot.dim() == 0:
+        return x[..., slot]
+    idx = slot.long().reshape(slot.shape + (1, 1)).expand(x.shape[:2] + (1,))
+    return torch.gather(x, 2, idx)[..., 0]
+
+
+def linearize_all_final(win: W.Window, dI_stack, newest_slot,
                         settings: Settings = default_settings()):
     """linearizeAll(fixLinearization=true) + setNewFrameEnergyTH."""
-    F = win.F
     dev = win.device
     active_set = win.res_exists & ~win.res_linearized
     lin = R.linearize(win, dI_stack, settings=settings)
@@ -607,14 +687,16 @@ def linearize_all_final(win: W.Window, dI_stack, newest_slot: int,
 
     active = win.res_exists & (win.res_state == W.RES_IN)
 
-    tgt_new = torch.arange(F, device=dev)[None, :] == newest_slot
+    is_new = _slot_mask(win, newest_slot)
+    tgt_new = is_new[..., None, :]
     sel = active_set & tgt_new & (win.res_new_energy_wo >= 0)
     vals = torch.where(sel, win.res_new_energy_wo,
-                       torch.full_like(win.res_new_energy_wo, float("inf"))).reshape(-1)
-    count = torch.sum(sel)
-    svals = torch.sort(vals).values
+                       torch.full_like(win.res_new_energy_wo, float("inf"))).flatten(-2)
+    count = torch.sum(sel, dim=(-2, -1))
+    svals = torch.sort(vals, dim=-1).values
     nth = (settings.frame_energy_th_n * count).to(torch.int32).long()
-    nth_val = torch.sqrt(svals[torch.clamp(nth, 0, svals.shape[0] - 1)])
+    nth_val = torch.sqrt(torch.gather(
+        svals, -1, torch.clamp(nth, 0, svals.shape[-1] - 1)[..., None])[..., 0])
     th = nth_val * settings.frame_energy_th_fac_median
     th = (
         26.0 * settings.frame_energy_th_const_weight
@@ -622,27 +704,27 @@ def linearize_all_final(win: W.Window, dI_stack, newest_slot: int,
     )
     th = th * th * settings.overall_energy_th_weight**2
     th = torch.where(count > 0, th, torch.full_like(th, 12.0 * 12.0 * 8.0))
-    new_th = torch.where(torch.arange(F, device=dev) == newest_slot, th, win.frame_energy_th)
+    new_th = torch.where(is_new, th[..., None], win.frame_energy_th)
     win = win.replace(frame_energy_th=new_th)
 
     pre = W.precalc(win)
-    h = win.pt_host.long()
-    KRKi = pre["KRKi"][h]
-    Kt = pre["Kt"][h]
+    KRKi = R.by_host(pre["KRKi"], win)
+    Kt = R.by_host(pre["Kt"], win)
     P3 = torch.stack([win.pt_u, win.pt_v, torch.ones_like(win.pt_u)], -1)
-    ptp_inf = torch.einsum("nfij,nj->nfi", KRKi, P3)
-    ptp = ptp_inf + Kt * win.pt_idepth[:, None, None]
+    ptp_inf = _ein(win, "nfij,nj->nfi", KRKi, P3)
+    ptp = ptp_inf + Kt * win.pt_idepth[..., None, None]
     rel_bs = 0.01 * torch.linalg.norm(
         ptp_inf[..., :2] / ptp_inf[..., 2:3] - ptp[..., :2] / ptp[..., 2:3], dim=-1
     )
     rel_bs = torch.where(active, rel_bs, torch.zeros_like(rel_bs))
     win = win.replace(
-        pt_max_rel_baseline=torch.maximum(win.pt_max_rel_baseline, torch.max(rel_bs, dim=1).values),
+        pt_max_rel_baseline=torch.maximum(win.pt_max_rel_baseline,
+                                          torch.max(rel_bs, dim=-1).values),
         pt_num_good_res=win.pt_num_good_res
-        + torch.sum(active & active_set, dim=1).to(torch.int32),
+        + torch.sum(active & active_set, dim=-1).to(torch.int32),
     )
     win = win.replace(res_exists=win.res_exists & active)
-    energy = torch.sum(torch.where(active_set, lin.energy, torch.zeros_like(lin.energy)))
+    energy = _masked_energy(win, active_set, lin.energy)
     return win, energy
 
 
@@ -650,23 +732,14 @@ def res_to_zero_fixed(win: W.Window):
     """EFResidual::fixLinearizationF: res_toZeroF = resF - J * delta."""
     AH, AT = adjoints(win)
     d_frame, dc, d_pt = deltas(win)
-    dp = ht_delta(win, AH, AT, d_frame)[win.pt_host.long()]
-    Jp_dx = (
-        torch.einsum("nfk,nfk->nf", win.J_pdxi[:, :, 0, :], dp[..., :6])
-        + torch.einsum("nfk,k->nf", win.J_pdc[:, :, 0, :], dc)
-        + win.J_pdd[:, :, 0] * d_pt[:, None]
-    )
-    Jp_dy = (
-        torch.einsum("nfk,nfk->nf", win.J_pdxi[:, :, 1, :], dp[..., :6])
-        + torch.einsum("nfk,k->nf", win.J_pdc[:, :, 1, :], dc)
-        + win.J_pdd[:, :, 1] * d_pt[:, None]
-    )
+    dp = R.by_host(ht_delta(win, AH, AT, d_frame), win)
+    Jp_dx, Jp_dy = _jp_delta(win, dp, dc, d_pt)
     return (
         win.J_resF
-        - win.J_Idx[:, :, 0, :] * Jp_dx[..., None]
-        - win.J_Idx[:, :, 1, :] * Jp_dy[..., None]
-        - win.J_abF[:, :, 0, :] * dp[..., 6][..., None]
-        - win.J_abF[:, :, 1, :] * dp[..., 7][..., None]
+        - win.J_Idx[..., 0, :] * Jp_dx[..., None]
+        - win.J_Idx[..., 1, :] * Jp_dy[..., None]
+        - win.J_abF[..., 0, :] * dp[..., 6][..., None]
+        - win.J_abF[..., 1, :] * dp[..., 7][..., None]
     )
 
 
@@ -674,26 +747,28 @@ def flag_points_for_removal(win: W.Window, dI_stack, frames_to_marg, last_slot,
                             prev_slot, settings: Settings = default_settings()):
     """FullSystem::flagPointsForRemoval: classify every active point as
     KEEP / MARGINALIZE / DROP; relinearize + fix res_toZero for the
-    marginalization candidates. frames_to_marg: (F,) bool tensor."""
+    marginalization candidates. frames_to_marg: (F,) bool tensor; for N
+    stacked sequences (N, F), with (N,) slots."""
     active_pt = win.pt_status == W.PT_ACTIVE
-    nres = torch.sum(win.res_exists, dim=1)
+    nres = torch.sum(win.res_exists, dim=-1)
 
     drop_simple = active_pt & ((win.pt_idepth < 0) | (nres == 0))
 
     res_in = win.res_exists & (win.res_state == W.RES_IN)
-    vis_in_to_marg = torch.sum(res_in & frames_to_marg[None, :], dim=1)
+    vis_in_to_marg = torch.sum(res_in & frames_to_marg[..., None, :], dim=-1)
     oob_a = (
         (nres >= settings.min_good_active_res_for_marg)
         & (win.pt_num_good_res > settings.min_good_res_for_marg + 10)
         & (nres - vis_in_to_marg < settings.min_good_active_res_for_marg)
     )
     # recorded states outlive the residual's removal (see the JAX package)
-    lr0_state = win.res_state[:, last_slot]
-    prev_ok = prev_slot >= 0
-    lr1_state = win.res_state[:, max(prev_slot, 0)]
+    lr0_state = _at_col(win.res_state, last_slot)
+    prev = torch.as_tensor(prev_slot, device=win.device)
+    prev_ok = (prev >= 0)[..., None]
+    lr1_state = _at_col(win.res_state, torch.clamp(prev, min=0))
     oob_b = lr0_state == W.RES_OOB
     oob_c = (nres >= 2) & (lr0_state == W.RES_OUTLIER) & prev_ok & (lr1_state == W.RES_OUTLIER)
-    host_flagged = frames_to_marg[win.pt_host.long()]
+    host_flagged = R.by_host(frames_to_marg, win)
     oob = active_pt & ~drop_simple & (oob_a | oob_b | oob_c | host_flagged)
 
     inlier = (nres >= settings.min_good_active_res_for_marg) & (
@@ -701,7 +776,7 @@ def flag_points_for_removal(win: W.Window, dI_stack, frames_to_marg, last_slot,
     )
 
     lin = R.linearize(win, dI_stack, settings=settings)
-    relin_mask = (oob & inlier)[:, None] & win.res_exists
+    relin_mask = (oob & inlier)[..., None] & win.res_exists
     win = R.apply_res(win, lin, relin_mask)
 
     rtz = res_to_zero_fixed(win)
@@ -727,7 +802,7 @@ def marginalize_points(win: W.Window, settings: Settings = default_settings()):
     AH, AT = adjoints(win)
     marg_pt = win.pt_status == W.PT_MARGINALIZE
     mask = (
-        marg_pt[:, None] & win.res_exists & (win.res_state == W.RES_IN)
+        marg_pt[..., None] & win.res_exists & (win.res_state == W.RES_IN)
         & win.res_linearized
     )
     acc2 = accumulate_top(win, AH, AT, mask, 2, settings, use_prior=False)
@@ -740,7 +815,7 @@ def marginalize_points(win: W.Window, settings: Settings = default_settings()):
         H=acc2.H, b=acc2.b,
         Hdd=torch.where(marg_pt, acc2.Hdd, torch.zeros_like(acc2.Hdd)),
         bd=torch.where(marg_pt, acc2.bd, torch.zeros_like(acc2.bd)),
-        Hcd=torch.where(marg_pt[:, None], acc2.Hcd, torch.zeros_like(acc2.Hcd)),
+        Hcd=torch.where(marg_pt[..., None], acc2.Hcd, torch.zeros_like(acc2.Hcd)),
         nres=acc2.nres,
     )
     sc2 = accumulate_sc(win, AH, AT, mask, acc_masked, prior_pt, False)
@@ -751,16 +826,27 @@ def marginalize_points(win: W.Window, settings: Settings = default_settings()):
     gone = (win.pt_status == W.PT_MARGINALIZE) | (win.pt_status == W.PT_DROP)
     return win.replace(
         pt_status=torch.where(gone, torch.full_like(win.pt_status, W.PT_INACTIVE), win.pt_status),
-        res_exists=win.res_exists & ~gone[:, None],
-        res_linearized=win.res_linearized & ~gone[:, None],
+        res_exists=win.res_exists & ~gone[..., None],
+        res_linearized=win.res_linearized & ~gone[..., None],
     )
+
+
+def _eliminate_block(Hs, bs, idx8):
+    """Schur-eliminate the 8x8 block `idx8` of one scaled system."""
+    blk = Hs[idx8][:, idx8]
+    blk = 0.5 * (blk + blk.T)
+    blk_inv = torch.linalg.inv(blk + 1e-6 * torch.eye(8, dtype=blk.dtype, device=blk.device))
+    rows = Hs[idx8, :]
+    Hs = Hs - rows.T @ blk_inv @ rows
+    bs = bs - rows.T @ (blk_inv @ bs[idx8])
+    return Hs, bs
 
 
 def marginalize_frame(win: W.Window, slot: int, settings: Settings = default_settings()):
     """EnergyFunctional::marginalizeFrame, slot-indexed: add the frame's
     prior, scaled Schur-eliminate its 8-dof block from HM/bM, zero the slot.
     The caller guarantees the frame hosts no points and no residuals target
-    it."""
+    it. A stacked window marginalizes slot `slot` of every sequence."""
     F = win.F
     D = CPARS + 8 * F
     dev = win.device
@@ -769,25 +855,19 @@ def marginalize_frame(win: W.Window, slot: int, settings: Settings = default_set
 
     HM = win.HM.clone()
     bM = win.bM.clone()
-    prior_f = frame_priors(win, settings)[slot]
-    HM[idx8, idx8] += prior_f
-    bM[idx8] += prior_f * win.state[slot]
+    prior_f = frame_priors(win, settings)[..., slot, :]
+    HM[..., idx8, idx8] += prior_f
+    bM[..., idx8] += prior_f * win.state[..., slot, :]
 
-    SVec = torch.sqrt(torch.abs(torch.diagonal(HM)) + 10.0)
+    SVec = torch.sqrt(torch.abs(torch.diagonal(HM, dim1=-2, dim2=-1)) + 10.0)
     SVecI = 1.0 / SVec
-    Hs = SVecI[:, None] * HM * SVecI[None, :]
+    Hs = SVecI[..., :, None] * HM * SVecI[..., None, :]
     bs = SVecI * bM
+    Hs, bs = _per_seq(lambda h, b: _eliminate_block(h, b, idx8), win, Hs, bs)
 
-    blk = Hs[idx8][:, idx8]
-    blk = 0.5 * (blk + blk.T)
-    blk_inv = torch.linalg.inv(blk + 1e-6 * torch.eye(8, dtype=blk.dtype, device=dev))
-    rows = Hs[idx8, :]
-    Hs = Hs - rows.T @ blk_inv @ rows
-    bs = bs - rows.T @ (blk_inv @ bs[idx8])
-
-    HM_new = SVec[:, None] * Hs * SVec[None, :]
+    HM_new = SVec[..., :, None] * Hs * SVec[..., None, :]
     bM_new = SVec * bs
-    HM_new = 0.5 * (HM_new + HM_new.T)
+    HM_new = 0.5 * (HM_new + HM_new.transpose(-1, -2))
 
     slot_mask = torch.ones((D,), dtype=torch.bool, device=dev)
     slot_mask[idx8] = False
@@ -796,16 +876,21 @@ def marginalize_frame(win: W.Window, slot: int, settings: Settings = default_set
 
     def zrow(x, val=0):
         out = x.clone()
-        out[slot] = val
+        out[..., slot] = val
+        return out
+
+    def zrow8(x):
+        out = x.clone()
+        out[..., slot, :] = 0
         return out
 
     return win.replace(
         HM=HM_new, bM=bM_new,
         frame_valid=zrow(win.frame_valid, False),
         frame_id=zrow(win.frame_id, -1),
-        state=zrow(win.state),
-        state_zero=zrow(win.state_zero),
-        prior=zrow(win.prior),
+        state=zrow8(win.state),
+        state_zero=zrow8(win.state_zero),
+        prior=zrow8(win.prior),
     )
 
 
@@ -815,18 +900,27 @@ def drop_frame_refs(win: W.Window, slot: int):
     tgt = torch.arange(F, device=win.device) == slot
     hosted = (win.pt_host == slot) & (win.pt_status == W.PT_ACTIVE)
     return win.replace(
-        res_exists=win.res_exists & ~tgt[None, :] & ~hosted[:, None],
+        res_exists=win.res_exists & ~tgt & ~hosted[..., None],
         pt_status=torch.where(hosted, torch.full_like(win.pt_status, W.PT_INACTIVE), win.pt_status),
     )
 
 
 def marginalize_frames_masked(win: W.Window, flagged, settings: Settings = default_settings()):
     """All flagged-frame marginalizations (drop refs + Schur-eliminate), in
-    slot order. flagged: (F,) bool (numpy or tensor; a tensor is read)."""
+    slot order. flagged: (F,) bool (numpy or tensor; a tensor is read).
+
+    For N stacked sequences flagged is (N, F): the JAX package's vmap of its
+    loop over slots, which marginalizes each sequence's flagged slots in slot
+    order. Slot s runs once for all sequences if some sequence flagged it;
+    the others keep their window."""
     if isinstance(flagged, torch.Tensor):
         flagged = host.tolist(flagged)
     flagged = np.asarray(flagged, dtype=bool)
     for s_ in range(win.F):
-        if flagged[s_]:
-            win = marginalize_frame(drop_frame_refs(win, s_), s_, settings=settings)
+        rows = flagged[..., s_]
+        if not rows.any():
+            continue
+        w_m = marginalize_frame(drop_frame_refs(win, s_), s_, settings=settings)
+        keep = torch.as_tensor(rows, device=win.device)
+        win = w_m if rows.all() else select_rows(keep, w_m, win)
     return win

@@ -12,6 +12,7 @@ import torch
 
 from stereo_dso_g2o_tpu_torch.backend import window as W
 from stereo_dso_g2o_tpu_torch.config import SCALE_A, SCALE_B
+from stereo_dso_g2o_tpu_torch.utils.tree import at_rows
 
 
 def _set_row(x, idx, val):
@@ -20,12 +21,44 @@ def _set_row(x, idx, val):
     return out
 
 
-def insert_frame(win: W.Window, slot: int, T_w2c, aff, exposure,
-                 frame_id: int, energy_th: float = 8 * 12.0 * 12.0) -> W.Window:
+def _set_at(x, slot, val):
+    """x with row slot[n] of every sequence n set to val (val per sequence
+    or one for all)."""
+    out = x.clone()
+    out[torch.arange(x.shape[0], device=x.device), slot] = torch.as_tensor(
+        val, dtype=x.dtype, device=x.device)
+    return out
+
+
+def _many(slot) -> bool:
+    return isinstance(slot, torch.Tensor) and slot.dim() == 1
+
+
+def insert_frame(win: W.Window, slot, T_w2c, aff, exposure,
+                 frame_id, energy_th: float = 8 * 12.0 * 12.0) -> W.Window:
     """Insert a keyframe at `slot` with FEJ pose T_w2c (setEvalPT_scaled:
     pose part of the state zero, ab part set, state_zero = state). T_w2c,
     aff and exposure are host values (numpy, floats) or tensors on the
-    window's device; tensors are not read back."""
+    window's device; tensors are not read back.
+
+    A window stacked over N sequences takes `slot` and `frame_id` as (N,)
+    tensors, T_w2c (N, 4, 4), aff (N, 2) and exposure (N,): sequence n's
+    frame goes into its slot slot[n]."""
+    if _many(slot):
+        s = slot.long()
+        aff = torch.as_tensor(aff)
+        state = torch.zeros(aff.shape[:-1] + (8,), dtype=win.state.dtype, device=win.device)
+        state[..., 6] = aff[..., 0] / SCALE_A
+        state[..., 7] = aff[..., 1] / SCALE_B
+        return win.replace(
+            frame_valid=_set_at(win.frame_valid, s, True),
+            evalPT=_set_at(win.evalPT, s, T_w2c),
+            state=_set_at(win.state, s, state),
+            state_zero=_set_at(win.state_zero, s, state),
+            ab_exposure=_set_at(win.ab_exposure, s, exposure),
+            frame_energy_th=_set_at(win.frame_energy_th, s, float(energy_th)),
+            frame_id=_set_at(win.frame_id, s, frame_id),
+        )
     state = torch.zeros(8, dtype=win.state.dtype, device=win.device)
     state[6] = aff[0] / SCALE_A
     state[7] = aff[1] / SCALE_B
@@ -44,16 +77,25 @@ def insert_frame(win: W.Window, slot: int, T_w2c, aff, exposure,
 
 def set_frame_eval_pt(win: W.Window, slot) -> W.Window:
     """Re-linearize a frame at its current pose: evalPT <- current
-    worldToCam; pose state zeroed; ab kept as both state and state_zero."""
-    w2c = win.w2c()[slot]
-    state = win.state[slot]
+    worldToCam; pose state zeroed; ab kept as both state and state_zero.
+    For N stacked sequences `slot` is (N,)."""
+    if _many(slot):
+        s = slot.long()
+        w2c = at_rows(win.w2c(), s)
+        state = at_rows(win.state, s)
+        set_ = _set_at
+    else:
+        s = slot
+        w2c = win.w2c()[slot]
+        state = win.state[slot]
+        set_ = _set_row
     new_state = torch.zeros_like(state)
-    new_state[6] = state[6]
-    new_state[7] = state[7]
+    new_state[..., 6] = state[..., 6]
+    new_state[..., 7] = state[..., 7]
     return win.replace(
-        evalPT=_set_row(win.evalPT, slot, w2c),
-        state=_set_row(win.state, slot, new_state),
-        state_zero=_set_row(win.state_zero, slot, new_state),
+        evalPT=set_(win.evalPT, s, w2c),
+        state=set_(win.state, s, new_state),
+        state_zero=set_(win.state_zero, s, new_state),
     )
 
 

@@ -6,7 +6,9 @@ worldToCam = exp(SCALE*state[:6]) * evalPT), NP point slots with a host
 slot index, a dense [NP, F] residual cube with the IN/OOB/OUTLIER machine,
 and the dense marginalization prior HM/bM over the (CPARS + 8F) state.
 Updates are functional (`replace` returns a new Window sharing the
-unchanged tensors), as in the JAX package.
+unchanged tensors), as in the JAX package. A window stacked over N
+sequences (every leaf with a leading axis N, the JAX package's vmap) runs
+through `precalc`, `residuals`, `ba` and `builder` as one.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from stereo_dso_g2o_tpu_torch.config import (
     SCALE_XI_TRANS,
 )
 from stereo_dso_g2o_tpu_torch.utils import se3
+from stereo_dso_g2o_tpu_torch.utils.tree import per_row
 
 # point status (PointHessian::PtStatus)
 PT_INACTIVE = 0
@@ -184,42 +187,46 @@ def aff_transfer(exp_h, exp_t, aff_h, aff_t):
 
 def precalc(win: Window):
     """FrameFramePrecalc::set for every (host, target) pair. Returns a dict
-    of (F, F, ...) tensors indexed [host, target]."""
+    of (F, F, ...) tensors indexed [host, target] ((N, F, F, ...) for a
+    window stacked over N sequences)."""
     w2c = win.w2c()
     ev = win.evalPT
     c2w = se3.inverse(w2c)
     ev_inv = se3.inverse(ev)
 
-    T0 = torch.einsum("tij,hjk->thik", ev, ev_inv)  # FEJ (leftToLeft_0)
-    T = torch.einsum("tij,hjk->thik", w2c, c2w)  # current
+    T0 = torch.einsum("...tij,...hjk->...thik", ev, ev_inv)  # FEJ (leftToLeft_0)
+    T = torch.einsum("...tij,...hjk->...thik", w2c, c2w)  # current
 
-    fx, fy, cx, cy = (win.c_value[i] for i in range(4))
-    K = torch.eye(3, dtype=win.c_value.dtype, device=win.device)
-    K[0, 0] = fx
-    K[1, 1] = fy
-    K[0, 2] = cx
-    K[1, 2] = cy
+    lead = tuple(win.c_value.shape[:-1])
+    K = torch.eye(3, dtype=win.c_value.dtype, device=win.device).expand(lead + (3, 3)).clone()
+    K[..., 0, 0] = win.c_value[..., 0]
+    K[..., 1, 1] = win.c_value[..., 1]
+    K[..., 0, 2] = win.c_value[..., 2]
+    K[..., 1, 2] = win.c_value[..., 3]
     Ki = torch.linalg.inv(K)
 
-    R = torch.swapaxes(T[..., :3, :3], 0, 1)
-    t = torch.swapaxes(T[..., :3, 3], 0, 1)
-    R0 = torch.swapaxes(T0[..., :3, :3], 0, 1)
-    t0 = torch.swapaxes(T0[..., :3, 3], 0, 1)
+    R = torch.swapaxes(T[..., :3, :3], -4, -3)
+    t = torch.swapaxes(T[..., :3, 3], -3, -2)
+    R0 = torch.swapaxes(T0[..., :3, :3], -4, -3)
+    t0 = torch.swapaxes(T0[..., :3, 3], -3, -2)
 
     aff = win.aff_g2l()
     aff_ht = aff_transfer(
-        win.ab_exposure[:, None],
-        win.ab_exposure[None, :],
-        aff[:, None, :],
-        aff[None, :, :],
+        win.ab_exposure[..., :, None],
+        win.ab_exposure[..., None, :],
+        aff[..., :, None, :],
+        aff[..., None, :, :],
     )
-    b0 = win.state_zero[:, 7] * SCALE_B
+    b0 = win.state_zero[..., 7] * SCALE_B
 
     return dict(
         RTll_0=R0,
         tTll_0=t0,
-        KRKi=torch.einsum("ij,htjk,kl->htil", K, R, Ki),
-        Kt=torch.einsum("ij,htj->hti", K, t),
+        # products of one matrix per sequence: one call per sequence
+        # (utils/tree.per_row), as one sequence alone makes it
+        KRKi=per_row(lambda k, r, ki: torch.einsum("ij,htjk,kl->htil", k, r, ki), bool(lead),
+                     K, R, Ki),
+        Kt=per_row(lambda k, tt: torch.einsum("ij,htj->hti", k, tt), bool(lead), K, t),
         RTll=R,
         tTll=t,
         aff=aff_ht,

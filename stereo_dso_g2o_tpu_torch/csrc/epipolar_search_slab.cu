@@ -428,21 +428,31 @@ __device__ __forceinline__ void stage_band(const BandTap& g, float* band, int ve
 
 // Dynamic shared memory, per warp: the band (kBandCross * band_len floats)
 // and the per-step energies (S rounded up to a multiple of 4).
+// blockIdx.y is the sequence: its intensity plane and its N lanes.
 __global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
 epipolar_search_slab_kernel(const float* __restrict__ img,
                             const float* __restrict__ scal,
                             const float* __restrict__ color,
                             const float* __restrict__ weights,
                             const float* __restrict__ patx,
-                            const float* __restrict__ paty, long long ps0,
-                            long long ps1, float* __restrict__ out, int H, int W,
-                            int N, int S, float huber_th, int gn_iters,
-                            float gn_threshold, int radius, int edge,
-                            int band_len, int vec) {
+                            const float* __restrict__ paty, long long psn,
+                            long long ps0, long long ps1, float* __restrict__ out,
+                            int H, int W, int N, int S, float huber_th,
+                            int gn_iters, float gn_threshold, int radius,
+                            int edge, int band_len, int vec) {
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x >> 5;
   const int i = blockIdx.x * (blockDim.x >> 5) + warp;
   if (i >= N) return;  // whole warps exit together; no block-wide barrier follows
+  const size_t n = blockIdx.y;
+  const size_t lanes = n * (size_t)N * 8;
+  img += n * (size_t)H * W;  // W % 4 == 0 keeps every plane 16-byte aligned (`vec`)
+  scal += lanes;
+  color += lanes;
+  weights += lanes;
+  out += lanes;
+  patx += (long long)n * psn;
+  paty += (long long)n * psn;
   const int per_warp = kBandCross * band_len + ((S + 3) & ~3);
   float* band = smem + warp * per_warp;
   float* e_step = band + kBandCross * band_len;
@@ -473,31 +483,35 @@ epipolar_search_slab_kernel(const float* __restrict__ img,
 
 }  // namespace
 
-// `img` is the (H, W) intensity plane; `band_len` (a multiple of 4) is the
-// band length the launch reserves per lane and `warps` the lanes (warps) a
-// block takes: its dynamic shared memory is warps * 4 * (16 * band_len + S
-// rounded up to a multiple of 4) bytes. `patx`/`paty` are (N, 8) views with
-// element strides (ps0, ps1).
+// `n_seq` sequences, each an (H, W) intensity plane of `img` and N lanes of
+// the contiguous (n_seq, N, 8) `scal`, `color`, `weights` and `out`;
+// `band_len` (a multiple of 4) is the band length the launch reserves per
+// lane and `warps` the lanes (warps) a block takes: its dynamic shared
+// memory is warps * 4 * (16 * band_len + S rounded up to a multiple of 4)
+// bytes. `patx`/`paty` are (n_seq, N, 8) views with element strides (psn,
+// ps0, ps1).
 extern "C" int sdso_epipolar_search_slab(const float* img, const float* scal,
                                          const float* color, const float* weights,
                                          const float* patx, const float* paty,
-                                         long long ps0, long long ps1, float* out,
-                                         int H, int W, int N, int S, float huber_th,
-                                         int gn_iters, float gn_threshold,
-                                         int radius, int edge, int band_len,
-                                         int warps, cudaStream_t stream) {
-  if (N <= 0) return 0;
+                                         long long psn, long long ps0, long long ps1,
+                                         float* out, int H, int W, int N, int S,
+                                         float huber_th, int gn_iters,
+                                         float gn_threshold, int radius, int edge,
+                                         int band_len, int n_seq, int warps,
+                                         cudaStream_t stream) {
+  if (N <= 0 || n_seq <= 0) return 0;
   if (S < 1 || band_len < 4 || (band_len & 3) || warps < 1 || warps > kMaxWarpsPerBlock)
     return (int)cudaErrorInvalidValue;
+  if (n_seq > 65535) return (int)cudaErrorInvalidValue;
   const int smem_bytes = warps * 4 * (kBandCross * band_len + ((S + 3) & ~3));
   cudaError_t err = cudaFuncSetAttribute(
       epipolar_search_slab_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const int vec = (W % 4 == 0) && (((size_t)img & 15) == 0);
-  const int blocks = (N + warps - 1) / warps;
-  epipolar_search_slab_kernel<<<blocks, warps * 32, smem_bytes, stream>>>(
-      img, scal, color, weights, patx, paty, ps0, ps1, out, H, W, N, S, huber_th,
-      gn_iters, gn_threshold, radius, edge, band_len, vec);
+  const dim3 grid((N + warps - 1) / warps, n_seq);
+  epipolar_search_slab_kernel<<<grid, warps * 32, smem_bytes, stream>>>(
+      img, scal, color, weights, patx, paty, psn, ps0, ps1, out, H, W, N, S,
+      huber_th, gn_iters, gn_threshold, radius, edge, band_len, vec);
   return (int)cudaGetLastError();
 }

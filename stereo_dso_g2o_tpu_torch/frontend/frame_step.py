@@ -9,7 +9,8 @@ The non-keyframe step (`frame_step_full`) runs N sequences at once, as the
 JAX package's batched frame program vmaps it: every operand leads with the
 sequence axis, the hypotheses of all sequences run as one (N, K) batch of
 rows, each sequence's winner is picked on the device, and one sequence is
-the batch of one.
+the batch of one. The keyframe steps (`kf_trace_step`, `kf_finalize`,
+`tracking_ref_inputs`) take the same leading axis, with slots (N,).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from stereo_dso_g2o_tpu_torch.ops import tracker_ops
 from stereo_dso_g2o_tpu_torch.ops.pyramid import build_pyramid
 from stereo_dso_g2o_tpu_torch.utils import host
 from stereo_dso_g2o_tpu_torch.utils.smalls import matmul_fma
-from stereo_dso_g2o_tpu_torch.utils.tree import at_rows, first, lead_one
+from stereo_dso_g2o_tpu_torch.utils.tree import at_rows, first, lead_one, per_row
 
 
 class TrackOut(NamedTuple):
@@ -180,11 +181,15 @@ def _host_transforms(win, T_new, calib):
     w2c = win.w2c()
     K = calib.K(0)
     Ki = calib.Ki(0)
-    T_hn = torch.einsum("...ij,...fjk->...fik", T_new, torch.linalg.inv(w2c))
+    many = w2c.dim() == 4
+    # products of one matrix per sequence: one call per sequence
+    # (utils/tree.per_row), as one sequence alone makes it
+    T_hn = per_row(lambda a, b: torch.einsum("ij,fjk->fik", a, b), many,
+                   T_new, torch.linalg.inv(w2c))
     R_hn = T_hn[..., :3, :3]
     t_hn = T_hn[..., :3, 3]
-    KRKi = torch.einsum("...ij,...fjk,...kl->...fil", K, R_hn, Ki)
-    Kt = torch.einsum("...ij,...fj->...fi", K, t_hn)
+    KRKi = per_row(lambda k, r, ki: torch.einsum("ij,fjk,kl->fil", k, r, ki), many, K, R_hn, Ki)
+    Kt = per_row(lambda k, t: torch.einsum("ij,fj->fi", k, t), many, K, t_hn)
     return K, KRKi, Kt, R_hn, t_hn
 
 
@@ -244,44 +249,48 @@ def nonkey_refine_step(win, imm, dI_left0, dI_right0, calib_c, baseline, ref_slo
     )
 
 
-def tracking_ref_inputs(win, dI_new0, dI_right0, calib_c, baseline, newest_slot: int,
+def tracking_ref_inputs(win, dI_new0, dI_right0, calib_c, baseline, newest_slot,
                         settings: Settings = default_settings(), n_levels: int = 6):
     """makeCoarseDepthL0 STEP1: per active point with an IN residual to the
     newest KF, take its projected center, re-verify its inverse depth by
-    L->R / R->L static stereo, and emit (u, v, idepth, weight, valid)."""
-    Hd, Wd = dI_new0.shape[:2]
+    L->R / R->L static stereo, and emit (u, v, idepth, weight, valid). N
+    stacked sequences: images (N, H, W, 3), newest_slot (N,), one K1 launch
+    per direction for all of them."""
+    Hd, Wd = dI_new0.shape[-3:-1]
     calib = calib_from_c(calib_c, baseline, Wd, Hd, n_levels)
     s = settings
     dev = dI_new0.device
+    lead = tuple(win.frame_valid.shape[:-1])
 
     active = win.pt_status == W.PT_ACTIVE
-    res_in = win.res_exists[:, newest_slot] & (win.res_state[:, newest_slot] == W.RES_IN)
+    res_in = ba._at_col(win.res_exists, newest_slot) & (
+        ba._at_col(win.res_state, newest_slot) == W.RES_IN)
     sel = active & res_in
-    center = win.res_center[:, newest_slot]  # (NP, 3)
-    us = torch.round(center[:, 0])
-    vs = torch.round(center[:, 1])
-    ids = center[:, 2]
+    center = torch.stack([ba._at_col(win.res_center[..., k], newest_slot) for k in range(3)], -1)
+    us = torch.round(center[..., 0])
+    vs = torch.round(center[..., 1])
+    ids = center[..., 2]
 
-    n = us.shape[0]
+    n = us.shape[-1]
     usj = torch.clamp(us, 8.0, Wd - 9.0)
     vsj = torch.clamp(vs, 8.0, Hd - 9.0)
     color, weights_p, gradH, eth = trace_ops.extract_point_data(dI_new0, usj, vsj, s)
     K0 = calib.K(0)
-    fresh_q = torch.full((n,), 10000.0, device=dev)
-    fresh_st = torch.full((n,), trace_ops.IPS_UNINITIALIZED, dtype=torch.int32, device=dev)
+    fresh_q = torch.full(lead + (n,), 10000.0, device=dev)
+    fresh_st = torch.full(lead + (n,), trace_ops.IPS_UNINITIALIZED, dtype=torch.int32, device=dev)
     res_lr, idepth_stereo = trace_ops.trace_stereo(
         usj, vsj, ids * 0.1, ids * 1.9, color, weights_p, gradH, eth,
         fresh_q, fresh_st, K0, baseline, dI_right0, mode_right=True, settings=s,
     )
     lr_good = res_lr.status == trace_ops.IPS_GOOD
-    u_r = torch.clamp(res_lr.last_uv[:, 0], 8.0, Wd - 9.0)
-    v_r = torch.clamp(res_lr.last_uv[:, 1], 8.0, Hd - 9.0)
+    u_r = torch.clamp(res_lr.last_uv[..., 0], 8.0, Wd - 9.0)
+    v_r = torch.clamp(res_lr.last_uv[..., 1], 8.0, Hd - 9.0)
     color_r, weights_r, gradH_r, eth_r = trace_ops.extract_point_data(dI_right0, u_r, v_r, s)
     res_rl, _ = trace_ops.trace_stereo(
         u_r, v_r, ids * 0.1, ids * 1.9, color_r, weights_r, gradH_r, eth_r,
         fresh_q.clone(), fresh_st, K0, baseline, dI_new0, mode_right=False, settings=s,
     )
-    u_delta = torch.abs(us - res_rl.last_uv[:, 0])
+    u_delta = torch.abs(us - res_rl.last_uv[..., 0])
     depth = 1.0 / torch.where(idepth_stereo != 0, idepth_stereo, torch.full_like(idepth_stereo, float("inf")))
     stereo_ok = (
         lr_good & (u_delta < s.stereo_u_delta_max) & (depth > 0) & (depth < s.stereo_depth_max)
@@ -456,16 +465,17 @@ def frame_step_full(left, right, ref, win, imm, calib_c, baseline, ref_slot,
     return (dIpL, dIpR), imm_out, track, need_ladder
 
 
-def kf_finalize(win, dI_stack, dI_new0, dI_right0, slot: int, frames_to_marg,
-                prev_slot: int, calib_c, baseline,
+def kf_finalize(win, dI_stack, dI_new0, dI_right0, slot, frames_to_marg,
+                prev_slot, calib_c, baseline,
                 settings: Settings = default_settings(), n_levels: int = 6):
     """Post-BA keyframe tail (makeKeyFrame STEP7-11): re-linearize the newest
     KF at its optimized pose, final linearization + outlier removal +
     adaptive energy threshold, tracking-reference inputs, point flagging,
-    and point marginalization into HM/bM."""
+    and point marginalization into HM/bM. N stacked sequences: slots (N,),
+    frames_to_marg (N, F)."""
     win = builder.set_frame_eval_pt(win, slot)
     win, energy = ba.linearize_all_final(win, dI_stack, slot, settings=settings)
-    nres_pt = torch.sum(win.res_exists, dim=1)
+    nres_pt = torch.sum(win.res_exists, dim=-1)
     win = win.replace(
         pt_status=torch.where(
             (win.pt_status == W.PT_ACTIVE) & (nres_pt == 0),
@@ -478,8 +488,8 @@ def kf_finalize(win, dI_stack, dI_new0, dI_right0, slot: int, frames_to_marg,
     win = ba.flag_points_for_removal(
         win, dI_stack, frames_to_marg, slot, prev_slot, settings=settings
     )
-    n_marg = torch.sum(win.pt_status == W.PT_MARGINALIZE).to(torch.int32)
-    n_drop = torch.sum(win.pt_status == W.PT_DROP).to(torch.int32)
+    n_marg = torch.sum(win.pt_status == W.PT_MARGINALIZE, dim=-1).to(torch.int32)
+    n_drop = torch.sum(win.pt_status == W.PT_DROP, dim=-1).to(torch.int32)
     gone = (win.pt_status == W.PT_MARGINALIZE) | (win.pt_status == W.PT_DROP)
     win = ba.marginalize_points(win, settings=settings)
     return win, ref_inputs, gone, win.w2c(), win.aff_g2l(), energy, (n_marg, n_drop)
@@ -488,8 +498,9 @@ def kf_finalize(win, dI_stack, dI_new0, dI_right0, slot: int, frames_to_marg,
 def kf_trace_step(win, imm, dI_new0, calib_c, baseline, T_new_w2c, aff_new, new_exposure,
                   settings: Settings = default_settings(), n_levels: int = 6):
     """makeKeyFrame STEP 1 (traceNewCoarseKey): temporal-trace every
-    keyframe's immature points onto the incoming keyframe."""
-    Hd, Wd = dI_new0.shape[:2]
+    keyframe's immature points onto the incoming keyframe (N stacked
+    sequences: one K1 launch for all)."""
+    Hd, Wd = dI_new0.shape[-3:-1]
     calib = calib_from_c(calib_c, baseline, Wd, Hd, n_levels)
     _, KRKi, Kt, _, _ = _host_transforms(win, T_new_w2c, calib)
     aff_ht = _aff_host_to_new(win, aff_new, new_exposure)

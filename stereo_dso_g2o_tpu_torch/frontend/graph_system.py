@@ -23,13 +23,18 @@ track half (`frame_track`, `_track_common`, `_nonkf_branch`) runs N
 sequences at once on a state stacked over a leading axis, as the JAX
 package's batched program vmaps it; one sequence is the batch of one.
 
+The keyframe pipeline (`_kf_branch`) runs N sequences at once too, as the
+JAX package's vmap of it: every step once for all of them, one sequence as
+the batch of one (`frame_kf`, `frame_auto`'s keyframe branch).
+
 The frame program waits for the device wherever its Python needs a device
 value (`utils/host.py`): the tracker's LM loop once an iteration of every
 level (`tracker_ops.lm_level`), `need_kf` after tracking (`frame_auto`),
-and on a keyframe one packed read of (free slot, keyframe id, selector
-salt, flagged frames), the two counts of `IMM.insert_activated` and BA's
-convergence flag once an iteration (`ba.optimize_fused`); the host
-bookkeeping's fetch of a bundle is one more. `HOST_READS` is their count.
+and on a keyframe one packed read of (selector salt, flagged frames), the
+two counts of `IMM.insert_activated` and BA's convergence flags once an
+iteration (`ba.optimize_fused`), each one read for all sequences of a
+batch; the host bookkeeping's fetch of a bundle is one more. `HOST_READS`
+is their count.
 
 Deviations from the reference, as in the JAX module: one selection pass at
 the potential adapted from the previous keyframe's yield plus the random
@@ -40,7 +45,7 @@ initialization stays on the host `FullSystem`, and
 
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -169,59 +174,61 @@ def flag_frames(win: W.Window, imm_valid, kf_out_count, settings: Settings):
     """flagFramesForMarginalization (FullSystemMarginalize.cpp:59-145) on
     tensors. Returns (F,) bool: candidates in frame-id order bounded by
     (n_kfs - min_frames), then the distance-score rule when the window would
-    overflow."""
+    overflow. (N, F) for a window stacked over N sequences."""
     s = settings
     F = win.F
     dev = win.device
     valid = win.frame_valid
     fid = torch.where(valid, win.frame_id, torch.full_like(win.frame_id, 2**31 - 1))
-    n_kfs = torch.sum(valid)
+    n_kfs = torch.sum(valid, dim=-1)
 
     active = win.pt_status == W.PT_ACTIVE
-    n_in = torch.zeros(F, dtype=torch.int32, device=dev).index_add_(
-        0, win.pt_host.long(), active.to(torch.int32)
-    ) + torch.sum(imm_valid, dim=1).to(torch.int32)
+    n_in = torch.zeros(valid.shape, dtype=torch.int32, device=dev).scatter_add_(
+        -1, win.pt_host.long(), active.to(torch.int32)
+    ) + torch.sum(imm_valid, dim=-1).to(torch.int32)
     n_out = kf_out_count.to(torch.int32)
 
     # affine gap vs the newest window KF (frameHessians.back())
-    back = torch.argmax(torch.where(valid, win.frame_id, torch.full_like(win.frame_id, -1)))
+    back = torch.argmax(torch.where(valid, win.frame_id, torch.full_like(win.frame_id, -1)), dim=-1)
     aff_all = win.aff_g2l()
     exps = win.ab_exposure
-    a_rel = torch.exp(aff_all[:, 0] - aff_all[back, 0]) * exps / torch.clamp(exps[back], min=1e-9)
+    aff_back = FS._at_slot(aff_all, back)
+    a_rel = (torch.exp(aff_all[..., 0] - aff_back[..., 0, None]) * exps
+             / torch.clamp(FS._at_slot(exps, back)[..., None], min=1e-9))
     drop = (n_in < s.min_points_remaining * (n_in + n_out)) | (
         torch.abs(torch.log(torch.clamp(a_rel, min=1e-12))) > s.max_log_aff_fac_in_window
     )
     candidate = valid & drop
 
     # greedy in frame-id order, at most max(n_kfs - min_frames, 0) flags
-    order = torch.argsort(fid, stable=True)
-    cand_sorted = candidate[order]
-    rank = torch.cumsum(cand_sorted.to(torch.int32), 0) - 1  # rank among cands
-    allow = cand_sorted & (rank < torch.clamp(n_kfs - s.min_frames, min=0))
-    flagged = torch.zeros(F, dtype=torch.bool, device=dev)
-    flagged[order] = allow
-    n_flagged = torch.sum(flagged)
+    order = torch.argsort(fid, dim=-1, stable=True)
+    cand_sorted = torch.gather(candidate, -1, order)
+    rank = torch.cumsum(cand_sorted.to(torch.int32), -1) - 1  # rank among cands
+    allow = cand_sorted & (rank < torch.clamp(n_kfs - s.min_frames, min=0)[..., None])
+    flagged = torch.zeros_like(valid).scatter(-1, order, allow)
+    n_flagged = torch.sum(flagged, dim=-1)
 
     # distance-score rule when the window is (over)full; +1 for the incoming
     need_dist = (n_kfs + 1 - n_flagged) >= (s.max_frames + 1)
     w2c = win.w2c()
     latest = back
-    latest_id = win.frame_id[latest]
-    rel = torch.einsum("tij,sjk->stik", w2c, torch.linalg.inv(w2c))  # [s,t]
+    latest_id = FS._at_slot(win.frame_id, latest)[..., None]
+    rel = torch.einsum("...tij,...sjk->...stik", w2c, torch.linalg.inv(w2c))  # [s,t]
     d = torch.linalg.norm(rel[..., :3, 3], dim=-1)  # (F_s, F_t)
     t_ok = valid & ~(win.frame_id > latest_id - s.min_frame_age + 1)
     eye = torch.eye(F, dtype=torch.bool, device=dev)
-    contrib = torch.where(t_ok[None, :] & ~eye, 1.0 / (1e-5 + d), torch.zeros_like(d))
-    score = -torch.sqrt(torch.clamp(d[:, latest], min=1e-12)) * torch.sum(contrib, 1)
+    contrib = torch.where(t_ok[..., None, :] & ~eye, 1.0 / (1e-5 + d), torch.zeros_like(d))
+    d_latest = torch.gather(d, -1, latest[..., None, None].expand(d.shape[:-1] + (1,)))[..., 0]
+    score = -torch.sqrt(torch.clamp(d_latest, min=1e-12)) * torch.sum(contrib, -1)
     s_ok = valid & (win.frame_id <= latest_id - s.min_frame_age) & (win.frame_id != 0)
     score = torch.where(s_ok, score, torch.full_like(score, float("inf")))
-    best_slot = torch.argmin(score)
-    flag_dist = need_dist & torch.isfinite(score[best_slot])
-    return flagged | ((torch.arange(F, device=dev) == best_slot) & flag_dist)
+    best_slot = torch.argmin(score, dim=-1)
+    flag_dist = need_dist & torch.isfinite(FS._at_slot(score, best_slot))
+    return flagged | ((torch.arange(F, device=dev) == best_slot[..., None]) & flag_dist[..., None])
 
 
 def _free_slot(win: W.Window):
-    return torch.argmin(win.frame_valid.to(torch.int32)).to(torch.int32)
+    return torch.argmin(win.frame_valid.to(torch.int32), dim=-1).to(torch.int32)
 
 
 def _rigid_inv(T):
@@ -378,10 +385,6 @@ def _nonkf_one(state: GraphState, one: GraphState, imm_spec, aux: TrackAux):
     return GraphState(*[own[id(x)] if id(x) in own else first(x) for x in st]), first(bundle)
 
 
-def _i32(x, device):
-    return torch.tensor(int(x), dtype=torch.int32, device=device)
-
-
 def _nonkf_branch(state: GraphState, imm_spec, aux: TrackAux):
     """makeNonKeyFrame: keep the speculative refinement. One sequence, or N
     with every leaf stacked."""
@@ -424,16 +427,22 @@ def _nonkf_branch(state: GraphState, imm_spec, aux: TrackAux):
 
 
 def _kf_branch(state: GraphState, aux: TrackAux, calib_c, baseline, new_exposure,
-               settings: Settings, n_levels: int, pot: int, caps: Tuple[int, ...],
-               w0: int, h0: int, imm_cap: int, uniform: Optional[Callable] = None):
+               settings: Settings, n_levels: int, pots: Sequence[int], caps: Tuple[int, ...],
+               w0: int, h0: int, imm_cap: int,
+               uniforms: Optional[Sequence[Optional[Callable]]] = None):
     """The whole keyframe pipeline (makeKeyFrame) from the PRE-frame state +
-    the tracking result, in the JAX branch's order of operations."""
+    the tracking result, in the JAX branch's order of operations, for N
+    sequences at once: `state` and `aux` stacked over N, calib_c (N, 4),
+    baseline and new_exposure (N,), a selector potential and a thinning
+    draw per sequence. Each step runs once for all N (K1 three launches in
+    all); one sequence is the batch of one."""
     s = settings
     win, imm = state.win, state.imm
     dev = win.device
-    F = win.F
+    N, F = win.frame_valid.shape
+    rows = torch.arange(N, device=dev)
     dIpL, T_best, aff_best = aux.dIpL, aux.T_best, aux.aff_best
-    T_new_w2c = T_best @ win.w2c()[state.ref_slot.long()]
+    T_new_w2c = matmul_fma(T_best, at_rows(win.w2c(), state.ref_slot.long()))
 
     # STEP 1: trace all immature points onto the incoming KF
     with PROF.section("graph.kf.trace", True):
@@ -442,39 +451,38 @@ def _kf_branch(state: GraphState, aux: TrackAux, calib_c, baseline, new_exposure
             settings=s, n_levels=n_levels,
         )
 
-    # STEP 2: flagging policy (pre-insertion window); the modules below take
-    # the slots as Python ints, so this is the keyframe's one packed read
+    # STEP 2: flagging policy (pre-insertion window). The selector's salt
+    # (its hash and its thinning draw) and the flagged slots (which frames
+    # are marginalized below) are needed on the host: the keyframe's one
+    # packed read, for all sequences
     flagged = flag_frames(win, imm.valid, state.kf_out_count, s)
-    packed = host.tolist(torch.cat([
-        torch.stack([_free_slot(win), state.next_kf_id.to(torch.int32),
-                     state.salt.to(torch.int32), state.ref_slot.to(torch.int32)]),
-        flagged.to(torch.int32),
-    ]))
-    slot, kf_id, salt, ref_slot = packed[:4]
-    flagged_host = np.asarray(packed[4:], dtype=bool)
+    slot = _free_slot(win)
+    kf_id = state.next_kf_id.to(torch.int32)
+    packed = host.tolist(torch.cat([state.salt.to(torch.int32)[:, None],
+                                    flagged.to(torch.int32)], -1))
+    salts = [row[0] for row in packed]
+    flagged_host = np.asarray([row[1:] for row in packed], dtype=bool)
 
     # STEP 3: insert the KF. Its level-0 pyramid goes into the slot's row of
-    # the (F, H, W, 3) stack IN PLACE (41 MB at 1216x352: not cloned per
-    # keyframe). The row belonged to no valid frame, so the pre-frame state,
-    # which shares the stack, still reads what it read before.
-    win = builder.insert_frame(
-        win, slot, T_new_w2c, (aff_best[0], aff_best[1]), new_exposure, kf_id
-    )
+    # the (N, F, H, W, 3) stack IN PLACE (41 MB a sequence at 1216x352: not
+    # cloned per keyframe). The row belonged to no valid frame, so the
+    # pre-frame state, which shares the stack, still reads what it read
+    # before.
+    win = builder.insert_frame(win, slot, T_new_w2c, aff_best, new_exposure, kf_id)
     dI0 = state.dI0_slots
-    dI0[slot] = dIpL[0]
+    dI0[rows, slot.long()] = dIpL[0]
 
     # STEP 4: residuals from active points to the new KF
     active_pts = win.pt_status == W.PT_ACTIVE
-    res_exists = win.res_exists.clone()
-    res_state = win.res_state.clone()
-    res_lin = win.res_linearized.clone()
-    res_exists[:, slot] = active_pts
-    res_state[:, slot] = W.RES_IN
-    res_lin[:, slot] = False
-    win = win.replace(res_exists=res_exists, res_state=res_state, res_linearized=res_lin)
+    tgt = (torch.arange(F, device=dev) == slot[:, None])[:, None, :]
+    win = win.replace(
+        res_exists=torch.where(tgt, active_pts[..., None], win.res_exists),
+        res_state=torch.where(tgt, torch.full_like(win.res_state, W.RES_IN), win.res_state),
+        res_linearized=win.res_linearized & ~tgt,
+    )
 
     # STEP 5: activation (distance controller + gate + LM + insertion)
-    n_active = torch.sum(active_pts).to(torch.int32)
+    n_active = torch.sum(active_pts, dim=-1).to(torch.int32)
     mad = _update_min_act_dist(state.min_act_dist, n_active, s.desired_point_density)
     with PROF.section("graph.kf.activate", True):
         cand_flat, delete = IMM.activation_gate(
@@ -496,11 +504,11 @@ def _kf_branch(state: GraphState, aux: TrackAux, calib_c, baseline, new_exposure
     # point flagging + marginalization
     with PROF.section("graph.kf.finalize", True):
         win, ref_inputs, gone, w2c_post, aff_all, _, (n_marg, n_drop) = FS.kf_finalize(
-            win, dI0, dIpL[0], aux.dIpR0, slot, flagged, ref_slot, calib_c, baseline,
+            win, dI0, dIpL[0], aux.dIpR0, slot, flagged, state.ref_slot, calib_c, baseline,
             settings=s, n_levels=n_levels,
         )
-    kf_out = state.kf_out_count + torch.zeros(F, dtype=torch.int32, device=dev).index_add_(
-        0, win.pt_host.long(), gone.to(torch.int32)
+    kf_out = state.kf_out_count + torch.zeros((N, F), dtype=torch.int32, device=dev).scatter_add_(
+        -1, win.pt_host.long(), gone.to(torch.int32)
     )
 
     # tracking reference rebuild (makeCoarseDepthL0 STEP2-5)
@@ -514,17 +522,24 @@ def _kf_branch(state: GraphState, aux: TrackAux, calib_c, baseline, new_exposure
             for l in range(n_levels)
         )
 
-    # STEP 9: seed new immature points (one selection pass at the
-    # host-adapted potential, with the reference's random thinning)
+    # STEP 9: seed new immature points (one selection pass at each
+    # sequence's host-adapted potential, with the reference's random
+    # thinning, each sequence's own draw)
     with PROF.section("graph.kf.new_traces", True):
         asg = build_pyramid(dIpL[0][..., 0], 3)[1]
         ths = SEL.block_thresholds(asg[0], s)
-        selm = SEL.select(dIpL[0], asg[0], asg[1], asg[2], ths, pot, 1.0, salt, s)
-        num_have = torch.sum(selm.counts)
+        selm = SEL.select(dIpL[0], asg[0], asg[1], asg[2], ths, pots, 1.0, salts, s)
+        num_have = torch.sum(selm.counts, dim=-1)
         quotia = s.desired_immature_density / torch.clamp(num_have.to(torch.float64), min=1.0)
-        draw = SEL.torch_uniform if uniform is None else uniform
-        u = torch.as_tensor(draw(salt, tuple(selm.status_map.shape), dev), device=dev)
-        thin = (quotia < 0.95) & ~(u < quotia)
+        shape = tuple(selm.status_map.shape[1:])
+        u = torch.stack([
+            torch.as_tensor(
+                (SEL.torch_uniform if draw is None else draw)(salt, shape, dev), device=dev)
+            for salt, draw in zip(salts, uniforms or [None] * N)
+        ])
+        # compared in the draw's precision, as one sequence's 0-dim quotia is
+        q = quotia[:, None, None]
+        thin = (q < 0.95) & ~(u < q.to(u.dtype))
         status = torch.where(thin, torch.zeros_like(selm.status_map), selm.status_map)
         us, vs, types, sel_valid = SEL.map_to_points(status, imm_cap)
         imm = IMM.seed_slot(imm, slot, dIpL[0], us, vs, types, sel_valid, settings=s)
@@ -532,33 +547,32 @@ def _kf_branch(state: GraphState, aux: TrackAux, calib_c, baseline, new_exposure
     # STEP 10: marginalize flagged frames
     with PROF.section("graph.kf.marg_frames", True):
         win = ba.marginalize_frames_masked(win, flagged_host, settings=s)
-        imm = imm.replace(valid=imm.valid & ~flagged[:, None])
+        imm = imm.replace(valid=imm.valid & ~flagged[..., None])
 
-    slot_t = _i32(slot, dev)
-    kf_id_t = _i32(kf_id, dev)
+    aff_slot = at_rows(aff_all, slot.long())
     st = GraphState(
         win=win,
         imm=imm,
         ref=new_ref,
-        ref_slot=slot_t,
-        ref_aff=aff_all[slot],
+        ref_slot=slot,
+        ref_aff=aff_slot,
         ref_exposure=new_exposure,
         dI0_slots=dI0,
         last_rmse0=aux.new_last,
         # firstCoarseRMSE is per tracking reference: reset on every new KF
         # (CoarseTracker.cpp:803,823); the next frame's RMSE against the new
         # reference becomes "first"
-        first_rmse=torch.tensor(-1.0, dtype=torch.float32, device=dev),
+        first_rmse=torch.full((N,), -1.0, dtype=torch.float32, device=dev),
         kf_out_count=kf_out,
         min_act_dist=mad,
-        next_kf_id=_i32(kf_id + 1, dev),
-        salt=_i32(salt + 1, dev),
-        last_c2w=_rigid_inv(w2c_post[slot]),
+        next_kf_id=kf_id + 1,
+        salt=state.salt.to(torch.int32) + 1,
+        last_c2w=_rigid_inv(at_rows(w2c_post, slot.long())),
         prev_c2w=state.last_c2w,
-        last_aff=aff_all[slot].to(state.last_aff.dtype),
-        last_rel=torch.eye(4, dtype=state.last_rel.dtype, device=dev),
-        last_slot=slot_t,
-        last_fid=kf_id_t,
+        last_aff=aff_slot.to(state.last_aff.dtype),
+        last_rel=torch.eye(4, dtype=state.last_rel.dtype, device=dev).expand(N, 4, 4).clone(),
+        last_slot=slot,
+        last_fid=kf_id,
         prev_rel=state.last_rel,
         prev_slot=state.last_slot,
         prev_fid=state.last_fid,
@@ -566,19 +580,34 @@ def _kf_branch(state: GraphState, aux: TrackAux, calib_c, baseline, new_exposure
     bundle = FrameBundle(
         T=T_best, aff=aff_best, residuals=aux.track.residuals, flow=aux.flow,
         ok=aux.ok_eff, sat_frac0=aux.track.sat_frac0, need_kf=aux.need_kf,
-        slot=slot_t,
+        slot=slot,
         flagged=flagged,
         w2c=win.w2c(), aff_all=win.aff_g2l(),
         frame_valid=win.frame_valid, frame_id=win.frame_id,
         energy=energy.to(torch.float32), nres=nres.to(torch.int32),
         sel_num=num_have.to(torch.int32),
         n_active=n_active,
-        n_activated=_i32(n_activated, dev),
-        n_imm=torch.sum(imm.valid).to(torch.int32),
+        n_activated=n_activated.to(torch.int32),
+        n_imm=torch.sum(imm.valid.flatten(-2), dim=-1).to(torch.int32),
         n_marg=n_marg, n_dropped=n_drop,
-        kf_delta=aux.kf_inputs[0], kf_rmse=aux.kf_inputs[1], kf_first_rmse=aux.kf_inputs[2],
+        kf_delta=aux.kf_inputs[..., 0], kf_rmse=aux.kf_inputs[..., 1],
+        kf_first_rmse=aux.kf_inputs[..., 2],
     )
     return st, bundle
+
+
+def _kf_one(state: GraphState, aux_one: TrackAux, calib_c, baseline, new_exposure,
+            settings: Settings, n_levels: int, pot: int, caps: Tuple[int, ...],
+            w0: int, h0: int, imm_cap: int, uniform: Optional[Callable]):
+    """The keyframe pipeline of one sequence as the batch of one (`aux_one`
+    with its leading axis)."""
+    dev = state.win.device
+    st, bundle = _kf_branch(
+        lead_one(state), aux_one, calib_c[None], torch.as_tensor(baseline, device=dev)[None],
+        torch.as_tensor(new_exposure, device=dev)[None], settings, n_levels, [pot], caps,
+        w0, h0, imm_cap, [uniform],
+    )
+    return first(st), first(bundle)
 
 
 def frame_auto(state: GraphState, left, right, calib_c, baseline, new_exposure,
@@ -587,7 +616,9 @@ def frame_auto(state: GraphState, left, right, calib_c, baseline, new_exposure,
                w0: int = 0, h0: int = 0, imm_cap: int = 2048,
                uniform: Optional[Callable] = None):
     """One full frame: track, then (host branch on `need_kf`) the whole
-    keyframe pipeline or the speculative non-KF update.
+    keyframe pipeline or the speculative non-KF update; both as the batch
+    of one. (`parallel/batched.frame_auto_batched` runs N sequences with no
+    host branch, as the JAX package's vmap of its `lax.cond` does.)
 
     left/right: (H, W) raw images on the state's device. Pose hypotheses
     (constant-velocity motion model, FullSystem.cpp:349-377) and the affine
@@ -601,8 +632,8 @@ def frame_auto(state: GraphState, left, right, calib_c, baseline, new_exposure,
         )
     if host.flag(aux_one.need_kf[0]):
         with PROF.section("graph.kf", True):
-            return _kf_branch(
-                state, first(aux_one), calib_c, baseline, new_exposure, settings, n_levels,
+            return _kf_one(
+                state, aux_one, calib_c, baseline, new_exposure, settings, n_levels,
                 pot, caps, w0, h0, imm_cap, uniform,
             )
     return _nonkf_one(state, one, imm_spec, aux_one)
@@ -639,10 +670,12 @@ def frame_kf(state_pre: GraphState, aux: TrackAux, calib_c, baseline, new_exposu
              settings: Settings = default_settings(), n_levels: int = 6,
              pot: int = 3, caps: Tuple[int, ...] = (), w0: int = 0, h0: int = 0,
              imm_cap: int = 2048, uniform: Optional[Callable] = None):
-    """The keyframe pipeline from the PRE-frame state + frame_track's aux:
-    the same function as frame_auto's keyframe branch."""
-    return _kf_branch(
-        state_pre, aux, calib_c, baseline, new_exposure, settings, n_levels,
+    """The keyframe pipeline of one sequence from the PRE-frame state +
+    frame_track's aux: the same function as frame_auto's keyframe branch,
+    run as the batch of one (`parallel/batched.frame_kf_subset_batched`
+    runs several sequences' as one)."""
+    return _kf_one(
+        state_pre, lead_one(aux), calib_c, baseline, new_exposure, settings, n_levels,
         pot, caps, w0, h0, imm_cap, uniform,
     )
 

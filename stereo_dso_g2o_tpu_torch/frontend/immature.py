@@ -6,10 +6,10 @@ activatePointsMT + optimizeImmaturePoint). Immature points live in a
 fixed-capacity [F, CAP] structure of arrays per keyframe slot; traces run
 on a compacted pool of live rows (`settings.trace_cap` lanes).
 
-The non-keyframe refinement (`trace_on_nonkey` with `_compact_live` and
-`_scatter_trace`) also runs N sequences at once, as the JAX package's
-batched frame program vmaps it: the sets stacked over N ((N, F, CAP)), the
-pools and compactions per sequence row, every size the same for all rows.
+Every function also runs N sequences at once, as the JAX package's
+batched frame program vmaps it: the sets and windows stacked over N
+((N, F, CAP)), slots (N,), the pools and compactions per sequence row,
+every size the same for all rows.
 """
 
 from __future__ import annotations
@@ -23,11 +23,12 @@ from stereo_dso_g2o_tpu_torch.backend import window as W
 from stereo_dso_g2o_tpu_torch.config import PATTERN, Settings, default_settings
 from stereo_dso_g2o_tpu_torch.ops import distance_map as DM
 from stereo_dso_g2o_tpu_torch.ops import trace as trace_ops
-from stereo_dso_g2o_tpu_torch.ops.residuals import _bilinear3_frames
+from stereo_dso_g2o_tpu_torch.ops.interp import take
+from stereo_dso_g2o_tpu_torch.ops.residuals import _bilinear3_frames, by_host
 from stereo_dso_g2o_tpu_torch.utils import host
 from stereo_dso_g2o_tpu_torch.utils.fixed import nonzero_fixed, scatter_drop
 from stereo_dso_g2o_tpu_torch.utils.timing import PROF
-from stereo_dso_g2o_tpu_torch.utils.tree import at_rows
+from stereo_dso_g2o_tpu_torch.utils.tree import at_rows, per_row, seq_scalar
 
 
 @dataclasses.dataclass
@@ -76,17 +77,24 @@ def empty(F: int, cap: int, device) -> ImmatureSet:
 
 
 def _set_slot(x, slot, val):
+    """x with row `slot` set to val; for N stacked sequences and a (N,)
+    slot, row slot[n] of sequence n."""
     out = x.clone()
-    out[slot] = torch.as_tensor(val, dtype=x.dtype, device=x.device)
+    val = torch.as_tensor(val, dtype=x.dtype, device=x.device)
+    if isinstance(slot, torch.Tensor) and slot.dim() == 1:
+        out[torch.arange(x.shape[0], device=x.device), slot.long()] = val
+    else:
+        out[slot] = val
     return out
 
 
-def seed_slot(imm: ImmatureSet, slot: int, dI_host, us, vs, types, valid,
+def seed_slot(imm: ImmatureSet, slot, dI_host, us, vs, types, valid,
               settings: Settings = default_settings()) -> ImmatureSet:
     """makeNewTraces for one keyframe slot: fill its row with freshly
-    selected pixels (idepth interval [0, inf), status UNINITIALIZED)."""
-    cap = imm.u.shape[1]
-    assert us.shape[0] == cap, (us.shape[0], cap)
+    selected pixels (idepth interval [0, inf), status UNINITIALIZED). N
+    stacked sequences: slot (N,), dI_host (N, H, W, 3), points (N, cap)."""
+    cap = imm.u.shape[-1]
+    assert us.shape[-1] == cap, (us.shape[-1], cap)
     color, weights, gradH, eth = trace_ops.extract_point_data(dI_host, us, vs, settings)
     ok = valid & torch.all(torch.isfinite(color), dim=-1)
     return imm.replace(
@@ -178,11 +186,12 @@ def trace_on_frame(imm: ImmatureSet, KRKi, Kt, aff, dI_new, host_valid,
     onto a new frame, all hosts' points in one trace_batch call."""
     flat, sel = _compact_live(imm, host_valid, settings)
     h = flat["host"]
+    batched = dI_new.dim() == 4
     traced = trace_ops.trace_batch(
         flat["u"], flat["v"], flat["idepth_min"], flat["idepth_max"],
         flat["color"], flat["weights"], flat["gradH"], flat["energy_th"],
-        flat["quality"], flat["status"], KRKi[h], Kt[h], aff[h], dI_new,
-        settings=settings,
+        flat["quality"], flat["status"], _rows(KRKi, h, batched), _rows(Kt, h, batched),
+        _rows(aff, h, batched), dI_new, settings=settings,
     )
     return _scatter_trace(imm, sel, traced)
 
@@ -197,41 +206,50 @@ class ActivationResult(NamedTuple):
 def optimize_immature(imm: ImmatureSet, candidate, RTll, tTll, aff_ht, frame_valid,
                       dI_stack, c_value, settings: Settings = default_settings()):
     """optimizeImmaturePoint (legacy 1-dof idepth LM), batched over the
-    compacted candidates (settings.activation_batch lanes)."""
-    F, C = imm.u.shape
+    compacted candidates (settings.activation_batch lanes); per sequence
+    for N stacked sequences (c_value (N, 4), dI_stack (N, F, H, W, 3))."""
+    lead = tuple(imm.u.shape[:-2])
+    bt = bool(lead)
+    F, C = imm.u.shape[-2:]
     dev = imm.u.device
-    fx, fy, cx, cy = c_value[0], c_value[1], c_value[2], c_value[3]
-    Hd, Wd = dI_stack.shape[1:3]
+
+    fx, fy, cx, cy = (seq_scalar(c_value[..., i], 2) for i in range(4))  # (lane, pixel)
+    fx3, fy3, cx3, cy3 = (seq_scalar(c_value[..., i], 3) for i in range(4))  # (lane, frame, pixel)
+    Hd, Wd = dI_stack.shape[-3:-1]
     wM3, hM3 = float(Wd - 3), float(Hd - 3)
     pat = torch.as_tensor(PATTERN, dtype=imm.u.dtype, device=dev)
 
     NFULL = F * C
-    cand_full = (candidate & imm.valid).reshape(-1)
+    cand_full = (candidate & imm.valid).reshape(lead + (-1,))
     NC = min(NFULL, settings.activation_batch)
-    flat_idx = nonzero_fixed(cand_full, NC)
+    flat_idx = nonzero_fixed(cand_full, NC, batched=bt)
     sel_ok = flat_idx >= 0
     safe = torch.clamp(flat_idx, min=0)
 
+    def lanes(x, tail=()):
+        return _rows(x.reshape(lead + (-1,) + tail), safe, bt)
+
     host = safe // C
-    u = imm.u.reshape(-1)[safe]
-    v = imm.v.reshape(-1)[safe]
-    color = imm.color.reshape(-1, 8)[safe]
-    weights = imm.weights.reshape(-1, 8)[safe]
-    eth = imm.energy_th.reshape(-1)[safe]
+    u = lanes(imm.u)
+    v = lanes(imm.v)
+    color = lanes(imm.color, (8,))
+    weights = lanes(imm.weights, (8,))
+    eth = lanes(imm.energy_th)
     cand = sel_ok
 
-    Rm = RTll[host]  # (NC, F, 3, 3)
-    t = tTll[host]  # (NC, F, 3)
-    aff = aff_ht[host]  # (NC, F, 2)
-    tgt_ok = cand[:, None] & frame_valid[None, :] & (host[:, None] != torch.arange(F, device=dev)[None, :])
+    Rm = _rows(RTll, host, bt)  # (NC, F, 3, 3)
+    t = _rows(tTll, host, bt)  # (NC, F, 3)
+    aff = _rows(aff_ht, host, bt)  # (NC, F, 2)
+    tgt_ok = (cand[..., None] & frame_valid[..., None, :]
+              & (host[..., None] != torch.arange(F, device=dev)))
 
-    id0 = (0.5 * (imm.idepth_min + imm.idepth_max)).reshape(-1)[safe]
+    id0 = lanes(0.5 * (imm.idepth_min + imm.idepth_max))
 
     KliP = torch.stack(
         [
-            (u[:, None] + pat[None, :, 0] - cx) / fx,
-            (v[:, None] + pat[None, :, 1] - cy) / fy,
-            torch.ones((u.shape[0], 8), dtype=u.dtype, device=dev),
+            (u[..., None] + pat[:, 0] - cx) / fx,
+            (v[..., None] + pat[:, 1] - cy) / fy,
+            torch.ones(u.shape + (8,), dtype=u.dtype, device=dev),
         ],
         dim=-1,
     )
@@ -239,29 +257,29 @@ def optimize_immature(imm: ImmatureSet, candidate, RTll, tTll, aff_ht, frame_val
 
     def energy_H_b(idepth, res_oob, outlier_slack=1.0):
         ptp = (
-            torch.einsum("nfij,npj->nfpi", Rm, KliP)
-            + t[:, :, None, :] * idepth[:, None, None, None]
+            torch.einsum("...nfij,...npj->...nfpi", Rm, KliP)
+            + t[..., None, :] * idepth[..., None, None, None]
         )
         drescale = 1.0 / ptp[..., 2]
         uu = ptp[..., 0] * drescale
         vv = ptp[..., 1] * drescale
-        Ku = uu * fx + cx
-        Kv = vv * fy + cy
+        Ku = uu * fx3 + cx3
+        Kv = vv * fy3 + cy3
         ok = (drescale > 0) & (Ku > 1.1) & (Kv > 1.1) & (Ku < wM3) & (Kv < hM3)
         oob = ~torch.all(ok, dim=-1) | res_oob
 
         hit = _bilinear3_frames(dI_stack, f_idx, Ku, Kv)
-        r = hit[..., 0] - (aff[..., 0:1] * color[:, None, :] + aff[..., 1:2])
+        r = hit[..., 0] - (aff[..., 0:1] * color[..., None, :] + aff[..., 1:2])
         ar = torch.abs(r)
         hw = torch.where(
             ar < settings.huber_th, torch.ones_like(ar),
             settings.huber_th / torch.clamp(ar, min=1e-12),
         )
-        w2 = weights[:, None, :] ** 2
+        w2 = weights[..., None, :] ** 2
         energy = torch.sum(w2 * hw * r * r * (2.0 - hw), dim=-1)
 
-        dxI = hit[..., 1] * fx
-        dyI = hit[..., 2] * fy
+        dxI = hit[..., 1] * fx3
+        dyI = hit[..., 2] * fy3
         d_id = (
             dxI * drescale * (t[..., 0:1] - t[..., 2:3] * uu)
             + dyI * drescale * (t[..., 1:2] - t[..., 2:3] * vv)
@@ -270,15 +288,15 @@ def optimize_immature(imm: ImmatureSet, candidate, RTll, tTll, aff_ht, frame_val
         Hdd_t = torch.sum(hw2 * d_id * d_id, dim=-1)
         bd_t = torch.sum(hw2 * r * d_id, dim=-1)
 
-        lim = eth[:, None] * outlier_slack
+        lim = eth[..., None] * outlier_slack
         outlier = energy > lim
         energy = torch.where(outlier, lim.expand_as(energy), energy)
         state_in = tgt_ok & ~oob & ~outlier
         use = tgt_ok & ~oob
         z = torch.zeros_like(energy)
-        Hdd = torch.sum(torch.where(use, Hdd_t, z), dim=1)
-        bd = torch.sum(torch.where(use, bd_t, z), dim=1)
-        E = torch.sum(torch.where(use, energy, z), dim=1)
+        Hdd = torch.sum(torch.where(use, Hdd_t, z), dim=-1)
+        bd = torch.sum(torch.where(use, bd_t, z), dim=-1)
+        E = torch.sum(torch.where(use, energy, z), dim=-1)
         return E, Hdd, bd, oob, state_in
 
     E, Hdd, bd, oob, state_in = energy_H_b(id0, torch.zeros_like(tgt_ok), outlier_slack=1000.0)
@@ -297,33 +315,41 @@ def optimize_immature(imm: ImmatureSet, candidate, RTll, tTll, aff_ht, frame_val
         bc = torch.where(accept, b2, bc)
         lam = torch.where(accept, lam * 0.5, lam * 5.0)
         oob_c = oob_c | oob2
-        in_c = torch.where(accept[:, None], in2, in_c)
+        in_c = torch.where(accept[..., None], in2, in_c)
 
-    n_good = torch.sum(in_c, dim=1)
+    n_good = torch.sum(in_c, dim=-1)
     well_constrained = Hc >= settings.min_idepth_h_act
     finite = torch.isfinite(idepth)
     accepted = cand & finite & well_constrained & (n_good >= 1)
     dropped = cand & (~finite | (well_constrained & (n_good < 1)))
 
     out_idx = torch.where(sel_ok, safe, torch.full_like(safe, NFULL))
-    id_full = scatter_drop(torch.zeros((NFULL,), dtype=idepth.dtype, device=dev), out_idx, idepth)
-    acc_full = scatter_drop(torch.zeros((NFULL,), dtype=torch.bool, device=dev), out_idx, accepted)
-    drop_full = scatter_drop(torch.zeros((NFULL,), dtype=torch.bool, device=dev), out_idx, dropped)
-    resg_full = scatter_drop(torch.zeros((NFULL, F), dtype=torch.bool, device=dev), out_idx, in_c)
+
+    def full(vals, dtype, tail=()):
+        z = torch.zeros(lead + (NFULL,) + tail, dtype=dtype, device=dev)
+        return scatter_drop(z, out_idx, vals, batched=bt).reshape(lead + (F, C) + tail)
+
     return ActivationResult(
-        idepth=id_full.reshape(F, C),
-        accepted=acc_full.reshape(F, C),
-        dropped=drop_full.reshape(F, C),
-        res_good=resg_full.reshape(F, C, F),
+        idepth=full(idepth, idepth.dtype),
+        accepted=full(accepted, torch.bool),
+        dropped=full(dropped, torch.bool),
+        res_good=full(in_c, torch.bool, (F,)),
     )
 
 
+def _not_slot(F, slot, device):
+    """(F, 1) bool, False at the slot's row ((N, F, 1) for a (N,) slot)."""
+    s = torch.as_tensor(slot, device=device)
+    return (torch.arange(F, device=device) != s[..., None])[..., None]
+
+
 def activation_candidates(imm: ImmatureSet, dist_map, KRKi1, Kt1, host_valid,
-                          newest_slot: int, min_act_dist,
+                          newest_slot, min_act_dist,
                           settings: Settings = default_settings(), *, h1: int, w1: int):
     """The distance-map candidate gate of activatePointsMT. Returns
-    (candidate, delete, iu, iv) with (F, C) masks."""
-    F, C = imm.u.shape
+    (candidate, delete, iu, iv) with (F, C) masks ((N, F, C) for N stacked
+    sequences, dist_map (N, h1, w1))."""
+    F, C = imm.u.shape[-2:]
     dev = imm.u.device
     st = imm.status
     bad = ~torch.isfinite(imm.idepth_max) | (st == trace_ops.IPS_OUTLIER)
@@ -340,7 +366,7 @@ def activation_candidates(imm: ImmatureSet, dist_map, KRKi1, Kt1, host_valid,
     )
     mid = 0.5 * (imm.idepth_max + imm.idepth_min)
     P = torch.stack([imm.u, imm.v, torch.ones_like(imm.u)], -1)
-    ptp = torch.einsum("fij,fcj->fci", KRKi1, P) + Kt1[:, None, :] * mid[..., None]
+    ptp = torch.einsum("...fij,...fcj->...fci", KRKi1, P) + Kt1[..., None, :] * mid[..., None]
     u1 = ptp[..., 0] / ptp[..., 2]
     v1 = ptp[..., 1] / ptp[..., 2]
     iu = (u1 + 0.5).to(torch.int32)
@@ -349,11 +375,11 @@ def activation_candidates(imm: ImmatureSet, dist_map, KRKi1, Kt1, host_valid,
 
     safe_u = torch.clamp(iu, 0, w1 - 1).long()
     safe_v = torch.clamp(iv, 0, h1 - 1).long()
-    dist = dist_map[safe_v, safe_u] + (ptp[..., 0] - torch.floor(ptp[..., 0]))
-    far_enough = dist >= min_act_dist * imm.my_type.to(imm.u.dtype)
+    dist = (take(dist_map, safe_v, safe_u, dist_map.dim() == 3)
+            + (ptp[..., 0] - torch.floor(ptp[..., 0])))
+    far_enough = dist >= seq_scalar(min_act_dist, 2) * imm.my_type.to(imm.u.dtype)
 
-    not_newest = torch.arange(F, device=dev)[:, None] != newest_slot
-    base = imm.valid & host_valid[:, None] & not_newest
+    base = imm.valid & host_valid[..., None] & _not_slot(F, newest_slot, dev)
     candidate = base & ~bad & can_activate & inb & far_enough
     delete = base & (
         bad | (can_activate & ~inb) | (~can_activate & (st == trace_ops.IPS_OOB))
@@ -449,8 +475,11 @@ def trace_on_nonkey(imm: ImmatureSet, KRKi, Kt, R_new, t_new, aff, dI_new, dI_ri
 
         Ki = torch.linalg.inv(K)
         P2 = torch.stack([u2, v2, torch.ones_like(u2)], -1)
-        KiP2 = torch.einsum("...ij,...nj->...ni", Ki, P2)
-        KRi = torch.einsum("...ij,...fkj->...fik", K, R_new)  # K @ R^T per host
+        # products of one matrix per sequence: one call per sequence
+        # (utils/tree.per_row), as one sequence alone makes it
+        KiP2 = per_row(lambda a, b: torch.einsum("ij,nj->ni", a, b), batched, Ki, P2)
+        KRi = per_row(lambda a, b: torch.einsum("ij,fkj->fik", a, b), batched,
+                      K, R_new)  # K @ R^T per host
         KRi_pt = rows(KRi, host_g)
         t_pt = rows(t_new, host_g)
 
@@ -481,88 +510,114 @@ def insert_activated(win, imm: ImmatureSet, act: ActivationResult,
                      settings: Settings = default_settings(), max_insert: int = 1024):
     """activatePointsMT STEP4: accepted immature points become window points
     in free point slots with residuals to their IN targets; consumed and
-    dropped immature slots are invalidated. Returns (win, imm, n_inserted)."""
-    F, C = imm.u.shape
+    dropped immature slots are invalidated. Returns (win, imm, n_inserted):
+    an int, or a (N,) tensor for N stacked sequences. Two host reads, for
+    all sequences together."""
+    lead = tuple(imm.u.shape[:-2])
+    bt = bool(lead)
+    F, C = imm.u.shape[-2:]
     dev = imm.u.device
-    acc_flat = (act.accepted & imm.valid).reshape(-1)
-    src = nonzero_fixed(acc_flat, max_insert)
-    free = nonzero_fixed(win.pt_status == W.PT_INACTIVE, max_insert)
+    acc_flat = (act.accepted & imm.valid).reshape(lead + (-1,))
+    src = nonzero_fixed(acc_flat, max_insert, batched=bt)
+    free = nonzero_fixed(win.pt_status == W.PT_INACTIVE, max_insert, batched=bt)
     ok = (src >= 0) & (free >= 0)
     src_safe = torch.clamp(src, min=0)
-    n_ok = int(host.item(ok.sum()))
+    n_ok = host.tolist(ok.sum(-1))
+    parked = torch.as_tensor(n_ok, device=dev) < max_insert
     # Reference quirk, reproduced: the JAX package parks the unused lanes
     # at point slot 0 and writes slot 0's old values back; its scatter lets
     # the last write win, so an insertion into a free slot 0 is lost
     # whenever some lane is parked (the immature point is still consumed).
-    write = ok & ~((free == 0) & (n_ok < max_insert))
+    write = ok & ~((free == 0) & (parked[..., None] if bt else parked))
+    seq = torch.nonzero(write)[:, 0] if bt else None
     dst = free[write]
     s = src_safe[write]
     k = int(host.item(write.sum()))
+    at = (seq, dst) if bt else dst
 
     def put(arr, vals):
         out = arr.clone()
-        out[dst] = vals.to(arr.dtype)
+        out[at] = vals.to(arr.dtype)
         return out
 
     def const(val, dtype, shape=()):
         return torch.full((k,) + shape, val, dtype=dtype, device=dev)
 
+    def src_of(x, tail=()):
+        flat = x.reshape(lead + (-1,) + tail)
+        return flat[seq, s] if bt else flat[s]
+
     win = win.replace(
         pt_status=put(win.pt_status, const(W.PT_ACTIVE, torch.int32)),
         pt_host=put(win.pt_host, (s // C).to(torch.int32)),
-        pt_u=put(win.pt_u, imm.u.reshape(-1)[s]),
-        pt_v=put(win.pt_v, imm.v.reshape(-1)[s]),
-        pt_idepth=put(win.pt_idepth, act.idepth.reshape(-1)[s]),
-        pt_idepth_zero=put(win.pt_idepth_zero, act.idepth.reshape(-1)[s]),
-        pt_color=put(win.pt_color, imm.color.reshape(-1, 8)[s]),
-        pt_weights=put(win.pt_weights, imm.weights.reshape(-1, 8)[s]),
+        pt_u=put(win.pt_u, src_of(imm.u)),
+        pt_v=put(win.pt_v, src_of(imm.v)),
+        pt_idepth=put(win.pt_idepth, src_of(act.idepth)),
+        pt_idepth_zero=put(win.pt_idepth_zero, src_of(act.idepth)),
+        pt_color=put(win.pt_color, src_of(imm.color, (8,))),
+        pt_weights=put(win.pt_weights, src_of(imm.weights, (8,))),
         pt_has_prior=put(win.pt_has_prior, const(False, torch.bool)),
-        pt_energy_th=put(win.pt_energy_th, imm.energy_th.reshape(-1)[s]),
+        pt_energy_th=put(win.pt_energy_th, src_of(imm.energy_th)),
         pt_num_good_res=put(win.pt_num_good_res, const(0, torch.int32)),
         pt_max_rel_baseline=put(win.pt_max_rel_baseline, const(0.0, torch.float32)),
         pt_idepth_hessian=put(win.pt_idepth_hessian, const(0.0, torch.float32)),
-        res_exists=put(win.res_exists, act.res_good.reshape(-1, F)[s]),
+        res_exists=put(win.res_exists, src_of(act.res_good, (F,))),
         res_state=put(win.res_state, const(W.RES_IN, torch.int32, (F,))),
         res_linearized=put(win.res_linearized, const(False, torch.bool, (F,))),
         res_energy=put(win.res_energy, const(0.0, torch.float32, (F,))),
     )
-    inserted = torch.zeros((F * C,), dtype=torch.bool, device=dev)
-    inserted[src_safe[ok]] = True
-    if n_ok < max_insert:  # same last-write-wins quirk at immature index 0
-        inserted[0] = False
-    gone = inserted.reshape(F, C) | act.dropped
-    return win, imm.replace(valid=imm.valid & ~gone), n_ok
+    inserted = torch.zeros(lead + (F * C,), dtype=torch.bool, device=dev)
+    if bt:
+        inserted[torch.nonzero(ok)[:, 0], src_safe[ok]] = True
+        # same last-write-wins quirk at immature index 0
+        inserted[:, 0] = inserted[:, 0] & ~parked
+        n_ins = torch.as_tensor(n_ok, dtype=torch.int32, device=dev)
+    else:
+        inserted[src_safe[ok]] = True
+        if n_ok < max_insert:  # same last-write-wins quirk at immature index 0
+            inserted[0] = False
+        n_ins = n_ok
+    gone = inserted.reshape(lead + (F, C)) | act.dropped
+    return win, imm.replace(valid=imm.valid & ~gone), n_ins
 
 
-def activation_gate(win, imm: ImmatureSet, newest_slot: int, min_act_dist, calib_c,
+def activation_gate(win, imm: ImmatureSet, newest_slot, min_act_dist, calib_c,
                     settings: Settings = default_settings(), *, h1: int, w1: int):
     """The activation candidate gate: project active points into the newest
     KF at level 1, grow the distance map, apply the candidate rules, and
-    suppress same-cell duplicates (activatePointsMT STEP1-2)."""
-    fx, fy, cx, cy = calib_c[0], calib_c[1], calib_c[2], calib_c[3]
-    zero = torch.zeros((), dtype=calib_c.dtype, device=calib_c.device)
-    one = torch.ones((), dtype=calib_c.dtype, device=calib_c.device)
+    suppress same-cell duplicates (activatePointsMT STEP1-2). N stacked
+    sequences: newest_slot (N,), min_act_dist (N,), calib_c (N, 4)."""
+    fx, fy, cx, cy = calib_c[..., 0], calib_c[..., 1], calib_c[..., 2], calib_c[..., 3]
+    zero = torch.zeros_like(fx)
+    one = torch.ones_like(fx)
     K1 = torch.stack([
-        torch.stack([fx * 0.5, zero, (cx + 0.5) * 0.5 - 0.5]),
-        torch.stack([zero, fy * 0.5, (cy + 0.5) * 0.5 - 0.5]),
-        torch.stack([zero, zero, one]),
-    ])
+        torch.stack([fx * 0.5, zero, (cx + 0.5) * 0.5 - 0.5], -1),
+        torch.stack([zero, fy * 0.5, (cy + 0.5) * 0.5 - 0.5], -1),
+        torch.stack([zero, zero, one], -1),
+    ], -2)
     Ki0 = torch.stack([
-        torch.stack([1.0 / fx, zero, -cx / fx]),
-        torch.stack([zero, 1.0 / fy, -cy / fy]),
-        torch.stack([zero, zero, one]),
-    ])
+        torch.stack([1.0 / fx, zero, -cx / fx], -1),
+        torch.stack([zero, 1.0 / fy, -cy / fy], -1),
+        torch.stack([zero, zero, one], -1),
+    ], -2)
     w2c = win.w2c()
-    T_hn = torch.einsum("ij,fjk->fik", w2c[newest_slot], torch.linalg.inv(w2c))
-    KRKi1 = torch.einsum("ij,fjk,kl->fil", K1, T_hn[:, :3, :3], Ki0)
-    Kt1 = torch.einsum("ij,fj->fi", K1, T_hn[:, :3, 3])
+    slot = torch.as_tensor(newest_slot, device=w2c.device)
+    w2c_new = at_rows(w2c, slot.long()) if slot.dim() else w2c[slot]
+    # products of one matrix per sequence: one call per sequence
+    # (utils/tree.per_row), as one sequence alone makes it
+    many = w2c.dim() == 4
+    T_hn = per_row(lambda a, b: torch.einsum("ij,fjk->fik", a, b), many,
+                   w2c_new, torch.linalg.inv(w2c))
+    KRKi1 = per_row(lambda k, r, ki: torch.einsum("ij,fjk,kl->fil", k, r, ki), many,
+                    K1, T_hn[..., :3, :3], Ki0)
+    Kt1 = per_row(lambda k, t: torch.einsum("ij,fj->fi", k, t), many, K1, T_hn[..., :3, 3])
 
     active = win.pt_status == W.PT_ACTIVE
-    h = win.pt_host.long()
     P = torch.stack([win.pt_u, win.pt_v, torch.ones_like(win.pt_u)], -1)
-    ptp = torch.einsum("nij,nj->ni", KRKi1[h], P) + Kt1[h] * win.pt_idepth[:, None]
-    pu = (ptp[:, 0] / ptp[:, 2] + 0.5).to(torch.int32)
-    pv = (ptp[:, 1] / ptp[:, 2] + 0.5).to(torch.int32)
+    ptp = torch.einsum("...nij,...nj->...ni", by_host(KRKi1, win), P) \
+        + by_host(Kt1, win) * win.pt_idepth[..., None]
+    pu = (ptp[..., 0] / ptp[..., 2] + 0.5).to(torch.int32)
+    pv = (ptp[..., 1] / ptp[..., 2] + 0.5).to(torch.int32)
     inb = (pu > 0) & (pv > 0) & (pu < w1) & (pv < h1)
     dmap = DM.distance_map(pu, pv, active & inb, h1, w1, iters=18)
 
@@ -571,6 +626,6 @@ def activation_gate(win, imm: ImmatureSet, newest_slot: int, min_act_dist, calib
         settings=settings, h1=h1, w1=w1,
     )
     cand_flat = DM.suppress_same_cell(
-        iu.reshape(-1), iv.reshape(-1), cand.reshape(-1), cell=2
+        iu.flatten(-2), iv.flatten(-2), cand.flatten(-2), cell=2
     ).reshape(cand.shape)
     return cand_flat, delete

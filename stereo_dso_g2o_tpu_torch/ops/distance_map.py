@@ -3,7 +3,8 @@
 Port of `stereo_dso_g2o_tpu/ops/distance_map.py` (CoarseDistanceMap): the
 BFS distance transform becomes an iterated masked min-pool with the same
 chamfer metric, and the greedy re-insertion of accepted candidates becomes
-one-winner-per-cell suppression.
+one-winner-per-cell suppression. Both take a leading sequence axis: (N, P)
+points give (N, h1, w1) maps, every row its own.
 """
 
 from __future__ import annotations
@@ -16,24 +17,26 @@ def distance_map(us1, vs1, valid, h1: int, w1: int, iters: int = 40):
     points. Returns (h1, w1) float32 chamfer distances (seeds 0, growth
     capped at `iters`, unreached = 1000)."""
     dev = us1.device
+    lead = tuple(us1.shape[:-1])
     iu = torch.clamp(us1.to(torch.int64), 0, w1 - 1)
     iv = torch.clamp(vs1.to(torch.int64), 0, h1 - 1)
     big = 1000.0
-    d = torch.full((h1 * w1,), big, dtype=torch.float32, device=dev)
-    seed = torch.where(valid, torch.zeros_like(d[: iu.shape[0]]), torch.full_like(d[: iu.shape[0]], big))
-    d = d.scatter_reduce(0, iv * w1 + iu, seed, reduce="amin", include_self=True)
-    d = d.reshape(h1, w1)
+    d = torch.full(lead + (h1 * w1,), big, dtype=torch.float32, device=dev)
+    seed = torch.where(valid, torch.zeros(iu.shape, dtype=torch.float32, device=dev),
+                       torch.full(iu.shape, big, dtype=torch.float32, device=dev))
+    d = d.scatter_reduce(-1, iv * w1 + iu, seed, reduce="amin", include_self=True)
+    d = d.reshape(lead + (h1, w1))
 
     def roll2(x, dy, dx):
-        y = torch.roll(x, (dy, dx), dims=(0, 1))
+        y = torch.roll(x, (dy, dx), dims=(-2, -1))
         if dy == 1:
-            y[0, :] = big
+            y[..., 0, :] = big
         if dy == -1:
-            y[-1, :] = big
+            y[..., -1, :] = big
         if dx == 1:
-            y[:, 0] = big
+            y[..., :, 0] = big
         if dx == -1:
-            y[:, -1] = big
+            y[..., :, -1] = big
         return y
 
     def grow(d, k, diag):
@@ -58,14 +61,14 @@ def distance_map(us1, vs1, valid, h1: int, w1: int, iters: int = 40):
 def suppress_same_cell(us1, vs1, accept, cell: int = 2):
     """Keep at most one accepted candidate per (cell x cell) level-1 grid
     cell: the lowest original index wins (stable sort)."""
-    n = accept.shape[0]
+    n = accept.shape[-1]
     key = (vs1.to(torch.int64) // cell) * 100000 + (us1.to(torch.int64) // cell)
     key = torch.where(accept, key, -torch.arange(1, n + 1, device=key.device))
-    sort_idx = torch.sort(key, stable=True).indices
-    sorted_key = key[sort_idx]
+    sort_idx = torch.sort(key, dim=-1, stable=True).indices
+    sorted_key = torch.gather(key, -1, sort_idx)
     first = torch.cat(
-        [torch.ones(1, dtype=torch.bool, device=key.device), sorted_key[1:] != sorted_key[:-1]]
+        [torch.ones(tuple(key.shape[:-1]) + (1,), dtype=torch.bool, device=key.device),
+         sorted_key[..., 1:] != sorted_key[..., :-1]], -1
     )
-    win = torch.zeros_like(accept)
-    win[sort_idx] = first
+    win = torch.zeros_like(accept).scatter(-1, sort_idx, first)
     return accept & win

@@ -4,7 +4,8 @@ Port of `stereo_dso_g2o_tpu/ops/residuals.py` (PointFrameResidual::
 linearize over the whole [NP points x F target frames] residual cube):
 FEJ geometry Jacobians Jpdxi/Jpdc/Jpdd, Huber-weighted image Jacobians
 JIdx, photometric JabF, weighted residuals resF, the OOB/outlier state
-machine and the centerProjectedTo side channel.
+machine and the centerProjectedTo side channel. A window stacked over N
+sequences (leaves (N, ...), image stacks (N, F, H, W, 3)) runs as one.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 from stereo_dso_g2o_tpu_torch.backend import window as W
+from stereo_dso_g2o_tpu_torch.utils.tree import at_rows, seq_scalar
 from stereo_dso_g2o_tpu_torch.config import (
     PATTERN,
     SCALE_C,
@@ -38,8 +40,10 @@ class LinearizeOut(NamedTuple):
 
 
 def _bilinear3_frames(dI_stack, f_idx, x, y):
-    """Bilinear (I, gx, gy) sample from stacked frames (F, H, W, 3)."""
-    F, H, Wd = dI_stack.shape[:3]
+    """Bilinear (I, gx, gy) sample from stacked frames (F, H, W, 3); from
+    sequence n's frames for row n of (N, ...) coordinates when the stack is
+    (N, F, H, W, 3)."""
+    H, Wd = dI_stack.shape[-3:-1]
     x = torch.clamp(x, 0.0, Wd - 1.001)
     y = torch.clamp(y, 0.0, H - 1.001)
     xf = torch.floor(x)
@@ -49,33 +53,50 @@ def _bilinear3_frames(dI_stack, f_idx, x, y):
     fx = (x - xf)[..., None]
     fy = (y - yf)[..., None]
     fi = f_idx.expand(x.shape).long()
-    top = (1 - fx) * dI_stack[fi, iy, ix] + fx * dI_stack[fi, iy, ix + 1]
-    bot = (1 - fx) * dI_stack[fi, iy + 1, ix] + fx * dI_stack[fi, iy + 1, ix + 1]
+    if dI_stack.dim() == 5:
+        n = torch.arange(x.shape[0], device=x.device).reshape((-1,) + (1,) * (x.dim() - 1))
+
+        def at(r, c):
+            return dI_stack[n, fi, r, c]
+    else:
+        def at(r, c):
+            return dI_stack[fi, r, c]
+    top = (1 - fx) * at(iy, ix) + fx * at(iy, ix + 1)
+    bot = (1 - fx) * at(iy + 1, ix) + fx * at(iy + 1, ix + 1)
     return (1 - fy) * top + fy * bot
+
+
+def by_host(x, win: W.Window):
+    """x[pt_host] of a per-host-slot tensor x: one entry per point (of each
+    sequence for a stacked window)."""
+    h = win.pt_host.long()
+    return at_rows(x, h) if h.dim() == 2 else x[h]
 
 
 def linearize(win: W.Window, dI_stack: torch.Tensor,
               settings: Settings = default_settings()) -> LinearizeOut:
     F = win.F
     NP = win.NP
-    Wd = dI_stack.shape[2]
-    Hd = dI_stack.shape[1]
+    lead = tuple(win.frame_valid.shape[:-1])
+    Hd, Wd = dI_stack.shape[-3:-1]
     wM3 = float(Wd - 3)
     hM3 = float(Hd - 3)
     dev = win.device
 
     pre = W.precalc(win)
-    h = win.pt_host.long()
     tgt = torch.arange(F, device=dev)
 
-    RTll_0 = pre["RTll_0"][h]  # (NP, F, 3, 3)
-    tTll_0 = pre["tTll_0"][h]
-    KRKi = pre["KRKi"][h]
-    Kt = pre["Kt"][h]
-    aff = pre["aff"][h]  # (NP, F, 2)
-    b0 = pre["b0"][h]  # (NP,)
+    RTll_0 = by_host(pre["RTll_0"], win)  # (NP, F, 3, 3)
+    tTll_0 = by_host(pre["tTll_0"], win)
+    KRKi = by_host(pre["KRKi"], win)
+    Kt = by_host(pre["Kt"], win)
+    aff = by_host(pre["aff"], win)  # (NP, F, 2)
+    b0 = by_host(pre["b0"], win)  # (NP,)
 
-    fx, fy, cx, cy = (win.c_value[i] for i in range(4))
+    # intrinsics over the points (1) and over the (point, frame) pairs (2)
+    fx1, fy1, cx1, cy1 = (seq_scalar(win.c_value[..., i], 1) for i in range(4))
+    fx, fy, cx, cy = (seq_scalar(win.c_value[..., i], 2) for i in range(4))
+    fxi1, fyi1 = 1.0 / fx1, 1.0 / fy1
     fxi = 1.0 / fx
     fyi = 1.0 / fy
 
@@ -87,10 +108,10 @@ def linearize(win: W.Window, dI_stack: torch.Tensor,
     weights = win.pt_weights
 
     # ---- center projection at the FEJ point ----
-    KliP = torch.stack([(u - cx) * fxi, (v - cy) * fyi, torch.ones_like(u)], -1)
-    ptp = torch.einsum("nfij,nj->nfi", RTll_0, KliP) + tTll_0 * id_zero[:, None, None]
+    KliP = torch.stack([(u - cx1) * fxi1, (v - cy1) * fyi1, torch.ones_like(u)], -1)
+    ptp = torch.einsum("...nfij,...nj->...nfi", RTll_0, KliP) + tTll_0 * id_zero[..., None, None]
     drescale = 1.0 / ptp[..., 2]
-    new_idepth = id_zero[:, None] * drescale
+    new_idepth = id_zero[..., None] * drescale
     uC = ptp[..., 0] * drescale
     vC = ptp[..., 1] * drescale
     Ku = uC * fx + cx
@@ -106,12 +127,12 @@ def linearize(win: W.Window, dI_stack: torch.Tensor,
     R = RTll_0
     dCx2 = drescale * (R[..., 2, 0] * uC - R[..., 0, 0])
     dCx3 = fx * drescale * (R[..., 2, 1] * uC - R[..., 0, 1]) * fyi
-    dCx0 = KliP[:, None, 0] * dCx2
-    dCx1 = KliP[:, None, 1] * dCx3
+    dCx0 = KliP[..., None, 0] * dCx2
+    dCx1 = KliP[..., None, 1] * dCx3
     dCy2 = fy * drescale * (R[..., 2, 0] * vC - R[..., 1, 0]) * fxi
     dCy3 = drescale * (R[..., 2, 1] * vC - R[..., 1, 1])
-    dCy0 = KliP[:, None, 0] * dCy2
-    dCy1 = KliP[:, None, 1] * dCy3
+    dCy0 = KliP[..., None, 0] * dCy2
+    dCy1 = KliP[..., None, 1] * dCy3
 
     dCx0 = (dCx0 + uC) * SCALE_F
     dCx1 = dCx1 * SCALE_F
@@ -141,12 +162,12 @@ def linearize(win: W.Window, dI_stack: torch.Tensor,
 
     # ---- pattern residuals at the CURRENT state (Residuals.cpp:213-302) ----
     pat = torch.as_tensor(PATTERN, dtype=u.dtype, device=dev)
-    pu = u[:, None] + pat[None, :, 0]
-    pv = v[:, None] + pat[None, :, 1]
+    pu = u[..., None] + pat[:, 0]
+    pv = v[..., None] + pat[:, 1]
     P3 = torch.stack([pu, pv, torch.ones_like(pu)], -1)  # (NP, 8, 3)
     ptp8 = (
-        torch.einsum("nfij,npj->nfpi", KRKi, P3)
-        + Kt[:, :, None, :] * id_cur[:, None, None, None]
+        torch.einsum("...nfij,...npj->...nfpi", KRKi, P3)
+        + Kt[..., None, :] * id_cur[..., None, None, None]
     )
     Ku8 = ptp8[..., 0] / ptp8[..., 2]
     Kv8 = ptp8[..., 1] / ptp8[..., 2]
@@ -158,13 +179,13 @@ def linearize(win: W.Window, dI_stack: torch.Tensor,
     gx = hit[..., 1]
     gy = hit[..., 2]
 
-    residual = hitI - (aff[..., 0:1] * color[:, None, :] + aff[..., 1:2])
-    drdA = color[:, None, :] - b0[:, None, None]
+    residual = hitI - (aff[..., 0:1] * color[..., None, :] + aff[..., 1:2])
+    drdA = color[..., None, :] - b0[..., None, None]
 
     g2 = gx * gx + gy * gy
     c2 = settings.outlier_th_sum_component
     w_grad = torch.sqrt(c2 / (c2 + g2))
-    w = 0.5 * (w_grad + weights[:, None, :])
+    w = 0.5 * (w_grad + weights[..., None, :])
 
     ar = torch.abs(residual)
     hw0 = torch.where(
@@ -190,12 +211,12 @@ def linearize(win: W.Window, dI_stack: torch.Tensor,
     proj_fail = ~(center_ok & all_pat_ok)
 
     fe_th = torch.maximum(
-        win.frame_energy_th[h][:, None], win.frame_energy_th[None, :]
+        by_host(win.frame_energy_th, win)[..., None], win.frame_energy_th[..., None, :]
     )
     outlier = (energy_left > fe_th) | (wJI2_sum < 2.0)
     energy_new = torch.where(outlier, fe_th, energy_left)
 
-    new_state = torch.full((NP, F), W.RES_IN, dtype=torch.int32, device=dev)
+    new_state = torch.full(lead + (NP, F), W.RES_IN, dtype=torch.int32, device=dev)
     new_state = torch.where(outlier, torch.full_like(new_state, W.RES_OUTLIER), new_state)
     new_state = torch.where(proj_fail, torch.full_like(new_state, W.RES_OOB), new_state)
     new_state = torch.where(prev_oob, torch.full_like(new_state, W.RES_OOB), new_state)

@@ -10,6 +10,11 @@ function `uniform(salt, shape) -> tensor of U[0,1)`. The default draws from
 a `torch.Generator` seeded from the salt; the JAX package draws from
 `jax.random`, which torch cannot reproduce, so parity tests pass in a
 function that returns the JAX draw.
+
+`block_thresholds`, `select` and `map_to_points` also take a leading
+sequence axis (images (N, H, W)), as the JAX package's batched keyframe
+program vmaps them; `select` then takes a potential and a salt per
+sequence.
 """
 
 from __future__ import annotations
@@ -47,8 +52,9 @@ def _cell_hash(bx, by, salt: int):
 
 def block_thresholds(asg0: torch.Tensor, settings: Settings = default_settings()):
     """Per-32x32-block smoothed squared gradient thresholds (makeHists).
-    Returns (H//32, W//32) float32."""
-    H, W = asg0.shape
+    Returns (H//32, W//32) float32 ((N, ...) for (N, H, W))."""
+    H, W = asg0.shape[-2:]
+    lead = tuple(asg0.shape[:-2])
     dev = asg0.device
     h32, w32 = H // 32, W // 32
     g = torch.clamp(torch.sqrt(asg0).to(torch.int32), max=48)
@@ -58,11 +64,11 @@ def block_thresholds(asg0: torch.Tensor, settings: Settings = default_settings()
         (xs[None, :] >= 1) & (xs[None, :] <= W - 2)
         & (ys[:, None] >= 1) & (ys[:, None] <= H - 2)
     )
-    gb = g[: h32 * 32, : w32 * 32].reshape(h32, 32, w32, 32)
+    gb = g[..., : h32 * 32, : w32 * 32].reshape(lead + (h32, 32, w32, 32))
     vb = valid[: h32 * 32, : w32 * 32].reshape(h32, 32, w32, 32)
     bins = torch.arange(49, device=dev, dtype=torch.int32)
     le = (gb[..., None] <= bins) & vb[..., None]
-    cum = torch.sum(le, dim=(1, 3))  # (h32, w32, 49)
+    cum = torch.sum(le, dim=(-4, -2))  # (h32, w32, 49)
     total = torch.sum(vb, dim=(1, 3))
     th_count = (total * settings.min_grad_hist_cut + 0.5).to(torch.int32)
     meets = cum >= th_count[..., None] + 1
@@ -75,15 +81,15 @@ def block_thresholds(asg0: torch.Tensor, settings: Settings = default_settings()
         total = torch.zeros_like(x)
         for dy in (-1, 0, 1):
             for dx in (-1, 0, 1):
-                y = torch.roll(x, (dy, dx), dims=(0, 1))
+                y = torch.roll(x, (dy, dx), dims=(-2, -1))
                 if dy == 1:
-                    y[0, :] = 0.0
+                    y[..., 0, :] = 0.0
                 if dy == -1:
-                    y[-1, :] = 0.0
+                    y[..., -1, :] = 0.0
                 if dx == 1:
-                    y[:, 0] = 0.0
+                    y[..., :, 0] = 0.0
                 if dx == -1:
-                    y[:, -1] = 0.0
+                    y[..., :, -1] = 0.0
                 total = total + y
         return total
 
@@ -106,8 +112,10 @@ def snap_pot(pot: int) -> int:
 
 def _select_at_pot(v0, v1, v2, pot: int, H: int, W: int):
     """3-scale cell-winner selection at one potential; the winner per cell
-    is the first maximal score in raster order."""
+    is the first maximal score in raster order. Scores (H, W), or (N, H, W)
+    for N sequences at the same potential."""
     dev = v0.device
+    lead = tuple(v0.shape[:-2])
     B = 4 * pot
     Hp = ((H + B - 1) // B) * B
     Wp = ((W + B - 1) // B) * B
@@ -119,43 +127,56 @@ def _select_at_pot(v0, v1, v2, pot: int, H: int, W: int):
 
     def block_argmax(v, b):
         hb, wb = Hp // b, Wp // b
-        vb = v.reshape(hb, b, wb, b).permute(0, 2, 1, 3).reshape(hb, wb, b * b)
+        vb = v.reshape(lead + (hb, b, wb, b)).transpose(-3, -2).reshape(lead + (hb, wb, b * b))
         best, arg = torch.max(vb, dim=-1)
         iy = arg // b + torch.arange(hb, device=dev)[:, None] * b
         ix = arg % b + torch.arange(wb, device=dev)[None, :] * b
         return best, iy, ix
 
     def any4(x, h, w):
-        return x.reshape(h, 2, w, 2).permute(0, 2, 1, 3).reshape(h, w, 4).any(-1)
+        return x.reshape(lead + (h, 2, w, 2)).transpose(-3, -2).reshape(lead + (h, w, 4)).any(-1)
 
     b0v, b0y, b0x = block_argmax(v0p, pot)
     sel0 = b0v > 0
     b1v, b1y, b1x = block_argmax(v1p, 2 * pot)
-    h1, w1 = b1v.shape
+    h1, w1 = b1v.shape[-2:]
     sel0_any = any4(sel0, h1, w1)
     sel1 = (~sel0_any) & (b1v > 0)
     b2v, b2y, b2x = block_argmax(v2p, 4 * pot)
-    h2, w2 = b2v.shape
+    h2, w2 = b2v.shape[-2:]
     sel1_any = any4(sel1, h2, w2)
     sel0_any2 = any4(sel0_any, h2, w2)
     sel2 = (~sel0_any2) & (~sel1_any) & (b2v > 0)
 
-    status = torch.zeros((Hp * Wp,), dtype=torch.int32, device=dev)
+    status = torch.zeros(lead + (Hp * Wp,), dtype=torch.int32, device=dev)
     for by, bx, sel, code in ((b0y, b0x, sel0, 1), (b1y, b1x, sel1, 2), (b2y, b2x, sel2, 4)):
-        val = torch.where(sel, code, 0).to(torch.int32).reshape(-1)
-        status = status.scatter_reduce(0, (by * Wp + bx).reshape(-1), val, reduce="amax")
-    status = status.reshape(Hp, Wp)[:H, :W]
-    counts = torch.stack([sel0.sum(), sel1.sum(), sel2.sum()]).to(torch.int32)
+        val = torch.where(sel, code, 0).to(torch.int32).flatten(-2)
+        status = status.scatter_reduce(-1, (by * Wp + bx).flatten(-2), val, reduce="amax")
+    status = status.reshape(lead + (Hp, Wp))[..., :H, :W]
+    counts = torch.stack([x.sum((-2, -1)) for x in (sel0, sel1, sel2)], -1).to(torch.int32)
     return status, counts
 
 
-def select(dI0, asg0, asg1, asg2, ths_smoothed, pot: int, th_factor: float = 1.0,
-           salt: int = 0, settings: Settings = default_settings()) -> Selection:
-    """One selection pass at potential `pot` (PixelSelector2::select)."""
-    H, W = asg0.shape
+def select(dI0, asg0, asg1, asg2, ths_smoothed, pot, th_factor: float = 1.0,
+           salt=0, settings: Settings = default_settings()) -> Selection:
+    """One selection pass at potential `pot` (PixelSelector2::select).
+
+    N sequences (images (N, H, W), thresholds (N, h32, w32)) take `pot` and
+    `salt` as sequences of N ints, as the JAX package's vmap of its traced
+    potential: each sequence's directions hash its own salt on its own cell
+    sizes (pot, 2 pot, 4 pot), and the cell winners run once for each
+    potential among the sequences, over the sequences that have it."""
+    H, W = asg0.shape[-2:]
+    lead = tuple(asg0.shape[:-2])
     dev = asg0.device
     dirs = torch.as_tensor(_DIRECTIONS, device=dev)
-    pot = snap_pot(int(pot))
+    if lead:
+        pots = [snap_pot(int(p)) for p in pot]
+        cell0 = torch.as_tensor(pots, device=dev)[:, None]
+        salt = torch.as_tensor([int(x) for x in salt], dtype=torch.int64, device=dev)[:, None, None]
+    else:
+        pot = snap_pot(int(pot))
+        cell0 = pot
 
     xs = torch.arange(W, device=dev)
     ys = torch.arange(H, device=dev)
@@ -164,8 +185,9 @@ def select(dI0, asg0, asg1, asg2, ths_smoothed, pot: int, th_factor: float = 1.0
         & (ys[:, None] >= 4) & (ys[:, None] <= H - 4)
     )
     th0 = ths_smoothed[
-        torch.clamp(ys[:, None] >> 5, max=ths_smoothed.shape[0] - 1),
-        torch.clamp(xs[None, :] >> 5, max=ths_smoothed.shape[1] - 1),
+        ...,
+        torch.clamp(ys[:, None] >> 5, max=ths_smoothed.shape[-2] - 1),
+        torch.clamp(xs[None, :] >> 5, max=ths_smoothed.shape[-1] - 1),
     ]
     dw1 = settings.grad_downweight_per_level
     dw2 = dw1 * dw1
@@ -177,12 +199,12 @@ def select(dI0, asg0, asg1, asg2, ths_smoothed, pot: int, th_factor: float = 1.0
 
     x1 = (xs.to(torch.float32) * 0.5 + 0.25).to(torch.int64)
     y1 = (ys.to(torch.float32) * 0.5 + 0.25).to(torch.int64)
-    ag1 = asg1[torch.clamp(y1[:, None], max=asg1.shape[0] - 1),
-               torch.clamp(x1[None, :], max=asg1.shape[1] - 1)]
+    ag1 = asg1[..., torch.clamp(y1[:, None], max=asg1.shape[-2] - 1),
+               torch.clamp(x1[None, :], max=asg1.shape[-1] - 1)]
     x2 = (xs.to(torch.float32) * 0.25 + 0.125).to(torch.int64)
     y2 = (ys.to(torch.float32) * 0.25 + 0.125).to(torch.int64)
-    ag2 = asg2[torch.clamp(y2[:, None], max=asg2.shape[0] - 1),
-               torch.clamp(x2[None, :], max=asg2.shape[1] - 1)]
+    ag2 = asg2[..., torch.clamp(y2[:, None], max=asg2.shape[-2] - 1),
+               torch.clamp(x2[None, :], max=asg2.shape[-1] - 1)]
 
     pass0 = border & (asg0 > th0 * th_factor)
     pass1 = border & (ag1 > th1 * th_factor)
@@ -192,11 +214,11 @@ def select(dI0, asg0, asg1, asg2, ths_smoothed, pot: int, th_factor: float = 1.0
         bx = xs // cell
         by = ys // cell
         # argument order as in the JAX package: (rows, cols)
-        return dirs[_cell_hash(by[:, None], bx[None, :], s)]  # (H, W, 2)
+        return dirs[_cell_hash(by[..., :, None], bx[..., None, :], s)]  # (H, W, 2)
 
-    d0 = dir_field(pot, salt * 3 + 0)
-    d1 = dir_field(2 * pot, salt * 3 + 1)
-    d2f = dir_field(4 * pot, salt * 3 + 2)
+    d0 = dir_field(cell0, salt * 3 + 0)
+    d1 = dir_field(2 * cell0, salt * 3 + 1)
+    d2f = dir_field(4 * cell0, salt * 3 + 2)
 
     if settings.select_direction_distribution:
         dn0 = torch.abs(gx * d0[..., 0] + gy * d0[..., 1])
@@ -209,7 +231,14 @@ def select(dI0, asg0, asg1, asg2, ths_smoothed, pot: int, th_factor: float = 1.0
     v0 = torch.where(pass0, dn0, neg)
     v1 = torch.where(pass1, dn1, neg)
     v2 = torch.where(pass2, dn2, neg)
-    status, counts = _select_at_pot(v0, v1, v2, pot, H, W)
+    if not lead:
+        status, counts = _select_at_pot(v0, v1, v2, pot, H, W)
+        return Selection(status_map=status, counts=counts)
+    status = torch.zeros(lead + (H, W), dtype=torch.int32, device=dev)
+    counts = torch.zeros(lead + (3,), dtype=torch.int32, device=dev)
+    for p in sorted(set(pots)):
+        rows = torch.as_tensor([i for i, q in enumerate(pots) if q == p], device=dev)
+        status[rows], counts[rows] = _select_at_pot(v0[rows], v1[rows], v2[rows], p, H, W)
     return Selection(status_map=status, counts=counts)
 
 
@@ -268,13 +297,16 @@ class PixelSelector:
 
 def map_to_points(status_map: torch.Tensor, cap: int):
     """Compact a selection map into fixed-capacity point arrays (raster
-    order, zero-padded): (us, vs, types, valid), (cap,) each."""
-    H, W = status_map.shape
-    flat = status_map.reshape(-1)
-    idx = nonzero_fixed(flat > 0, cap)
+    order, zero-padded): (us, vs, types, valid), (cap,) each ((N, cap) for
+    N sequences' (N, H, W) maps)."""
+    H, W = status_map.shape[-2:]
+    batched = status_map.dim() == 3
+    flat = status_map.flatten(-2)
+    idx = nonzero_fixed(flat > 0, cap, batched=batched)
     valid = idx >= 0
     safe = torch.clamp(idx, min=0)
     us = (safe % W).to(torch.float32)
     vs = (safe // W).to(torch.float32)
-    types = torch.where(valid, flat[safe], torch.zeros_like(flat[safe]))
+    picked = torch.gather(flat, -1, safe)
+    types = torch.where(valid, picked, torch.zeros_like(picked))
     return us, vs, types, valid

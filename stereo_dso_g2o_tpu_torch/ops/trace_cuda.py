@@ -35,8 +35,8 @@ best_idx, 0, 0.
 vmap of its kernel does: dI (B, H, W, 3) and every lane operand (B, N, 8),
 lanes b searching image b; the output is (B, N, 8). One launch serves the
 batch (the sequence is the kernel's second grid dimension), and a batch of
-one gives the bits of the single-image call. The slab kernel takes one
-image: a batch of one is accepted, a larger batch raises.
+one gives the bits of the single-image call. `epipolar_search_slab` takes
+a batch the same way (its (B, H, W) intensity planes).
 
 Sampling rules follow the JAX "xla" backend exactly:
   - EDGE_CLAMP (temporal search): `_pattern_energy`'s formula with sample
@@ -183,11 +183,12 @@ _TAIL = [
 ]
 _WARPS_STREAM = [ctypes.c_int, _PTR]
 _ARGTYPES = {
-    # image, lanes, pattern strides (resident: sequence, lane, pixel), tail,
-    # (resident: sequences; slab: band length,) warps per block, stream
+    # image, lanes, pattern strides (sequence, lane, pixel), tail, (slab:
+    # band length,) sequences, warps per block, stream
     "epipolar_search": [_PTR] + _LANES + [ctypes.c_longlong] + _STRIDES + _TAIL
     + [ctypes.c_int] + _WARPS_STREAM,
-    "epipolar_search_slab": [_PTR] + _LANES + _STRIDES + _TAIL + [ctypes.c_int] + _WARPS_STREAM,
+    "epipolar_search_slab": [_PTR] + _LANES + [ctypes.c_longlong] + _STRIDES + _TAIL
+    + [ctypes.c_int] * 2 + _WARPS_STREAM,
 }
 
 
@@ -234,8 +235,8 @@ def _launch(name, image, scal, color, weights, patx, paty, H, W, S, huber_th,
             gn_iters, gn_threshold, radius, edge, *extra):
     """Launch kernel `name` on the current stream of `image` (the tensor it
     reads pixels from); `extra`: its arguments after `edge`. The lanes are
-    (N, 8), or (B, N, 8) for the resident kernel, whose pattern strides
-    then lead with the sequence's; the output has their shape."""
+    (B, N, 8), the pattern strides lead with the sequence's; the output has
+    their shape."""
     N = scal.shape[-2]
     if patx.stride() != paty.stride():  # the kernel takes one set of strides
         patx, paty = patx.contiguous(), paty.contiguous()
@@ -344,8 +345,9 @@ _PLANES = []  # [(dI, dI._version, plane)], the two most recent images
 
 
 def intensity_plane(dI):
-    """Channel 0 of an (H, W, 3) image as a contiguous (H, W) plane, made
-    once per image: a caller traces the same image several times per frame
+    """Channel 0 of an (H, W, 3) image (or a (B, H, W, 3) batch) as a
+    contiguous (H, W) plane ((B, H, W) planes), made once per image: a
+    caller traces the same image several times per frame
     (immature.trace_on_nonkey), so the two most recent planes are kept,
     keyed on the image tensor itself and its version counter."""
     for img, version, plane in _PLANES:
@@ -361,15 +363,13 @@ def epipolar_search_slab(dI, scal, color, weights, patx, paty, *, S: int,
                          huber_th: float, gn_iters: int, gn_threshold: float,
                          radius: int, edge: int, band_len=None):
     """`epipolar_search` through the slab kernel: same arguments, same
-    (N, 8) float32 lanes. Only dI[..., 0] is read. `band_len` caps the
-    staged band's length (a multiple of 4; default from S): taps beyond it
-    read global memory, so it changes the time and never the answer."""
+    (N, 8) float32 lanes, or (B, N, 8) for a batch (B, H, W, 3) of B
+    sequences in one launch (the sequence is the kernel's second grid
+    dimension). Only dI[..., 0] is read. `band_len` caps the staged band's
+    length (a multiple of 4; default from S): taps beyond it read global
+    memory, so it changes the time and never the answer."""
     global LAUNCHES_SLAB
     batched = _check(dI, scal, color, weights, patx, paty, edge)
-    if batched:
-        if dI.shape[0] != 1:
-            raise ValueError(f"the slab kernel takes one image, got a batch of {dI.shape[0]}")
-        dI, scal, color, weights, patx, paty = (x[0] for x in (dI, scal, color, weights, patx, paty))
     if band_len is not None and (band_len < 4 or band_len % 4):
         raise ValueError(f"band_len must be a positive multiple of 4, got {band_len}")
     cross, band_len, smem = slab_window(S, band_len)
@@ -381,15 +381,18 @@ def epipolar_search_slab(dI, scal, color, weights, patx, paty, *, S: int,
     kw = dict(S=S, huber_th=huber_th, gn_iters=gn_iters, gn_threshold=gn_threshold,
               radius=radius, edge=edge)
     if dI.device.type == "cpu":
-        out = epipolar_search_slab_ref(dI, scal, color, weights, patx, paty, **kw)
-    elif scal.shape[0] == 0:
-        out = torch.empty((0, 8), dtype=torch.float32, device=dI.device)
-    else:
-        out = _launch("epipolar_search_slab", intensity_plane(dI), scal, color, weights,
-                      patx, paty, dI.shape[0], dI.shape[1], S, huber_th, gn_iters,
-                      gn_threshold, radius, edge, band_len, SLAB_WARPS)
+        return epipolar_search_slab_ref(dI, scal, color, weights, patx, paty, **kw)
+    plane = intensity_plane(dI)
+    ops = (scal, color, weights, patx, paty)
+    if not batched:  # the kernel takes a batch: one image is a batch of one
+        plane, ops = plane[None], tuple(x[None] for x in ops)
+    out = torch.empty(ops[0].shape, dtype=torch.float32, device=dI.device)
+    if out.numel():
+        out = _launch("epipolar_search_slab", plane, *ops, dI.shape[-3], dI.shape[-2], S,
+                      huber_th, gn_iters, gn_threshold, radius, edge, band_len,
+                      plane.shape[0], SLAB_WARPS)
         LAUNCHES_SLAB += 1
-    return out[None] if batched else out
+    return out if batched else out[0]
 
 
 # ---------------------------------------------------------------------------
@@ -453,11 +456,12 @@ def _sample_zero_rows(img, ix0, fu, iy0, fv, steps, dirx, patx_i, paty_i, stacke
     return (1.0 - fu_) * row0 + fu_ * row1
 
 
-def _sample3_plane(img, x, y):
+def _sample3_plane(img, x, y, stacked=False):
     """`interp.bilinear` of (I, dI/dx, dI/dy) at float coords, the gradients
     taken from the intensity plane: 0.5 * (I(x+1, y) - I(x-1, y)), zero on
-    the image's border row/column (ops/pyramid._gradients). -> (..., 3)."""
-    H, W = img.shape
+    the image's border row/column (ops/pyramid._gradients). -> (..., 3).
+    `stacked`: planes (B, H, W), row b of the coordinates on plane b."""
+    H, W = img.shape[-2:]
     x = torch.clamp(x, 0.0, W - 1.001)
     y = torch.clamp(y, 0.0, H - 1.001)
     xf = torch.floor(x)
@@ -470,11 +474,14 @@ def _sample3_plane(img, x, y):
     def corner(r, c):
         inner_x = (c >= 1) & (c <= W - 2)
         inner_y = (r >= 1) & (r <= H - 2)
-        gx = 0.5 * (img[r, torch.clamp(c + 1, max=W - 1)] - img[r, torch.clamp(c - 1, min=0)])
-        gy = 0.5 * (img[torch.clamp(r + 1, max=H - 1), c] - img[torch.clamp(r - 1, min=0), c])
+        def at(rr, cc):
+            return take(img, rr, cc, stacked)
+
+        gx = 0.5 * (at(r, torch.clamp(c + 1, max=W - 1)) - at(r, torch.clamp(c - 1, min=0)))
+        gy = 0.5 * (at(torch.clamp(r + 1, max=H - 1), c) - at(torch.clamp(r - 1, min=0), c))
         zero = torch.zeros_like(gx)
         return torch.stack(
-            [img[r, c], torch.where(inner_x, gx, zero), torch.where(inner_y, gy, zero)], dim=-1
+            [at(r, c), torch.where(inner_x, gx, zero), torch.where(inner_y, gy, zero)], dim=-1
         )
 
     dxdy = dx * dy
@@ -498,10 +505,13 @@ def epipolar_search_ref(dI, scal, color, weights, patx, paty, **kw):
 
 def epipolar_search_slab_ref(dI, scal, color, weights, patx, paty, **kw):
     """Plain PyTorch version of the slab kernel: the same function with the
-    Gauss-Newton gradients differenced from the intensity plane."""
+    Gauss-Newton gradients differenced from the intensity plane. One image
+    (H, W, 3) with (N, 8) lanes, or a batch (B, H, W, 3) with (B, N, 8)
+    lanes, every op over the whole batch."""
+    stacked = dI.dim() == 4
     img = dI[..., 0]
-    return _search_ref(img, lambda x, y: _sample3_plane(img, x, y),
-                       scal, color, weights, patx, paty, stacked=False, **kw)
+    return _search_ref(img, lambda x, y: _sample3_plane(img, x, y, stacked),
+                       scal, color, weights, patx, paty, stacked=stacked, **kw)
 
 
 def _search_ref(img, sample3, scal, color, weights, patx, paty, *, S: int,

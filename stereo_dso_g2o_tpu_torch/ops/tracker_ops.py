@@ -51,8 +51,8 @@ def _dilate(idepth, wsum, shifts):
     s_id = torch.zeros_like(idepth)
     s_w = torch.zeros_like(wsum)
     for dy, dx in shifts:
-        wn = torch.roll(wsum, (dy, dx), dims=(0, 1))
-        idn = torch.roll(idepth, (dy, dx), dims=(0, 1))
+        wn = torch.roll(wsum, (dy, dx), dims=(-2, -1))
+        idn = torch.roll(idepth, (dy, dx), dims=(-2, -1))
         m = wn > 0
         num = num + m
         s_id = s_id + torch.where(m, idn, torch.zeros_like(idn))
@@ -78,32 +78,38 @@ def _dilate_cross(idepth, wsum):
 def build_ref_maps(us, vs, idepths, weights, valid, *, n_levels: int = 6, dI_ref=None):
     """Per-level (idepth_map, valid_map, color_map) tuples for tracking.
 
-    us, vs: (N,) level-0 pixel coords; idepths, weights: (N,); valid: (N,);
-    dI_ref: tuple of per-level (H,W,3) reference pyramids."""
+    us, vs: (P,) level-0 pixel coords; idepths, weights: (P,); valid: (P,);
+    dI_ref: tuple of per-level (H,W,3) reference pyramids. N sequences:
+    points (N, P), pyramids (N, H, W, 3), maps (N, H, W); each sequence's
+    splat adds its points in the order one sequence alone adds them."""
     assert dI_ref is not None
-    H, W = dI_ref[0].shape[:2]
+    H, W = dI_ref[0].shape[-3:-1]
+    lead = tuple(us.shape[:-1])
     dev = us.device
     iu = torch.clamp(us.to(torch.int64), 0, W - 1)
     iv = torch.clamp(vs.to(torch.int64), 0, H - 1)
     w_ok = torch.where(valid, weights, torch.zeros_like(weights)).float()
     flat = iv * W + iu
-    id_acc = torch.zeros(H * W, dtype=torch.float32, device=dev)
-    id_acc.index_put_((flat,), (idepths * w_ok).float(), accumulate=True)
-    w_acc = torch.zeros(H * W, dtype=torch.float32, device=dev)
-    w_acc.index_put_((flat,), w_ok, accumulate=True)
+    if lead:  # one splat over all sequences' pixels, sequence after sequence
+        flat = flat + torch.arange(lead[0], device=dev)[:, None] * (H * W)
+    id_acc = torch.zeros(lead + (H * W,), dtype=torch.float32, device=dev)
+    id_acc.view(-1).index_put_((flat.reshape(-1),), (idepths * w_ok).float().reshape(-1),
+                               accumulate=True)
+    w_acc = torch.zeros(lead + (H * W,), dtype=torch.float32, device=dev)
+    w_acc.view(-1).index_put_((flat.reshape(-1),), w_ok.reshape(-1), accumulate=True)
 
-    id_maps, w_maps = [id_acc.reshape(H, W)], [w_acc.reshape(H, W)]
+    id_maps, w_maps = [id_acc.reshape(lead + (H, W))], [w_acc.reshape(lead + (H, W))]
     for _lvl in range(1, n_levels):
         idp = id_maps[-1]
         wp = w_maps[-1]
-        h2, w2 = idp.shape[0] // 2, idp.shape[1] // 2
+        h2, w2 = idp.shape[-2] // 2, idp.shape[-1] // 2
 
         def pool(x):
             return (
-                x[0 : 2 * h2 : 2, 0 : 2 * w2 : 2]
-                + x[0 : 2 * h2 : 2, 1 : 2 * w2 : 2]
-                + x[1 : 2 * h2 : 2, 0 : 2 * w2 : 2]
-                + x[1 : 2 * h2 : 2, 1 : 2 * w2 : 2]
+                x[..., 0 : 2 * h2 : 2, 0 : 2 * w2 : 2]
+                + x[..., 0 : 2 * h2 : 2, 1 : 2 * w2 : 2]
+                + x[..., 1 : 2 * h2 : 2, 0 : 2 * w2 : 2]
+                + x[..., 1 : 2 * h2 : 2, 1 : 2 * w2 : 2]
             )
 
         id_maps.append(pool(idp))
@@ -118,7 +124,7 @@ def build_ref_maps(us, vs, idepths, weights, valid, *, n_levels: int = 6, dI_ref
             idm, wm = _dilate_cross(idm, wm)
         ok = wm > 0
         idn = torch.where(ok, idm / torch.clamp(wm, min=1e-12), torch.full_like(idm, -1.0))
-        hl, wl = idn.shape
+        hl, wl = idn.shape[-2:]
         xs = torch.arange(wl, device=dev)
         ys = torch.arange(hl, device=dev)
         interior = (
@@ -134,19 +140,21 @@ def build_ref_maps(us, vs, idepths, weights, valid, *, n_levels: int = 6, dI_ref
 
 
 def compact_ref_level(id_map, valid_map, color_map, cap: int):
-    """Compact one level's maps into fixed-capacity point lists."""
-    H, W = id_map.shape
-    idx = nonzero_fixed(valid_map.reshape(-1), cap)
+    """Compact one level's maps into fixed-capacity point lists ((N, cap)
+    for N sequences' (N, H, W) maps)."""
+    H, W = id_map.shape[-2:]
+    batched = id_map.dim() == 3
+    idx = nonzero_fixed(valid_map.flatten(-2), cap, batched=batched)
     ok = idx >= 0
     safe = torch.clamp(idx, min=0)
     u = (safe % W).to(torch.float32)
     v = (safe // W).to(torch.float32)
-    zero = torch.zeros(cap, dtype=torch.float32, device=id_map.device)
+    zero = torch.zeros(safe.shape, dtype=torch.float32, device=id_map.device)
     return (
         u,
         v,
-        torch.where(ok, id_map.reshape(-1)[safe], zero),
-        torch.where(ok, color_map.reshape(-1)[safe], zero),
+        torch.where(ok, torch.gather(id_map.flatten(-2), -1, safe), zero),
+        torch.where(ok, torch.gather(color_map.flatten(-2), -1, safe), zero),
         ok,
     )
 

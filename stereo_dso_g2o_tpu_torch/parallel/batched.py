@@ -4,18 +4,20 @@ Port of `stereo_dso_g2o_tpu/parallel/batched.py`. There the whole frame
 program is `vmap`ped over a leading sequence axis, so stepping N sequences
 is one dispatch and one small fetch per frame. Here the state of all
 sequences lives stacked (every leaf of `GraphState` with a leading axis N)
-and the track half, which every frame runs, is one program over that axis:
-`frame_track_batched` is `graph_system.frame_track` on the stacked state,
-each op once for all N sequences (the N x 5 pose hypotheses as rows of one
-LM loop, one K1 launch per search for all sequences), and one sequence is
-its batch of one. The keyframe pipeline (`frame_kf_subset_batched`) and
-"fused" (`frame_auto_batched`) still run sequence by sequence. Measured on
-an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py [batched], 4 sequences
-at 1216x352, "deferred", frames 14-31): 708.2 and 548.1 ms per batched
-frame (mean, two runs) against 4 x 414.6 and 4 x 428.0 ms for the
-single-sequence frame program in the same runs, 0.43 and 0.32 of N single
-frames; 3 K1 launches on a batched frame without a keyframe, 5.85 on
-average with the keyframes; 67.6 host reads a batched frame.
+and every part of the frame program is one program over that axis, each op
+once for all N sequences, one sequence its batch of one:
+`frame_track_batched` is `graph_system.frame_track` on the stacked state
+(the N x 5 pose hypotheses as rows of one LM loop, one K1 launch per search
+for all sequences), `frame_kf_subset_batched` is the keyframe pipeline
+(`graph_system._kf_branch`) once over the keyframe-needing sequences (K1
+three launches, one packed host read, BA's flags one read an iteration,
+whatever the subset's size), and "fused" `frame_auto_batched` runs both
+over all N and selects per sequence on the device. Measured on an NVIDIA
+H100 80GB HBM3 at 700 W (chip_smoke.py [batched], 4 sequences at
+1216x352, "deferred", frames 14-31): 789.6 ms per batched frame (mean)
+against 4 x 633.8 ms for the single-sequence frame program in the same
+run, 0.311 of N single frames; 4.35 K1 launches and 64.1 host reads a
+batched frame, 3 K1 launches a keyframe dispatch whatever its size.
 
 Three dispatch modes (`kf_mode`):
 
@@ -28,9 +30,10 @@ Three dispatch modes (`kf_mode`):
   behind (FullSystem.cpp:1168-1221), with zero staleness, because the
   hand-off completes before the next track runs.
 - "gated": the same split, with `need_kf` fetched within the frame.
-- "fused": `frame_auto` per sequence. (Under `vmap` the JAX package runs
-  both branches of the keyframe `cond` for every sequence and selects; the
-  result per sequence is `frame_auto`'s.)
+- "fused": the track program and the keyframe pipeline over all N
+  sequences, then a per-sequence select on `need_kf` on the device, which
+  is what the JAX package's vmap of the keyframe `cond` computes (both
+  branches for every sequence). `need_kf` is never read on the host.
 
 All sequences must share resolution (per-sequence intrinsics VALUES may
 differ). The pixel-selector potential is PER SEQUENCE: each sequence's host
@@ -49,17 +52,16 @@ import numpy as np
 import torch
 
 from stereo_dso_g2o_tpu_torch.config import Settings, default_settings
+from stereo_dso_g2o_tpu_torch.frontend import graph_system as GS
 from stereo_dso_g2o_tpu_torch.frontend.full_system import device_image
 from stereo_dso_g2o_tpu_torch.frontend.graph_system import (
     FrameBundle,
     GraphState,
     GraphSystem,
-    frame_auto,
-    frame_kf,
     frame_track,
 )
 from stereo_dso_g2o_tpu_torch.utils import host
-from stereo_dso_g2o_tpu_torch.utils.tree import tree_map
+from stereo_dso_g2o_tpu_torch.utils.tree import select_rows, tree_map
 
 # ---------------------------------------------------------------------------
 # trees of tensors (utils/tree.py): stack, slice and scatter over sequences
@@ -90,8 +92,17 @@ def _tree_scatter(stacked, items, idx):
     return tree_map(put, stacked, items)
 
 
-def _uniform_of(uniforms, k):
-    return None if uniforms is None else uniforms[k]
+def _tree_rows(tree, idx):
+    """Rows `idx` of every leaf, stacked in that order (a copy)."""
+    i = torch.as_tensor(np.asarray(idx), dtype=torch.long)
+    on = {}
+
+    def take(x):
+        if x.device not in on:
+            on[x.device] = i.to(x.device)
+        return x[on[x.device]]
+
+    return tree_map(take, tree)
 
 
 # ---------------------------------------------------------------------------
@@ -116,17 +127,33 @@ def frame_auto_batched(
     imm_cap: int = 2048,
     uniforms: Optional[Sequence[Optional[Callable]]] = None,
 ):
-    """`frame_auto` over the sequence axis: (states, bundles), stacked."""
-    outs = [
-        frame_auto(
-            _tree_slice(states, k), lefts[k], rights[k], calib_cs[k], baselines[k],
-            exposures[k], settings=settings, n_levels=n_levels, n_tries=n_tries,
-            pot=int(pots[k]), caps=caps, w0=w0, h0=h0, imm_cap=imm_cap,
-            uniform=_uniform_of(uniforms, k),
-        )
-        for k in range(lefts.shape[0])
-    ]
-    return _tree_stack([o[0] for o in outs]), _tree_stack([o[1] for o in outs])
+    """`frame_auto` over the sequence axis, as the JAX package's vmap of it
+    computes it: the track program over all N sequences, the keyframe
+    pipeline over all N, and a per-sequence select on `need_kf` on the
+    device (the vmapped `lax.cond` runs both branches for every sequence).
+    `need_kf` is read on the host zero times. Returns (states, bundles),
+    stacked.
+
+    The keyframe pipeline writes each sequence's level-0 pyramid into its
+    free slot's row of the shared (N, F, H, W, 3) stack in place; a sequence
+    that takes no keyframe gets that row's old pixels back, so every leaf of
+    its state is `frame_track`'s."""
+    n = lefts.shape[0]
+    st_t, b_t, aux = frame_track(
+        states, lefts, rights, calib_cs, baselines, exposures, settings=settings,
+        n_levels=n_levels, n_tries=n_tries, w0=w0, h0=h0,
+    )
+    slot = GS._free_slot(states.win).long()
+    rows = torch.arange(n, device=slot.device)
+    dI0 = states.dI0_slots
+    saved = dI0[rows, slot]  # the rows the keyframe pipeline overwrites
+    st_k, b_k = GS._kf_branch(
+        states, aux, calib_cs, baselines, exposures, settings, n_levels, pots, caps,
+        w0, h0, imm_cap, uniforms,
+    )
+    kf = aux.need_kf
+    dI0[rows, slot] = torch.where(kf[:, None, None, None], dI0[rows, slot], saved)
+    return select_rows(kf, st_k, st_t), select_rows(kf, b_k, b_t)
 
 
 def frame_track_batched(
@@ -168,19 +195,21 @@ def frame_kf_subset_batched(
     imm_cap: int = 2048,
     uniforms: Optional[Sequence[Optional[Callable]]] = None,
 ):
-    """The keyframe pipeline over the keyframe-needing subset, sequence by
-    sequence. (The JAX function pads `idx` with duplicates to a bucket size
-    so that few program variants compile; nothing compiles here, so there is
-    no padding.) Returns (states, bundles), stacked over `idx`."""
-    outs = [
-        frame_kf(
-            _tree_slice(states_pre, k), _tree_slice(aux, k), calib_cs[k], baselines[k],
-            exposures[k], pot=int(pots[k]), caps=caps, imm_cap=imm_cap, settings=settings,
-            n_levels=n_levels, w0=w0, h0=h0, uniform=_uniform_of(uniforms, k),
-        )
-        for k in (int(i) for i in idx)
-    ]
-    return _tree_stack([o[0] for o in outs]), _tree_stack([o[1] for o in outs])
+    """The keyframe pipeline over the keyframe-needing subset as one pass
+    of ops (`graph_system._kf_branch` once over the rows `idx`, gathered
+    from the stacked states). Returns (states, bundles), stacked over `idx`.
+
+    The JAX function pads `idx` with duplicates to a bucket size ({1, 2, N})
+    so that few program variants compile. Nothing compiles here, and a
+    duplicate row would compute the same values at the cost of a whole
+    keyframe pipeline, so the subset is not padded."""
+    idx = [int(i) for i in idx]
+    sel = torch.as_tensor(idx, device=calib_cs.device)
+    return GS._kf_branch(
+        _tree_rows(states_pre, idx), _tree_rows(aux, idx), calib_cs[sel], baselines[sel],
+        exposures[sel], settings, n_levels, [pots[k] for k in idx], caps, w0, h0, imm_cap,
+        None if uniforms is None else [uniforms[k] for k in idx],
+    )
 
 
 class BatchedRunner:
@@ -305,8 +334,10 @@ class BatchedRunner:
         return drained
 
     def _dispatch_kf_subset(self, states_pre, aux, expos, pots, need, common):
-        """The keyframe pipeline over the sequences `need`. Returns (states,
-        bundles, indices) to scatter."""
+        """The keyframe pipeline over the sequences `need`, one pass of ops
+        for all of them (not padded to the JAX module's {1, 2, N} buckets:
+        see `frame_kf_subset_batched`). Returns (states, bundles, indices)
+        to scatter."""
         st_b, b_b = frame_kf_subset_batched(
             states_pre, aux, self.calib_cs, self.baselines, expos, pots, need,
             caps=self.caps, imm_cap=self.settings.immature_cap, uniforms=self.uniforms, **common,

@@ -40,3 +40,39 @@ def at_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     (N, K) (one index or K indices per row)."""
     n = torch.arange(x.shape[0], device=x.device).reshape((-1,) + (1,) * (idx.dim() - 1))
     return x[n, idx]
+
+
+def seq_scalar(x, nd: int):
+    """A per-sequence scalar, () for one sequence or (N,) for N, shaped to
+    broadcast over `nd` trailing axes of the sequence's tensors."""
+    x = torch.as_tensor(x)
+    return x.reshape(tuple(x.shape) + (1,) * nd) if x.dim() else x
+
+
+def per_row(fn: Callable, batched: bool, *xs):
+    """fn(*xs); with `batched`, fn on each row of the leading axis of every
+    x, stacked (leaf by leaf for a tuple of outputs): each row is the call
+    one row alone makes. For products whose rounding depends on the batch:
+    a BLAS splits a lone GEMM's sum over threads and not a batch's, and on
+    the card cuBLAS runs a product batched over the sequence axis alone as
+    one GEMM for one sequence and as a batched GEMM for several, and picks
+    the batched algorithm by the batch count."""
+    if not batched:
+        return fn(*xs)
+    outs = [fn(*[x[i] for x in xs]) for i in range(xs[0].shape[0])]
+    join = (lambda o: o[0][None]) if len(outs) == 1 else torch.stack  # one row: a view
+    if isinstance(outs[0], tuple):
+        return tuple(join(o) for o in zip(*outs))
+    return join(outs)
+
+
+def select_rows(keep: torch.Tensor, new, old):
+    """`new` where the (N,) mask `keep` is set, `old` elsewhere, leaf by
+    leaf over two trees stacked over N (a leaf both share is passed
+    through)."""
+    def pick(a, b):
+        if a is b:
+            return a
+        return torch.where(keep.reshape(keep.shape + (1,) * (a.dim() - keep.dim())), a, b)
+
+    return tree_map(pick, new, old)

@@ -7,7 +7,8 @@ is bridged from the JAX freeze points.
 
 Port against port, tolerance 0: in "gated" and "fused" every sequence's
 trajectory and final GraphState equal the port's own GraphSystem stepped
-alone over the same frames; "deferred" equals "gated" in states, while its
+alone over the same frames (the keyframe subset and "fused" each one pass
+of the keyframe pipeline over their sequences); "deferred" equals "gated" in states, while its
 keyframe pipelines take the potentials read one step later (the skew the
 JAX module has). Port against the JAX BatchedRunner: every frame's pose
 from the same pre-frame state within 5e-6 (a frame whose pose hypotheses
@@ -179,18 +180,19 @@ def test_runner_equals_graph_system_per_sequence(jax_run, solo, gated, kf_mode):
         assert runner.systems[k].pot == want["pot"]
 
 
-def test_subset_buckets_pad_with_duplicates_and_run_each_once(jax_run, gated, monkeypatch):
-    """`_dispatch_kf_subset` runs the keyframe pipeline once for each
-    sequence that needs it, for subsets of the sizes the JAX module buckets
-    to ({1, 2, N}, padded there with duplicates; nothing is padded here),
-    and returns the states and bundles stacked in the order of the subset."""
+def test_subset_runs_one_keyframe_pipeline_for_all_its_sequences(jax_run, gated, monkeypatch):
+    """`_dispatch_kf_subset` runs the keyframe pipeline (`_kf_branch`) once
+    for all the sequences that need it, for subsets of the sizes the JAX
+    module buckets to ({1, 2, N}, padded there with duplicates; nothing is
+    padded here), and returns the states and bundles stacked in the order
+    of the subset, each sequence as it is alone."""
     runner = tb.BatchedRunner(_systems(jax_run) + _systems(jax_run)[:1], kf_mode="gated")
-    calls = [0]
-    inner = tb.frame_kf
+    calls = []
+    inner = tgs._kf_branch
 
-    def spy(*a, **kw):
-        calls[0] += 1
-        return inner(*a, **kw)
+    def spy(state, *a, **kw):
+        calls.append(int(state.salt.shape[0]))
+        return inner(state, *a, **kw)
 
     fr = jax_run["frames"]
     i = next(s for s, _, need in gated[2]["dispatches"] if need)  # a keyframe of the tail
@@ -201,14 +203,14 @@ def test_subset_buckets_pad_with_duplicates_and_run_each_once(jax_run, gated, mo
     _, bundles, aux = tb.frame_track_batched(
         pre, *runner._stacked_frames([fr[0][i], fr[1][i], fr[0][i]]), runner.calib_cs,
         runner.baselines, torch.ones(3), n_tries=5, **runner._common())
-    monkeypatch.setattr(tb, "frame_kf", spy)
+    monkeypatch.setattr(tgs, "_kf_branch", spy)
     out = {}
     for need in ([0], [1], [2], [0, 2], [0, 1, 2]):
-        calls[0] = 0
+        del calls[:]
         st_b, b_b, idx = runner._dispatch_kf_subset(pre, aux, torch.ones(3), runner._current_pots(),
                                                     np.asarray(need), runner._common())
         assert list(idx) == need and st_b.salt.shape[0] == b_b.need_kf.shape[0] == len(need)
-        assert calls[0] == len(need)  # each sequence once
+        assert calls == [len(need)]  # one pipeline over the whole subset
         out[tuple(need)] = (st_b, b_b)
     # stacked in the subset's order, each as it is alone; sequence 2 is
     # sequence 0 again, the same keyframe bit for bit
