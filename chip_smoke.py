@@ -5,8 +5,9 @@
 
 Phases (each one passes or the script exits non-zero; nothing is caught):
   1. device: requires CUDA, prints `nvidia-smi` name and power limit;
-  2. build: compiles both epipolar-search kernels (csrc/, nvcc, sm_90a, one
-     compiler process per source, started together);
+  2. build: compiles both epipolar-search kernels and the conditional-node
+     source of the captured program (csrc/, nvcc, sm_90a, one compiler
+     process per source, started together);
   3. resident kernel vs plain: runs the kernel and its plain PyTorch
      version on a rendered 1216x352 stereo pair with seeded lanes at the
      slice's shapes (temporal N=5120, stereo N=2560 in both directions),
@@ -34,6 +35,23 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
      finite poses, the resident kernel launched, a keyframe and a frame
      marginalization decided by the graph path, KF count and ATE inside
      the bounds recorded in PERF.md;
+  7b. program: the track half as one captured CUDA graph
+     (runtime/program.py; each LM level's loop a WHILE node from
+     csrc/graph_while.cu) against the same function under
+     program.disabled(): frames 12-39 from two twins of phase 7's freeze,
+     the final GraphState leaf by leaf and every frame's FrameBundle bit
+     for bit, KF count and ATE inside phase 7's bounds, exactly 2 host
+     reads on every non-keyframe frame (`need_kf` and the lagged drain),
+     K1 counted through the replays; ms per frame both ways; one
+     non-keyframe frame traced both ways (aten ops and launch calls on the
+     host, kernels and busy time on the device), one replay timed with
+     CUDA events; the program's capture time, nodes and pool memory; and
+     the retry ladder as a branch (always_retry_ladder=False, an IF node)
+     against eager on that frame, as it comes and with the ladder forced;
+     a K1 launch captured inside a WHILE body must be refused (a replay
+     would count it once whatever the trips). Phase 7 itself runs through the program
+     (its frames whose searches phase 8 records run eagerly: a replay calls
+     no wrapper);
   8. main-path lanes: the operands of the real launches of one non-keyframe
      and one keyframe of phase 7 (recorded by a wrapper set on the module
      for those frames), both kernels held against the plain version and each other and timed
@@ -48,11 +66,12 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
      poses, every sequence's KF count and ATE inside the bounds recorded in
      PERF.md, the resident kernel launched, and no batched frame without a
      keyframe launching K1 more often than a single-sequence frame does (the
-     track half runs once for all sequences); ms per batched frame beside 4
-     x the graph path's ms/frame of phase 7, K1 launches and host reads per
-     batched frame. Before it, two 8-frame runs from the same freeze,
-     "deferred" and "gated", must end in the same stacked state bit for
-     bit; in "gated" every frame's poses are set beside the single-sequence
+     track half runs once for all sequences, one replay of its program); ms
+     per batched frame beside 4 x the graph path's ms/frame of phase 7, K1
+     launches and host reads per batched frame. Before it, three 8-frame
+     runs from the same freeze, "deferred" through the track program,
+     "deferred" under program.disabled() and "gated", must end in the same
+     stacked state bit for bit (ms per batched frame of the first two); in "gated" every frame's poses are set beside the single-sequence
      program's from the same pre-frame state (the largest difference is
      printed), and the lanes of a batched frame without a keyframe go to K1
      as one launch, held bit for bit to a launch per sequence and to the
@@ -66,7 +85,9 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
      one launch, held bit for bit to a launch per sequence and to the plain
      version (temporal and stereo);
   9b. batched-slab: 2 corridor sequences at 2048x1024 (over the gate),
-     bootstrapped 12 frames each, then 8 "gated" frames: K2 launched on
+     bootstrapped 12 frames each, then 8 "gated" frames (the first
+     eagerly, its operands noted; the others through the batched track
+     program, K2 launched from inside it): K2 launched on
      the main path and K1 not, a keyframe dispatch held as in 9, no
      sequence lost, finite poses, every frame's poses within 1e-5 of the
      single-sequence program from the same pre-frame state, and K2 on a
@@ -114,8 +135,10 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
      keyframe audit over phase 14's obs file (as `python -m`), one BA
      iteration at F = 8 and F = 16, profile_frame and profile_kf_stages
      over 10 graph frames: each returns its keys, with the device's busy
-     share and kernels per frame. Then the four instruments: bench_tunnel,
-     roofline over 2 traced frames (and 2 more with the host traced),
+     share and kernels per frame (of frames run eagerly: the profiler
+     records a replayed WHILE body once, not once a trip). Then the four
+     instruments: bench_tunnel, roofline over 2 traced frames (and 2 more
+     with the host traced, all eager),
      bench_trace_kernel on 2048 lanes and kernel_gap_probe at frame 22:
      every key present and finite, the device's time a frame under the
      wall's, K1 among roofline's kernels at the launches its counter
@@ -510,6 +533,209 @@ def check_kf_dispatches(log, tag):
              f"{log['kf_pose_dev']} > {BATCH_POSE_TOL}")
 
 
+def frozen_twin(fs):
+    """`GraphSystem.from_full_system` of `fs` with host shells of its own:
+    a graph run refreshes its keyframe shells' poses in place, so runs from
+    one freeze that are compared with each other each take a twin made
+    before any of them runs."""
+    import copy
+
+    from stereo_dso_g2o_tpu_torch.frontend import graph_system as tgs
+
+    twin = copy.copy(fs)
+    twin.history, twin.kf_shells = copy.deepcopy((fs.history, fs.kf_shells))
+    return tgs.GraphSystem.from_full_system(twin)
+
+
+def phase_program(dev, lefts, rights, twins, gt, launches):
+    """Phase 7b: the graph path with the track half as one captured program
+    against the same frames under `program.disabled()`, from two twins of
+    [graph]'s freeze: final state leaf by leaf and every frame's bundle bit
+    for bit, keyframes and ATE inside [graph]'s bounds, host reads of every
+    non-keyframe frame 2, ms per frame both ways; then one non-keyframe
+    frame traced both ways (aten ops and launch calls on the host, the
+    device's busy time), one replay timed, the program's capture time,
+    nodes and memory, and that frame with the retry ladder as a branch (an
+    IF node) against eager."""
+    import dataclasses
+
+    from stereo_dso_g2o_tpu_torch.frontend import graph_system as tgs
+    from stereo_dso_g2o_tpu_torch.io import trajectory
+    from stereo_dso_g2o_tpu_torch.ops import trace_cuda as tk
+    from stereo_dso_g2o_tpu_torch.runtime import program
+    from stereo_dso_g2o_tpu_torch.tools._common import host_split, profile_summary, profiled
+    from stereo_dso_g2o_tpu_torch.utils import host, loop
+
+    t_phase = time.perf_counter()
+    runs = {}
+    for mode, g in zip(("program", "eager"), twins):
+        ctx = program.disabled() if mode == "eager" else contextlib.nullcontext()
+        ms, reads, k1, bundles, pre = [], [], [], [], {}
+        tk.reset_launches()
+        with ctx:
+            for i in range(BOOT, N_FRAMES):
+                if mode == "program" and i >= N_FRAMES - 8:  # the traced frame's, below
+                    pre[i] = (g.state, g.state.dI0_slots.clone())
+                host.reset()
+                k0 = tk.LAUNCHES
+                t1 = time.perf_counter()
+                g.add_frame(lefts[i], rights[i], i, timestamp=0.1 * i)
+                torch.cuda.synchronize()
+                ms.append(1000.0 * (time.perf_counter() - t1))
+                reads.append(host.READS)
+                k1.append(tk.LAUNCHES - k0)
+                bundles.append(g._pending_q[-1][0])
+            g.flush()
+        if g.is_lost:
+            fail(f"program: the {mode} run was lost")
+        runs[mode] = dict(ms=ms, reads=reads, k1=k1, bundles=bundles, pre=pre, g=g,
+                          kf=[bool(b.need_kf) for b in bundles], launches=tk.LAUNCHES)
+    P, E = runs["program"], runs["eager"]
+    launches["program"] = (P["launches"], 0)
+    state_differ = trees_equal(P["g"].state, E["g"].state)
+    bundle_differ = sum(trees_equal(a, b) for a, b in zip(P["bundles"], E["bundles"]))
+    traj = P["g"].trajectory()
+    ate = trajectory.ate_rmse(traj, gt)
+    n_kf = len(P["g"].kf_shells)
+    frames = list(range(BOOT, N_FRAMES))
+    nonkf = [j for j, i in enumerate(frames) if i >= BOOT + 2 and not P["kf"][j]]
+    kfj = [j for j, i in enumerate(frames) if i >= BOOT + 2 and P["kf"][j]]
+    prog = next(pr for pr in program.PROGRAMS.values() if pr.name == "_frame_track"
+                and pr.inputs[-5].dim() == 2)  # the single-sequence key of this path
+
+    def stats(r, idx):
+        v = [r["ms"][j] for j in idx]
+        return f"median {float(np.median(v)):.1f} mean {float(np.mean(v)):.1f}"
+
+    print(f"[program] graph path frames {BOOT}..{N_FRAMES - 1} through the program and under "
+          f"program.disabled() from twins of the freeze: {state_differ} state leaves and "
+          f"{bundle_differ} bundle leaves differ; KFs {n_kf} at frames "
+          f"{[sh.id for sh in P['g'].kf_shells]}, ATE {ate:.5f} m")
+    print(f"[program] ms per frame (host clock, synchronized, frames {BOOT + 2}..): non-keyframe "
+          f"program {stats(P, nonkf)}, eager {stats(E, nonkf)}; keyframe program {stats(P, kfj)}, "
+          f"eager {stats(E, kfj)}; all program {stats(P, nonkf + kfj)}, eager {stats(E, nonkf + kfj)}")
+    print(f"[program] host reads per non-keyframe frame: program {sorted(set(P['reads'][j] for j in nonkf))}, "
+          f"eager median {float(np.median([E['reads'][j] for j in nonkf])):.1f}; per keyframe frame "
+          f"program {[P['reads'][j] for j in kfj]}; K1 launches counted through the replays "
+          f"{P['launches']} (eager {E['launches']}), per non-keyframe frame "
+          f"{sorted(set(P['k1'][j] for j in nonkf))}")
+    print(f"[program] the single-sequence program: captured in {prog.capture_s:.3f} s (warm-up "
+          f"{prog.warmup_s:.3f} s), {prog.nodes} nodes at the top level and {prog.body_nodes} in "
+          f"the bodies of its {prog.while_nodes} WHILE and {prog.if_nodes} IF nodes, K1/K2 per "
+          f"replay {prog.launches}, pool {prog.pool_bytes / 2**20:.1f} MiB, input buffers "
+          f"{prog.input_bytes / 2**20:.1f} MiB, replays {prog.replays}")
+    if state_differ or bundle_differ:
+        fail(f"program: the program and eager differ in {state_differ} state and {bundle_differ} "
+             "bundle leaves")
+    if not GRAPH_KF_RANGE[0] <= n_kf <= GRAPH_KF_RANGE[1]:
+        fail(f"program: KF count {n_kf} outside {GRAPH_KF_RANGE}")
+    if not ate <= GRAPH_ATE_MAX:
+        fail(f"program: ATE {ate} > {GRAPH_ATE_MAX}")
+    if not nonkf or any(P["reads"][j] != 2 for j in nonkf):
+        fail(f"program: a non-keyframe frame read the device other than twice: "
+             f"{[P['reads'][j] for j in nonkf]}")
+    if P["launches"] <= 0 or min(P["k1"][j] for j in nonkf) <= 0:
+        fail("program: K1 was not launched from the program's replays")
+    if prog.while_nodes < 1 or prog.nodes is None:
+        fail("program: the program holds no WHILE node")
+
+    # one non-keyframe frame traced, from its pre-frame state, both ways
+    i = max(frames[j] for j in nonkf if frames[j] in P["pre"])
+    state, dI0 = P["pre"][i]
+    g = P["g"]
+    cal = g.calib
+    common = dict(settings=g.settings, n_levels=cal.n_levels, n_tries=5, pot=g.pot, caps=g.caps,
+                  w0=cal.w[0], h0=cal.h[0], imm_cap=g.settings.immature_cap)
+    expo = torch.tensor(1.0, device=dev)
+    traced = {}
+    for mode in ("program", "eager"):
+        ctx = program.disabled() if mode == "eager" else contextlib.nullcontext()
+        with ctx:
+            st = state._replace(dI0_slots=dI0.clone())
+            tgs.frame_auto(st, lefts[i], rights[i], cal.c, cal.baseline, expo, **common)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with profiled(dev) as prof:
+                for _ in range(3):
+                    tgs.frame_auto(st, lefts[i], rights[i], cal.c, cal.baseline, expo, **common)
+                torch.cuda.synchronize()
+            wall = 1000.0 * (time.perf_counter() - t1)
+        traced[mode] = (profile_summary(prof, wall, 3), host_split(prof, wall / 3, 3))
+    # the device's time of one replay, copy-in to the last copy-out (CUDA
+    # events, untraced): the profiler records a graph's kernel nodes once,
+    # not once a trip of a WHILE body, so its device time of a program
+    # frame is no measurement
+    replay_ms = []
+    st = state._replace(dI0_slots=dI0.clone())
+    track_kw = {k: common[k] for k in ("settings", "n_levels", "n_tries", "w0", "h0")}
+    for _ in range(5):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        tgs.frame_track(st, lefts[i], rights[i], cal.c, cal.baseline, expo, **track_kw)
+        b.record()
+        torch.cuda.synchronize()
+        replay_ms.append(a.elapsed_time(b))
+    # the retry ladder as a branch (always_retry_ladder=False): an IF node
+    # around five levels' WHILEs, against eager from the same pre-frame
+    # state, as it comes and with the ladder forced (no previous RMSE)
+    ladder = dict(track_kw, settings=dataclasses.replace(g.settings, always_retry_ladder=False))
+    ladder_differ = []
+    for st_l in (st, st._replace(last_rmse0=torch.zeros_like(st.last_rmse0))):
+        got = tgs.frame_track(st_l, lefts[i], rights[i], cal.c, cal.baseline, expo, **ladder)
+        with program.disabled():
+            want = tgs.frame_track(st_l, lefts[i], rights[i], cal.c, cal.baseline, expo, **ladder)
+        ladder_differ.append(trees_equal(got, want))
+    prog_l = next(pr for pr in program.PROGRAMS.values() if pr.if_nodes)
+    print(f"[program] the retry ladder as a branch, frame {i} as it comes and with the ladder "
+          f"forced: {ladder_differ} leaves differ from eager; its program {prog_l.if_nodes} IF and "
+          f"{prog_l.while_nodes} WHILE nodes, {prog_l.nodes} + {prog_l.body_nodes} nodes, captured "
+          f"in {prog_l.capture_s:.3f} s")
+    if any(ladder_differ):
+        fail(f"program: the ladder's program differs from eager in {ladder_differ} leaves")
+    # a search kernel captured inside a node's body is refused: a replay
+    # adds the launches captured, which would then be one whatever the trips
+    import _torch_trace_lanes
+
+    dI = dI0[0].contiguous()
+    lanes, _ = _torch_trace_lanes.edge_lanes(dI, 46, False, seed=0, reps=1)
+    kw = dict(S=46, edge=tk.EDGE_CLAMP, huber_th=float(g.settings.huber_th),
+              gn_iters=int(g.settings.trace_gn_iterations),
+              gn_threshold=float(g.settings.trace_gn_threshold),
+              radius=int(g.settings.min_trace_test_radius))
+
+    def search_in_loop(done, *ops):
+        def trip():
+            tk.epipolar_search(*ops, **kw)
+            done.fill_(True)
+
+        loop.while_loop(done, trip, 1)
+        return done
+
+    ops = (dI, lanes["scal"], lanes["color"], lanes["weights"], lanes["patx"], lanes["paty"])
+    try:
+        program.run(search_in_loop, (torch.zeros((), dtype=torch.bool, device=dev), *ops), {})
+        refused = ""
+    except RuntimeError as e:
+        refused = str(e)
+    print(f"[program] K1 inside a WHILE body, captured: {refused or 'not refused'}")
+    if "inside a WHILE node's body" not in refused:
+        fail("program: a K1 launch inside a WHILE body was captured without an error")
+
+    summ, split = traced["program"]
+    print(f"[program] non-keyframe frame {i} traced (program, torch.profiler, 3 frames): aten ops "
+          f"{summ['aten_ops_per_frame']} a frame, launch calls {split['launch_calls_per_frame']:.1f}; "
+          f"device time of one replay (CUDA events, untraced, median of 5) "
+          f"{float(np.median(replay_ms)):.2f} ms")
+    summ, split = traced["eager"]
+    print(f"[program] non-keyframe frame {i} traced (eager, torch.profiler, 3 frames): aten ops "
+          f"{summ['aten_ops_per_frame']} a frame, launch calls {split['launch_calls_per_frame']:.1f}, "
+          f"kernels on the device {summ['kernels_per_frame']}, device busy "
+          f"{summ['device_busy_ms_per_frame']} ms of a traced wall of "
+          f"{split['wall_ms_per_frame']:.1f} ms")
+    print(f"[program] phase {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
 def phase_batched(dev, settings, calib, K, poses_cw, seq0, graph_ms, launches):
     """Phase 9. `seq0`: sequence 0's rendered (lefts, rights); `graph_ms`:
     (median, mean) ms/frame of the single-sequence graph path of this call.
@@ -520,6 +746,7 @@ def phase_batched(dev, settings, calib, K, poses_cw, seq0, graph_ms, launches):
     from stereo_dso_g2o_tpu_torch.io import synthetic, trajectory
     from stereo_dso_g2o_tpu_torch.ops import trace_cuda as tk
     from stereo_dso_g2o_tpu_torch.parallel.batched import BatchedRunner, _tree_slice, tree_map
+    from stereo_dso_g2o_tpu_torch.runtime import program
 
     t0 = time.perf_counter()
     seqs = [(seq0[0][:BATCH_FRAMES], seq0[1][:BATCH_FRAMES])]
@@ -559,15 +786,21 @@ def phase_batched(dev, settings, calib, K, poses_cw, seq0, graph_ms, launches):
     short, pose_dev, k1_calls, single_k1 = {}, [], None, []
     kf_log = {"dispatches": []}
     fused_dev, fused_kf_differ, fused_k1 = [], 0, []
+    short_ms = {}  # "deferred" through its program and under program.disabled()
     expos = torch.ones(N_SEQ, device=dev)
-    for mode in ("deferred", "gated"):
-        r = runner_from_freeze(mode)
+    for mode in ("deferred", "deferred eager", "gated"):
+        r = runner_from_freeze(mode.split()[0])
         if mode == "gated":
             kf_dispatch_probe(r, kf_log)
             fz = runner_from_freeze("fused")
         for i in range(BOOT, BOOT + GATED_FRAMES):
-            if mode == "deferred":
-                r.add_frames((L_all[:, i], R_all[:, i]), i, timestamp=0.1 * i)
+            if mode != "gated":
+                ctx = program.disabled() if mode == "deferred eager" else contextlib.nullcontext()
+                t1 = time.perf_counter()
+                with ctx:
+                    r.add_frames((L_all[:, i], R_all[:, i]), i, timestamp=0.1 * i)
+                torch.cuda.synchronize()
+                short_ms.setdefault(mode, []).append(1000.0 * (time.perf_counter() - t1))
                 continue
             pre, pots = r.states, r._current_pots()
             with recorded_searches() as calls:
@@ -594,9 +827,23 @@ def phase_batched(dev, settings, calib, K, poses_cw, seq0, graph_ms, launches):
                     r.baselines[k], expos[k], n_tries=5, **r._common())
                 single_k1.append(tk.LAUNCHES - k0)
                 pose_dev.append(float((T_b[k] - b1.T).abs().max()))
-        r.flush()
+        with program.disabled() if mode == "deferred eager" else contextlib.nullcontext():
+            r.flush()
         short[mode] = r
     torch.cuda.synchronize()
+    prog_differ = trees_equal(short["deferred"].states, short["deferred eager"].states)
+    # the first frame's program is captured in it
+    dm = {m: v[1:] for m, v in short_ms.items()}
+    print(f"[batched] {GATED_FRAMES} frames \"deferred\" through the program and under "
+          f"program.disabled() from one freeze: {prog_differ} state leaves differ; ms per batched "
+          f"frame (frames {BOOT + 1}..) program median {float(np.median(dm['deferred'])):.1f} mean "
+          f"{float(np.mean(dm['deferred'])):.1f}, eager median "
+          f"{float(np.median(dm['deferred eager'])):.1f} mean "
+          f"{float(np.mean(dm['deferred eager'])):.1f}; the first frame (capture of the "
+          f"{N_SEQ}-sequence program) {short_ms['deferred'][0]:.1f} ms")
+    if prog_differ:
+        fail(f'batched: "deferred" through the program and eager differ in {prog_differ} state leaves')
+    del short["deferred eager"]
     print(f"[batched] {GATED_FRAMES} frames \"gated\": largest per-frame pose difference from the "
           f"single-sequence program over {N_SEQ} sequences {max(pose_dev):.3g} (median "
           f"{float(np.median(pose_dev)):.3g}); K1 launches of a single-sequence frame_track "
@@ -693,6 +940,13 @@ def phase_batched(dev, settings, calib, K, poses_cw, seq0, graph_ms, launches):
           f"{len(nonkf)} batched frames without a keyframe {sorted(set(nonkf))}), host reads "
           f"{reads} ({reads / n_graph:.2f} a batched frame, {reads / (N_SEQ * n_graph):.2f} a "
           f"sequence frame), peak memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    prog = next(pr for pr in program.PROGRAMS.values() if pr.name == "_frame_track"
+                and tuple(pr.inputs[-5].shape) == (N_SEQ, H_, W_))
+    print(f"[batched] the {N_SEQ}-sequence track program: captured in {prog.capture_s:.3f} s, "
+          f"{prog.nodes} nodes at the top level and {prog.body_nodes} in the bodies of its "
+          f"{prog.while_nodes} WHILE nodes, K1 per replay {prog.launches[0]}, pool "
+          f"{prog.pool_bytes / 2**20:.1f} MiB, input buffers {prog.input_bytes / 2**20:.1f} MiB, "
+          f"replays {prog.replays}")
     if not nonkf:
         fail("batched: every batched frame ran a keyframe pipeline")
     if max(nonkf) > min(single_k1):
@@ -738,6 +992,7 @@ def phase_batched_slab(dev, settings, launches):
     from stereo_dso_g2o_tpu_torch.models.camera import make_calib
     from stereo_dso_g2o_tpu_torch.ops import trace_cuda as tk
     from stereo_dso_g2o_tpu_torch.parallel.batched import BatchedRunner, _tree_slice
+    from stereo_dso_g2o_tpu_torch.runtime import program
 
     t_phase = time.perf_counter()
     if not tk.uses_slab_route(H2, W2):
@@ -774,17 +1029,21 @@ def phase_batched_slab(dev, settings, launches):
     log = {"dispatches": []}
     kf_dispatch_probe(runner, log)
     expos = torch.ones(SLAB_SEQ, device=dev)
-    pose_dev, frame_ms, lanes, main_k = [], [], None, [0, 0]
+    pose_dev, frame_ms, lanes, main_k, prog_k2 = [], [], None, [0, 0], 0
     for i in range(BOOT, n):
         pre = runner.states
         k0 = (tk.LAUNCHES, tk.LAUNCHES_SLAB)
         t1 = time.perf_counter()
-        with recorded_searches() as calls:
+        # the first frame eagerly, its searches' operands noted; the others
+        # through the batched track program, K2 inside it
+        with recorded_searches() if lanes is None else contextlib.nullcontext([]) as calls:
             runner.add_frames((L_all[:, i], R_all[:, i]), i, timestamp=0.1 * i)
         torch.cuda.synchronize()
         frame_ms.append(1000.0 * (time.perf_counter() - t1))
         main_k[0] += tk.LAUNCHES - k0[0]
         main_k[1] += tk.LAUNCHES_SLAB - k0[1]
+        if lanes is not None:
+            prog_k2 += tk.LAUNCHES_SLAB - k0[1]
         if lanes is None:
             lanes = next((c for c in calls if c[0] == "epipolar_search_slab"
                           and c[1][0].dim() == 4 and c[2]["edge"] == tk.EDGE_CLAMP), None)
@@ -804,6 +1063,15 @@ def phase_batched_slab(dev, settings, launches):
           f"frame median {float(np.median(frame_ms)):.1f} mean {float(np.mean(frame_ms)):.1f}; "
           f"kernel launches (K1, K2) {tuple(main_k)}; largest per-frame pose difference from the "
           f"single-sequence program {max(pose_dev):.3g} (median {float(np.median(pose_dev)):.3g})")
+    prog = next(pr for pr in program.PROGRAMS.values() if pr.name == "_frame_track"
+                and tuple(pr.inputs[-5].shape) == (SLAB_SEQ, H2, W2))
+    print(f"[batched-slab] frames {BOOT + 1}..{n - 1} through the batched track program: K2 "
+          f"launches {prog_k2}, of which {prog.replays * prog.launches[1]} from inside it "
+          f"({prog.replays} replays x {prog.launches[1]}; capture {prog.capture_s:.3f} s, "
+          f"{prog.nodes} nodes at the top level, {prog.body_nodes} in the bodies, pool "
+          f"{prog.pool_bytes / 2**20:.1f} MiB)")
+    if prog.replays * prog.launches[1] <= 0:
+        fail("batched-slab: K2 was not launched from inside the captured batched program")
     if main_k[1] <= 0:
         fail("batched-slab: the slab kernel was not launched")
     if main_k[0] != 0:
@@ -1247,6 +1515,8 @@ def phase_tools(obs, launches):
                                         "kernels_per_frame"))):
         if any(out.get(k) is None for k in keys) or not 0 < out["device_busy_share"] <= 1:
             fail(f"tools: {name} lacks a key or a device share: {out}")
+    if pf.get("traced_mode") != "eager (program.disabled)":
+        fail(f"tools: profile_frame traced frames other than eager ones: {pf.get('traced_mode')}")
     errs = phase_instruments(secs, launches)
     print(f"[tools] {len(secs)} tools in {time.perf_counter() - t0:.1f} s "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())}); kernel launches "
@@ -1348,7 +1618,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     libs = tk.build()
-    print(f"[build] {len(libs)} kernels in {time.perf_counter() - t0:.1f} s")
+    print(f"[build] {len(libs)} sources in {time.perf_counter() - t0:.1f} s")
     for name, lib in libs.items():
         secs = tk.BUILD_SECONDS.get(name)
         print(f"[build] {name}: {lib.name}, nvcc "
@@ -1582,6 +1852,7 @@ def main() -> int:
     fs = FullSystem(calib, settings, device=dev)
     for i in range(BOOT):
         fs.add_frame(lefts[i], rights[i], i, timestamp=0.1 * i)
+    twins = (frozen_twin(fs), frozen_twin(fs))  # phase 7b's, made before any run
     gs = tgs.GraphSystem.from_full_system(fs)
     kfs_boot = len(gs.kf_shells)
     tk.reset_launches()
@@ -1695,6 +1966,10 @@ def main() -> int:
             "gn": gn,
         }, os.environ["SDSO_SAVE_LANES"])
         print(f"[kernel] lanes written to {os.environ['SDSO_SAVE_LANES']}")
+
+    # ---- 7b. the track half as one program against eager ----
+    phase_program(dev, lefts, rights, twins, gt, launches)
+    del twins
 
     # ---- 9-12. the batched runner, checkpoint, diagnostics, sharded BA, multiseq ----
     steady_ms = [m for _, m in steady]

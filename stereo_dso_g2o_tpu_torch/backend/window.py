@@ -26,6 +26,7 @@ from stereo_dso_g2o_tpu_torch.config import (
     SCALE_XI_TRANS,
 )
 from stereo_dso_g2o_tpu_torch.utils import se3
+from stereo_dso_g2o_tpu_torch.utils.fixed import constant
 from stereo_dso_g2o_tpu_torch.utils.tree import per_row
 
 # point status (PointHessian::PtStatus)
@@ -109,7 +110,7 @@ class Window:
         return self.state.device
 
     def state_scale(self):
-        return torch.as_tensor(STATE_SCALE, device=self.state.device)
+        return constant(STATE_SCALE, torch.float32, self.state.device)
 
     # The four below also read a window stacked over sequences (every
     # leaf with a leading axis N): (N, F, ...).

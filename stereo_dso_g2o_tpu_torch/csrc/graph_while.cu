@@ -1,0 +1,108 @@
+// Device-side loops and branches for a captured CUDA graph: the port's
+// lax.while_loop and lax.cond.
+//
+// The JAX package runs each level of the tracker's LM as a lax.while_loop
+// inside one XLA program (stereo_dso_g2o_tpu/ops/tracker_ops.py, lm_level),
+// and its retry ladder as a lax.cond (frontend/frame_step.py): the device
+// decides how many trips run, and whether the branch does. A CUDA graph does
+// the same with conditional nodes (CUDA >= 12.3): a WHILE node's body graph
+// runs while the node's condition is set, an IF node's once if it is set,
+// and a kernel of the graph sets the condition. runtime/program.py captures
+// the frame program with PyTorch's graph API, which adds no WHILE node (and,
+// in the PyTorch the card's machine has, no IF node either); these calls
+// add both the way PyTorch adds its IF node
+// (CUDAGraph::begin_capture_to_if_node):
+//
+//   sdso_cond_begin: on the capturing stream, a kernel that sets a new
+//     condition from a device flag (CUDA evaluates a WHILE node's condition
+//     before every trip, the first included), then the conditional node
+//     after it; the stream's capture continues after the node, and
+//     `body_stream` starts capturing into the node's body graph;
+//   sdso_cond_end: for a WHILE node, on `body_stream`, the same kernel at
+//     the end of the body (the trip has written the flag); then the end of
+//     the body's capture.
+//
+// The kernel reads one byte and writes the condition: launch-bound, one
+// thread, nothing to tune. Each call returns a cudaError_t (0: success).
+
+#include <cuda_runtime.h>
+
+namespace {
+
+__global__ void set_condition(cudaGraphConditionalHandle handle, const bool* flag) {
+  cudaGraphSetConditional(handle, *flag ? 1u : 0u);
+}
+
+}  // namespace
+
+extern "C" {
+
+int sdso_cond_begin(void* stream, void* body_stream, const void* flag, int is_while,
+                    unsigned long long* handle_out) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaStreamCaptureStatus status;
+  cudaGraph_t graph;
+  const cudaGraphNode_t* deps = nullptr;
+  size_t n_deps = 0;
+  cudaError_t err = cudaStreamGetCaptureInfo(s, &status, nullptr, &graph, &deps, &n_deps);
+  if (err != cudaSuccess) return err;
+  if (status != cudaStreamCaptureStatusActive) return cudaErrorStreamCaptureImplicit;
+
+  cudaGraphConditionalHandle handle;
+  err = cudaGraphConditionalHandleCreate(&handle, graph, 0, 0);
+  if (err != cudaSuccess) return err;
+  set_condition<<<1, 1, 0, s>>>(handle, static_cast<const bool*>(flag));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  // the dependencies now end in the kernel just captured
+  err = cudaStreamGetCaptureInfo(s, &status, nullptr, &graph, &deps, &n_deps);
+  if (err != cudaSuccess) return err;
+  cudaGraphNodeParams params = {};
+  params.type = cudaGraphNodeTypeConditional;
+  params.conditional.handle = handle;
+  params.conditional.type = is_while ? cudaGraphCondTypeWhile : cudaGraphCondTypeIf;
+  params.conditional.size = 1;
+  cudaGraphNode_t node;
+  err = cudaGraphAddNode(&node, graph, deps, n_deps, &params);
+  if (err != cudaSuccess) return err;
+  cudaGraph_t body = params.conditional.phGraph_out[0];
+  err = cudaStreamUpdateCaptureDependencies(s, &node, 1, cudaStreamSetCaptureDependencies);
+  if (err != cudaSuccess) return err;
+  err = cudaStreamBeginCaptureToGraph(static_cast<cudaStream_t>(body_stream), body, nullptr,
+                                      nullptr, 0, cudaStreamCaptureModeGlobal);
+  if (err != cudaSuccess) return err;
+  *handle_out = static_cast<unsigned long long>(handle);
+  return cudaSuccess;
+}
+
+// flag: the WHILE node's, set again at the end of its body; null for an IF
+int sdso_cond_end(void* body_stream, const void* flag, unsigned long long handle,
+                  unsigned long long* body_nodes_out) {
+  cudaStream_t s = static_cast<cudaStream_t>(body_stream);
+  cudaError_t err = cudaSuccess;
+  if (flag != nullptr) {
+    set_condition<<<1, 1, 0, s>>>(static_cast<cudaGraphConditionalHandle>(handle),
+                                  static_cast<const bool*>(flag));
+    err = cudaGetLastError();
+  }
+  cudaGraph_t body;
+  cudaError_t end = cudaStreamEndCapture(s, &body);
+  if (err != cudaSuccess) return err;
+  if (end != cudaSuccess) return end;
+  size_t n = 0;
+  err = cudaGraphGetNodes(body, nullptr, &n);
+  *body_nodes_out = n;
+  return err;
+}
+
+// Nodes at the top level of a graph (a captured program kept with
+// keep_graph=True), for the report.
+int sdso_graph_nodes(void* graph, unsigned long long* n_out) {
+  size_t n = 0;
+  cudaError_t err = cudaGraphGetNodes(static_cast<cudaGraph_t>(graph), nullptr, &n);
+  *n_out = n;
+  return err;
+}
+
+}  // extern "C"

@@ -2,8 +2,12 @@
 
 Port of `stereo_dso_g2o_tpu/frontend/frame_step.py`. The JAX package fuses
 each of these into one jitted program; here they are plain functions that
-launch torch ops (and the epipolar kernel) eagerly. Pose hypotheses are a
-batch dimension (the JAX `vmap`); `lax.cond` is a host branch.
+launch torch ops (and the epipolar kernel) eagerly, and on the card the
+track half also runs captured as one program (`runtime/program.py`). Pose
+hypotheses are a batch dimension (the JAX `vmap`); the retry ladder's
+`lax.cond` and the tracker's `lax.while_loop` are `utils/loop.cond` and
+`while_loop`: host branches and loops eagerly, IF and WHILE nodes in a
+captured program.
 
 The non-keyframe step (`frame_step_full`) runs N sequences at once, as the
 JAX package's batched frame program vmaps it: every operand leads with the
@@ -28,7 +32,7 @@ from stereo_dso_g2o_tpu_torch.models.camera import calib_from_c
 from stereo_dso_g2o_tpu_torch.ops import trace as trace_ops
 from stereo_dso_g2o_tpu_torch.ops import tracker_ops
 from stereo_dso_g2o_tpu_torch.ops.pyramid import build_pyramid
-from stereo_dso_g2o_tpu_torch.utils import host
+from stereo_dso_g2o_tpu_torch.utils import loop
 from stereo_dso_g2o_tpu_torch.utils.smalls import matmul_fma
 from stereo_dso_g2o_tpu_torch.utils.tree import at_rows, first, lead_one, per_row
 
@@ -60,12 +64,14 @@ def _cascade_init(T_init, aff_init, n_levels: int) -> CascadeCarry:
     """T_init (B, 4, 4) with aff_init (2,), or (N, K, 4, 4) with (N, 2)."""
     rows = tuple(T_init.shape[:-2])
     dev = T_init.device
+    flow = torch.full(rows + (3,), 100.0, device=dev)
+    flow[..., 1].fill_(0.0)
     return CascadeCarry(
         T=T_init.to(torch.float32),
         aff=aff_init.to(torch.float32)[..., None, :].expand(rows + (2,)).clone(),
         ok=torch.ones(rows, dtype=torch.bool, device=dev),
         residuals=torch.full(rows + (n_levels,), float("nan"), device=dev),
-        flow=torch.tensor([100.0, 0.0, 100.0], device=dev).expand(rows + (3,)).clone(),
+        flow=flow,
         sat0=torch.zeros(rows, device=dev),
         sat_last=torch.zeros(rows, device=dev),
         have_repeated=torch.zeros(rows, dtype=torch.bool, device=dev),
@@ -184,8 +190,9 @@ def _host_transforms(win, T_new, calib):
     many = w2c.dim() == 4
     # products of one matrix per sequence: one call per sequence
     # (utils/tree.per_row), as one sequence alone makes it
+    # inv_ex: the values of inv, without the error check that waits for the device
     T_hn = per_row(lambda a, b: torch.einsum("ij,fjk->fik", a, b), many,
-                   T_new, torch.linalg.inv(w2c))
+                   T_new, torch.linalg.inv_ex(w2c).inverse)
     R_hn = T_hn[..., :3, :3]
     t_hn = T_hn[..., :3, 3]
     KRKi = per_row(lambda k, r, ki: torch.einsum("ij,fjk,kl->fil", k, r, ki), many, K, R_hn, Ki)
@@ -346,12 +353,14 @@ def _best_of(res_all, ok_all, good0):
     best0 = torch.where(good0, res_all[0], inf[0])
     cand = torch.cat([inf[:1], torch.where(ok_all, res_all, inf)[1:]])
     jbest = torch.argmin(cand)
-    return torch.where(cand[jbest] < best0, jbest, torch.zeros_like(jbest))
+    # cand's least value, cand[jbest] (an index by a tensor would read it on the host)
+    return torch.where(torch.amin(cand) < best0, jbest, torch.zeros_like(jbest))
 
 
 def _winners(res_all, ok_all, good0):
     """(N,) winners of N sequences' (N, K) hypotheses: `_best_of` on each
     sequence's row, so that every sequence's selection is its own call."""
+    # as_tensor: the device tensor `_best_of` returns as it is (no copy)
     return torch.stack([
         torch.as_tensor(_best_of(res_all[n], ok_all[n], good0[n]), device=res_all.device)
         for n in range(res_all.shape[0])
@@ -446,17 +455,20 @@ def frame_step_full(left, right, ref, win, imm, calib_c, baseline, ref_slot,
         need_ladder = torch.ones(N, dtype=torch.bool, device=dev)
     else:
         # try 0 alone; the other hypotheses (the JAX lax.cond, which vmap
-        # turns into a select) run when some sequence needs them
+        # turns into a select) run when some sequence needs them: a host
+        # branch eagerly, an IF node in a captured program (utils/loop.cond)
         t0 = _squeeze_rows(tries(T_tries[:, :1]))
         res0 = t0.residuals[..., 0]
         good0 = t0.ok & torch.isfinite(res0) & (t0.sat_frac0 <= 0.6)
         need_ladder = ~(good0 & (res0 < last_rmse0 * settings.re_track_threshold))
-        track = t0
-        if host.flag(need_ladder.any()):
+
+        def ladder():
             tb = tries(T_tries[:, 1:])
             full = TrackOut(*[torch.cat([a[:, None], b], 1) for a, b in zip(t0, tb)])
             sel = _select(full, last_rmse0, settings, n_tries)
-            track = TrackOut(*[tracker_ops._bsel(need_ladder, a, b) for a, b in zip(sel, t0)])
+            return TrackOut(*[tracker_ops._bsel(need_ladder, a, b) for a, b in zip(sel, t0)])
+
+        track = loop.cond(need_ladder.any(), ladder, t0)
 
     imm_out = _nonkey_refine(
         win, imm, dIpL[0], dIpR[0], calib, track.T, track.aff,

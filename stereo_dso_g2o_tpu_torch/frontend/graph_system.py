@@ -2,9 +2,11 @@
 
 Port of `stereo_dso_g2o_tpu/frontend/graph_system.py`. The JAX package
 jits `frame_auto` into one XLA program whose keyframe decision is a
-`lax.cond`; here the same program is a plain function that launches torch
-ops (and the epipolar kernels) eagerly, and the cond is a host branch on
-`need_kf`:
+`lax.cond`; here the track half (`frame_track`) is one program on the card,
+captured once per shape as a CUDA graph and replayed
+(`runtime/program.py`), the keyframe branch plain functions that launch
+torch ops (and the epipolar kernels) eagerly, and the cond a host branch
+on `need_kf`:
 
   track (pyramids + cascade + retry ladder + speculative depth refinement)
   ->  keyframe decision (FullSystem.cpp:1127-1152)
@@ -28,13 +30,14 @@ JAX package's vmap of it: every step once for all of them, one sequence as
 the batch of one (`frame_kf`, `frame_auto`'s keyframe branch).
 
 The frame program waits for the device wherever its Python needs a device
-value (`utils/host.py`): the tracker's LM loop once an iteration of every
-level (`tracker_ops.lm_level`), `need_kf` after tracking (`frame_auto`),
-and on a keyframe one packed read of (selector salt, flagged frames), the
-two counts of `IMM.insert_activated` and BA's convergence flags once an
+value (`utils/host.py`): `need_kf` after tracking (`frame_auto`), and on a
+keyframe one packed read of (selector salt, flagged frames), the two
+counts of `IMM.insert_activated` and BA's convergence flags once an
 iteration (`ba.optimize_fused`), each one read for all sequences of a
-batch; the host bookkeeping's fetch of a bundle is one more. `HOST_READS`
-is their count.
+batch; the host bookkeeping's fetch of a bundle is one more. Run eagerly
+(on the CPU, or inside `program.disabled()`), the tracker's LM loop also
+reads once an iteration of every level (`tracker_ops.lm_level`); the
+captured program reads nothing. `HOST_READS` is their count.
 
 Deviations from the reference, as in the JAX module: one selection pass at
 the potential adapted from the previous keyframe's yield plus the random
@@ -59,8 +62,10 @@ from stereo_dso_g2o_tpu_torch.frontend.coarse_tracker import level_caps
 from stereo_dso_g2o_tpu_torch.frontend.full_system import device_image, window_point_cloud
 from stereo_dso_g2o_tpu_torch.models.camera import Calib
 from stereo_dso_g2o_tpu_torch.ops import selector as SEL
+from stereo_dso_g2o_tpu_torch.ops import trace as trace_ops
 from stereo_dso_g2o_tpu_torch.ops import tracker_ops
 from stereo_dso_g2o_tpu_torch.ops.pyramid import build_pyramid
+from stereo_dso_g2o_tpu_torch.runtime import program
 from stereo_dso_g2o_tpu_torch.utils import host, se3
 from stereo_dso_g2o_tpu_torch.utils.smalls import matmul_fma
 from stereo_dso_g2o_tpu_torch.utils.timing import PROF
@@ -615,9 +620,12 @@ def frame_auto(state: GraphState, left, right, calib_c, baseline, new_exposure,
                n_tries: int = 5, pot: int = 3, caps: Tuple[int, ...] = (),
                w0: int = 0, h0: int = 0, imm_cap: int = 2048,
                uniform: Optional[Callable] = None):
-    """One full frame: track, then (host branch on `need_kf`) the whole
-    keyframe pipeline or the speculative non-KF update; both as the batch
-    of one. (`parallel/batched.frame_auto_batched` runs N sequences with no
+    """One full frame: the track half (`frame_track`, on the card one
+    replay of its program), then a host branch on `need_kf`: the keyframe
+    pipeline from the pre-frame state and the track's aux (`frame_kf`,
+    eager), or the track's speculative non-KF update. What the JAX
+    package's `frame_track` + `frame_kf` compute, its `frame_auto`'s kf
+    branch. (`parallel/batched.frame_auto_batched` runs N sequences with no
     host branch, as the JAX package's vmap of its `lax.cond` does.)
 
     left/right: (H, W) raw images on the state's device. Pose hypotheses
@@ -626,17 +634,18 @@ def frame_auto(state: GraphState, left, right, calib_c, baseline, new_exposure,
     selector's thinning draw (default: a torch.Generator seeded from the
     salt). Returns (GraphState, FrameBundle)."""
     with PROF.section("graph.track", True):
-        one, imm_spec, aux_one = _track_one(
-            state, left, right, calib_c, baseline, new_exposure, settings,
-            n_levels, n_tries, w0, h0,
+        st, bundle, aux = frame_track(
+            state, left, right, calib_c, baseline, new_exposure, settings=settings,
+            n_levels=n_levels, n_tries=n_tries, w0=w0, h0=h0,
         )
-    if host.flag(aux_one.need_kf[0]):
+    if host.flag(aux.need_kf):
         with PROF.section("graph.kf", True):
-            return _kf_one(
-                state, aux_one, calib_c, baseline, new_exposure, settings, n_levels,
-                pot, caps, w0, h0, imm_cap, uniform,
+            return frame_kf(
+                state, aux, calib_c, baseline, new_exposure, settings=settings,
+                n_levels=n_levels, pot=pot, caps=caps, w0=w0, h0=h0, imm_cap=imm_cap,
+                uniform=uniform,
             )
-    return _nonkf_one(state, one, imm_spec, aux_one)
+    return st, bundle
 
 
 def frame_track(state: GraphState, left, right, calib_c, baseline, new_exposure,
@@ -650,7 +659,29 @@ def frame_track(state: GraphState, left, right, calib_c, baseline, new_exposure,
     N sequences at once (`parallel/batched.frame_track_batched`): `state`
     stacked over N, images (N, H, W), calib_c (N, 4), baseline and
     new_exposure (N,); the outputs are stacked. One sequence (images
-    (H, W)) runs as the batch of one."""
+    (H, W)) runs as the batch of one.
+
+    On the card this is the JAX package's `jax.jit(frame_track)`: one
+    program per shape, captured at its first call and replayed after it
+    (`runtime/program.py`), with no host read inside; it writes none of
+    its inputs. On the CPU, and inside `program.disabled()`, it runs
+    eagerly."""
+    dev = left.device
+    if program.active(dev):
+        return program.run(
+            _frame_track,
+            (state, left, right, calib_c, torch.as_tensor(baseline, device=dev),
+             torch.as_tensor(new_exposure, device=dev)),
+            dict(settings=settings, n_levels=n_levels, n_tries=n_tries, w0=w0, h0=h0),
+            key=(trace_ops.DEFAULT_ROUTE,),
+        )
+    return _frame_track(state, left, right, calib_c, baseline, new_exposure, settings,
+                        n_levels, n_tries, w0, h0)
+
+
+def _frame_track(state: GraphState, left, right, calib_c, baseline, new_exposure,
+                 settings: Settings, n_levels: int, n_tries: int, w0: int, h0: int):
+    """`frame_track` run eagerly (what its program captures)."""
     if left.dim() == 2:
         one, imm_spec, aux = _track_one(
             state, left, right, calib_c, baseline, new_exposure, settings,

@@ -473,7 +473,7 @@ def trace_on_nonkey(imm: ImmatureSet, KRKi, Kt, R_new, t_new, aff, dI_new, dI_ri
         reject = stereo_good & (u_delta > 1.0) & (disparity < 10.0)
         accept = stereo_good & ~reject
 
-        Ki = torch.linalg.inv(K)
+        Ki = torch.linalg.inv_ex(K).inverse  # inv's values; no check that waits
         P2 = torch.stack([u2, v2, torch.ones_like(u2)], -1)
         # products of one matrix per sequence: one call per sequence
         # (utils/tree.per_row), as one sequence alone makes it

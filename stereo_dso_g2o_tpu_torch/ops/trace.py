@@ -35,6 +35,7 @@ import torch
 from stereo_dso_g2o_tpu_torch.config import PATTERN, Settings, default_settings
 from stereo_dso_g2o_tpu_torch.ops import trace_cuda as tk
 from stereo_dso_g2o_tpu_torch.ops.interp import take
+from stereo_dso_g2o_tpu_torch.utils.fixed import constant
 from stereo_dso_g2o_tpu_torch.utils.smalls import fma
 
 # the route of a call made with route=None; None means the gate. A tool sets
@@ -62,7 +63,7 @@ class TraceResult(NamedTuple):
 
 
 def _pattern(dtype, device):
-    return torch.as_tensor(PATTERN, dtype=dtype, device=device)
+    return constant(PATTERN, dtype, device)
 
 
 def extract_point_data(dI0, u, v, settings: Settings):

@@ -107,6 +107,9 @@ SOURCES = {
     "epipolar_search_slab": _PKG / "csrc" / "epipolar_search_slab.cu",
 }
 HEADERS = [_PKG / "csrc" / "epipolar_common.cuh"]  # included by every source
+# not a search: the WHILE node of a captured program (runtime/program.py),
+# built in the same pass as the searches
+RUNTIME_SOURCES = {"graph_while": _PKG / "csrc" / "graph_while.cu"}
 BUILD_DIR = _PKG / "_build"
 _LIBS = {}
 BUILD_SECONDS = {}  # kernel name -> wall time of the nvcc run this process made
@@ -138,15 +141,16 @@ def nvcc_command(src, lib) -> list:
 
 
 def build(names=None) -> dict:
-    """Compile the named kernels (default: all of SOURCES) for sm_90a into
-    _build/, once per version of the source and its headers, one nvcc
-    process per source, all started together. Returns {name: shared library
-    path}; the compiler's output (-Xptxas -v) goes to
-    _build/ptxas_<name>.log."""
-    names = list(SOURCES) if names is None else list(names)
+    """Compile the named sources (default: all of SOURCES and
+    RUNTIME_SOURCES) for sm_90a into _build/, once per version of the
+    source and its headers, one nvcc process per source, all started
+    together. Returns {name: shared library path}; the compiler's output
+    (-Xptxas -v) goes to _build/ptxas_<name>.log."""
+    sources = {**SOURCES, **RUNTIME_SOURCES}
+    names = list(sources) if names is None else list(names)
     out, running = {}, []
     for name in names:
-        src = SOURCES[name]
+        src = sources[name]
         version = hashlib.sha256(src.read_bytes())
         for dep in HEADERS:
             version.update(dep.read_bytes())
@@ -164,7 +168,7 @@ def build(names=None) -> dict:
         BUILD_SECONDS[name] = time.perf_counter() - t0
         (BUILD_DIR / f"ptxas_{name}.log").write_text(log)
         if proc.returncode != 0:
-            failed.append(f"nvcc failed on {SOURCES[name].name} ({proc.returncode}):\n{log}")
+            failed.append(f"nvcc failed on {sources[name].name} ({proc.returncode}):\n{log}")
         else:
             os.replace(tmp, lib)
     if failed:

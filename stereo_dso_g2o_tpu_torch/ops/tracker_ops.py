@@ -16,10 +16,10 @@ everything per sequence: reference points (N, P), the new image
 (N, K, 4, 4). B = N*K rows run as one: every reduction is along a row's own
 points, so a row rounds as it does alone. Without the leading N (points
 (P,), image (H, W, 3), K (4,), poses (K, 4, 4)) the same code is the one
-sequence. The JAX `lax.while_loop` becomes a host loop that runs until
-every row is done and freezes the finished ones, which is what a vmapped
-while_loop does; its read of the flag is one host read an iteration for
-the whole batch.
+sequence. The JAX `lax.while_loop` becomes `utils/loop.while_loop` over
+`lm_trip`, which freezes the finished rows, as a vmapped while_loop does:
+eagerly a host loop until every row is done (one host read an iteration
+for the whole batch), in a captured program a CUDA WHILE node.
 """
 
 from __future__ import annotations
@@ -37,8 +37,8 @@ from stereo_dso_g2o_tpu_torch.config import (
     default_settings,
 )
 from stereo_dso_g2o_tpu_torch.ops.interp import take
-from stereo_dso_g2o_tpu_torch.utils import host, se3
-from stereo_dso_g2o_tpu_torch.utils.fixed import nonzero_fixed
+from stereo_dso_g2o_tpu_torch.utils import loop, se3
+from stereo_dso_g2o_tpu_torch.utils.fixed import constant, nonzero_fixed
 from stereo_dso_g2o_tpu_torch.utils.smalls import cholesky_solve_small, fma
 
 # ---------------------------------------------------------------------------
@@ -311,10 +311,8 @@ def calc_res(
 
 
 def _precond_scale(like):
-    return torch.tensor(
-        [SCALE_XI_ROT] * 3 + [SCALE_XI_TRANS] * 3 + [SCALE_A, SCALE_B],
-        dtype=like.dtype, device=like.device,
-    )
+    return constant((SCALE_XI_ROT,) * 3 + (SCALE_XI_TRANS,) * 3 + (SCALE_A, SCALE_B),
+                    like.dtype, like.device)
 
 
 def calc_gs(stats: ResStats, K_lvl, a_coeff, b0):
@@ -423,6 +421,193 @@ def _bsel(mask, new, old):
     return torch.where(mask.reshape(mask.shape + (1,) * (new.ndim - mask.ndim)), new, old)
 
 
+class LMProblem(NamedTuple):
+    """What every LM trip of one level reads and none changes."""
+
+    pc_u: torch.Tensor
+    pc_v: torch.Tensor
+    pc_idepth: torch.Tensor
+    pc_color: torch.Tensor
+    pc_ok: torch.Tensor
+    dI_new: torch.Tensor
+    K_lvl: torch.Tensor
+    ref_aff: torch.Tensor
+    ref_exposure: torch.Tensor
+    new_exposure: torch.Tensor
+    settings: Settings
+    max_iterations: int
+
+
+class LMCarry(NamedTuple):
+    """The loop state of one level, per row; `lm_trip` updates it in place."""
+
+    it: torch.Tensor  # (B,) int64 iterations of the current pass
+    total: torch.Tensor  # (B,) int64 trips run
+    T: torch.Tensor  # (B, 4, 4)
+    aff: torch.Tensor  # (B, 2)
+    E_old: torch.Tensor  # (B,)
+    n_old: torch.Tensor  # (B,) int64
+    lam: torch.Tensor  # (B,)
+    Hm: torch.Tensor  # (B, 8, 8)
+    bv: torch.Tensor  # (B, 8)
+    cutoff: torch.Tensor  # (B,)
+    ar: torch.Tensor  # (B, P) |residual| of the accepted pose
+    inb: torch.Tensor  # (B, P)
+    rep_pending: torch.Tensor  # (B,) bool
+    done: torch.Tensor  # (B,) bool
+
+
+_LAMBDA_EXTRAP_LIMIT = 0.001
+
+
+def _lm_res(p: LMProblem, T, aff, cutoff, compute_flow=False):
+    ab = _aff_transfer(p.ref_exposure, p.new_exposure, p.ref_aff, aff)
+    return calc_res(
+        p.pc_u, p.pc_v, p.pc_idepth, p.pc_color, p.pc_ok, p.dI_new, p.K_lvl, T, ab,
+        cutoff, settings=p.settings, compute_flow=compute_flow,
+    ), ab
+
+
+def lm_init(p: LMProblem, T_init, aff_init, have_repeated):
+    """The level's first residuals, cutoff and normal equations: (the
+    carry, fresh tensors that alias no input; the rows' `repeated`)."""
+    s = p.settings
+    rows = tuple(T_init.shape[:-2])
+    dev = T_init.device
+    f32 = torch.float32
+    stats_p, ab0 = _lm_res(p, T_init, aff_init, torch.full(rows, 1e30, dtype=f32, device=dev))
+    ar0 = torch.abs(stats_p.buf_residual)
+    inb0 = stats_p.buf_inb
+    rep0 = _cutoff_rep_of(ar0, inb0, s)
+    cutoff0 = s.coarse_cutoff_th * rep0
+    stats0 = stats_p._replace(buf_ok=inb0 & (ar0 <= cutoff0[..., None]))
+    E0, n0, _ = _energy_at_cutoff(ar0, inb0, cutoff0, s)
+    H0, b0v = calc_gs(stats0, K_lvl=p.K_lvl, a_coeff=ab0[..., 0], b0=p.ref_aff[..., 1])
+    rep_pending0 = (rep0 > 1.0) & ~have_repeated
+    carry = LMCarry(
+        it=torch.zeros(rows, dtype=torch.int64, device=dev),
+        total=torch.zeros(rows, dtype=torch.int64, device=dev),
+        T=T_init.clone(), aff=aff_init.clone(), E_old=E0, n_old=n0,
+        lam=torch.full(rows, 0.01, dtype=f32, device=dev),
+        Hm=H0, bv=b0v, cutoff=cutoff0, ar=ar0, inb=inb0,
+        rep_pending=rep_pending0.clone(),
+        done=torch.full(rows, p.max_iterations <= 0, dtype=torch.bool, device=dev),
+    )
+    return carry, rep_pending0
+
+
+def _lm_solve(p: LMProblem, Hm, bv, lam):
+    settings = p.settings
+    rows = tuple(lam.shape)
+    dev = lam.device
+    opt_a = settings.affine_opt_mode_a >= 0
+    opt_b = settings.affine_opt_mode_b >= 0
+    Hl = Hm + torch.diag_embed(torch.diagonal(Hm, dim1=-2, dim2=-1)) * lam[..., None, None]
+    if opt_a and opt_b:
+        inc = cholesky_solve_small(Hl, -bv)
+    elif not opt_a and not opt_b:
+        inc6 = cholesky_solve_small(Hl[..., :6, :6], -bv[..., :6])
+        inc = torch.cat([inc6, torch.zeros(rows + (2,), dtype=Hl.dtype, device=dev)], -1)
+    elif opt_a and not opt_b:
+        inc7 = cholesky_solve_small(Hl[..., :7, :7], -bv[..., :7])
+        inc = torch.cat([inc7, torch.zeros(rows + (1,), dtype=Hl.dtype, device=dev)], -1)
+    else:  # fix a, optimize b (stitch trick)
+        idx = constant((0, 1, 2, 3, 4, 5, 7), torch.int64, dev)
+        Hs = Hl[..., idx, :][..., idx]
+        inc7 = cholesky_solve_small(Hs, -bv[..., idx])
+        inc = torch.zeros(rows + (8,), dtype=Hl.dtype, device=dev)
+        inc[..., :6] = inc7[..., :6]
+        inc[..., 7] = inc7[..., 6]
+    extrap = torch.where(
+        lam < _LAMBDA_EXTRAP_LIMIT,
+        torch.sqrt(torch.sqrt(_LAMBDA_EXTRAP_LIMIT / torch.clamp(lam, min=1e-12))),
+        torch.ones_like(lam),
+    )
+    inc = inc * extrap[..., None]
+    inc_scaled = inc * _precond_scale(Hm)
+    fin = torch.isfinite(inc_scaled).all(dim=-1, keepdim=True)
+    return torch.where(fin, inc_scaled, torch.zeros_like(inc_scaled)), inc
+
+
+def lm_trip(p: LMProblem, c: LMCarry):
+    """One LM iteration of every row that is not done, written into the
+    carry in place; a row that is done keeps its carry (vmapped while_loop
+    semantics), so a trip after every row is done changes nothing."""
+    s = p.settings
+    max_iterations = p.max_iterations
+    b_ref = p.ref_aff[..., 1]
+    run = ~c.done
+    inc_scaled, inc_raw = _lm_solve(p, c.Hm, c.bv, c.lam)
+    T_new = se3.se3_exp(inc_scaled[..., :6]) @ c.T
+    aff_new = c.aff + inc_scaled[..., 6:8]
+    stats_new, ab_new = _lm_res(p, T_new, aff_new, c.cutoff)
+    accept = (stats_new.energy / torch.clamp(stats_new.num_terms, min=1)) < (
+        c.E_old / torch.clamp(c.n_old, min=1)
+    )
+
+    Hn, bn = calc_gs(stats_new, p.K_lvl, ab_new[..., 0], b_ref)
+    T_out = _bsel(accept, T_new, c.T)
+    aff_out = _bsel(accept, aff_new, c.aff)
+    E_out = torch.where(accept, stats_new.energy, c.E_old)
+    n_out = torch.where(accept, stats_new.num_terms, c.n_old)
+    H_out = _bsel(accept, Hn, c.Hm)
+    b_out = _bsel(accept, bn, c.bv)
+    lam_out = torch.where(
+        accept, c.lam * 0.5, torch.clamp(c.lam * 4.0, min=_LAMBDA_EXTRAP_LIMIT)
+    )
+    ar_out = _bsel(accept, torch.abs(stats_new.buf_residual), c.ar)
+    inb_out = _bsel(accept, stats_new.buf_inb, c.inb)
+
+    it1 = c.it + 1
+    pass_end = (torch.linalg.norm(inc_raw, dim=-1) <= 1e-3) | (it1 >= max_iterations)
+    do_rep = pass_end & c.rep_pending
+    rep2 = _cutoff_rep_of(ar_out, inb_out, s)
+    cutoff2 = s.coarse_cutoff_th * rep2
+    E2, n2, _ = _energy_at_cutoff(ar_out, inb_out, cutoff2, s)
+    it_out = torch.where(do_rep, torch.zeros_like(it1), it1)
+    lam_out = torch.where(do_rep, torch.full_like(lam_out, 0.01), lam_out)
+    cutoff_out = torch.where(do_rep, cutoff2, c.cutoff)
+    E_out = torch.where(do_rep, E2, E_out)
+    n_out = torch.where(do_rep, n2, n_out)
+    done_out = (pass_end & ~do_rep) | (c.total + 1 >= 2 * max_iterations + 2)
+
+    # every new value first, from the old carry; then the carry, in place
+    new = LMCarry(
+        it=torch.where(run, it_out, c.it),
+        total=torch.where(run, c.total + 1, c.total),
+        T=_bsel(run, T_out, c.T),
+        aff=_bsel(run, aff_out, c.aff),
+        E_old=torch.where(run, E_out, c.E_old),
+        n_old=torch.where(run, n_out, c.n_old),
+        lam=torch.where(run, lam_out, c.lam),
+        Hm=_bsel(run, H_out, c.Hm),
+        bv=_bsel(run, b_out, c.bv),
+        cutoff=torch.where(run, cutoff_out, c.cutoff),
+        ar=_bsel(run, ar_out, c.ar),
+        inb=_bsel(run, inb_out, c.inb),
+        rep_pending=torch.where(run, c.rep_pending & ~do_rep, c.rep_pending),
+        done=torch.where(run, done_out, c.done),
+    )
+    for dst, src in zip(c, new):
+        dst.copy_(src)
+
+
+def lm_final(p: LMProblem, c: LMCarry, repeated) -> LevelResult:
+    """The level's result from the final carry."""
+    _, _, sat_f = _energy_at_cutoff(c.ar, c.inb, c.cutoff, p.settings)
+    stats_f, _ = _lm_res(p, c.T, c.aff, c.cutoff, compute_flow=True)
+    return LevelResult(
+        T=c.T,
+        aff=c.aff,
+        res_per_point=torch.sqrt(c.E_old / torch.clamp(c.n_old, min=1)),
+        flow_t=stats_f.flow_t,
+        flow_rt=stats_f.flow_rt,
+        num_terms=c.n_old,
+        sat_frac=sat_f,
+        repeated=repeated,
+    )
+
+
 def lm_level(
     pc_u, pc_v, pc_idepth, pc_color, pc_ok, dI_new, K_lvl,
     T_init,  # (K, 4, 4), or (N, K, 4, 4) for N sequences
@@ -436,131 +621,12 @@ def lm_level(
 ) -> LevelResult:
     """One pyramid level of the tracker's LM (legacy loop), including the
     cutoff-repeat machinery, for K hypotheses of one sequence or of each of
-    N sequences (see module docstring)."""
-    s = settings
-    lambda_extrap_limit = 0.001
-    rows = tuple(T_init.shape[:-2])
-    dev = T_init.device
-    f32 = torch.float32
-    b_ref = ref_aff[..., 1]
-
-    def res_of(T, aff, cutoff, compute_flow=False):
-        ab = _aff_transfer(ref_exposure, new_exposure, ref_aff, aff)
-        return calc_res(
-            pc_u, pc_v, pc_idepth, pc_color, pc_ok, dI_new, K_lvl, T, ab,
-            cutoff, settings=settings, compute_flow=compute_flow,
-        ), ab
-
-    stats_p, ab0 = res_of(T_init, aff_init, torch.full(rows, 1e30, dtype=f32, device=dev))
-    ar0 = torch.abs(stats_p.buf_residual)
-    inb0 = stats_p.buf_inb
-    rep0 = _cutoff_rep_of(ar0, inb0, s)
-    cutoff0 = s.coarse_cutoff_th * rep0
-    stats0 = stats_p._replace(buf_ok=inb0 & (ar0 <= cutoff0[..., None]))
-    E0, n0, _ = _energy_at_cutoff(ar0, inb0, cutoff0, s)
-    H0, b0v = calc_gs(stats0, K_lvl, ab0[..., 0], b_ref)
-    rep_pending0 = (rep0 > 1.0) & ~have_repeated
-
-    opt_a = settings.affine_opt_mode_a >= 0
-    opt_b = settings.affine_opt_mode_b >= 0
-    scale = _precond_scale(H0)
-
-    def solve(Hm, bv, lam):
-        Hl = Hm + torch.diag_embed(torch.diagonal(Hm, dim1=-2, dim2=-1)) * lam[..., None, None]
-        if opt_a and opt_b:
-            inc = cholesky_solve_small(Hl, -bv)
-        elif not opt_a and not opt_b:
-            inc6 = cholesky_solve_small(Hl[..., :6, :6], -bv[..., :6])
-            inc = torch.cat([inc6, torch.zeros(rows + (2,), dtype=Hl.dtype, device=dev)], -1)
-        elif opt_a and not opt_b:
-            inc7 = cholesky_solve_small(Hl[..., :7, :7], -bv[..., :7])
-            inc = torch.cat([inc7, torch.zeros(rows + (1,), dtype=Hl.dtype, device=dev)], -1)
-        else:  # fix a, optimize b (stitch trick)
-            idx = torch.tensor([0, 1, 2, 3, 4, 5, 7], device=dev)
-            Hs = Hl[..., idx, :][..., idx]
-            inc7 = cholesky_solve_small(Hs, -bv[..., idx])
-            inc = torch.zeros(rows + (8,), dtype=Hl.dtype, device=dev)
-            inc[..., :6] = inc7[..., :6]
-            inc[..., 7] = inc7[..., 6]
-        extrap = torch.where(
-            lam < lambda_extrap_limit,
-            torch.sqrt(torch.sqrt(lambda_extrap_limit / torch.clamp(lam, min=1e-12))),
-            torch.ones_like(lam),
-        )
-        inc = inc * extrap[..., None]
-        inc_scaled = inc * scale
-        fin = torch.isfinite(inc_scaled).all(dim=-1, keepdim=True)
-        return torch.where(fin, inc_scaled, torch.zeros_like(inc_scaled)), inc
-
-    it = torch.zeros(rows, dtype=torch.int64, device=dev)
-    total = torch.zeros(rows, dtype=torch.int64, device=dev)
-    T, aff, E_old, n_old = T_init, aff_init, E0, n0
-    lam = torch.full(rows, 0.01, dtype=f32, device=dev)
-    Hm, bv, cutoff, ar, inb = H0, b0v, cutoff0, ar0, inb0
-    rep_pending = rep_pending0
-    done = torch.full(rows, max_iterations <= 0, dtype=torch.bool, device=dev)
-
-    while not host.flag(done.all()):
-        run = ~done
-        inc_scaled, inc_raw = solve(Hm, bv, lam)
-        T_new = se3.se3_exp(inc_scaled[..., :6]) @ T
-        aff_new = aff + inc_scaled[..., 6:8]
-        stats_new, ab_new = res_of(T_new, aff_new, cutoff)
-        accept = (stats_new.energy / torch.clamp(stats_new.num_terms, min=1)) < (
-            E_old / torch.clamp(n_old, min=1)
-        )
-
-        Hn, bn = calc_gs(stats_new, K_lvl, ab_new[..., 0], b_ref)
-        T_out = _bsel(accept, T_new, T)
-        aff_out = _bsel(accept, aff_new, aff)
-        E_out = torch.where(accept, stats_new.energy, E_old)
-        n_out = torch.where(accept, stats_new.num_terms, n_old)
-        H_out = _bsel(accept, Hn, Hm)
-        b_out = _bsel(accept, bn, bv)
-        lam_out = torch.where(
-            accept, lam * 0.5, torch.clamp(lam * 4.0, min=lambda_extrap_limit)
-        )
-        ar_out = _bsel(accept, torch.abs(stats_new.buf_residual), ar)
-        inb_out = _bsel(accept, stats_new.buf_inb, inb)
-
-        it1 = it + 1
-        pass_end = (torch.linalg.norm(inc_raw, dim=-1) <= 1e-3) | (it1 >= max_iterations)
-        do_rep = pass_end & rep_pending
-        rep2 = _cutoff_rep_of(ar_out, inb_out, s)
-        cutoff2 = s.coarse_cutoff_th * rep2
-        E2, n2, _ = _energy_at_cutoff(ar_out, inb_out, cutoff2, s)
-        it_out = torch.where(do_rep, torch.zeros_like(it1), it1)
-        lam_out = torch.where(do_rep, torch.full_like(lam_out, 0.01), lam_out)
-        cutoff_out = torch.where(do_rep, cutoff2, cutoff)
-        E_out = torch.where(do_rep, E2, E_out)
-        n_out = torch.where(do_rep, n2, n_out)
-        done_out = (pass_end & ~do_rep) | (total + 1 >= 2 * max_iterations + 2)
-
-        # finished hypotheses keep their carry (vmapped while_loop semantics)
-        it = torch.where(run, it_out, it)
-        total = torch.where(run, total + 1, total)
-        T = _bsel(run, T_out, T)
-        aff = _bsel(run, aff_out, aff)
-        E_old = torch.where(run, E_out, E_old)
-        n_old = torch.where(run, n_out, n_old)
-        lam = torch.where(run, lam_out, lam)
-        Hm = _bsel(run, H_out, Hm)
-        bv = _bsel(run, b_out, bv)
-        cutoff = torch.where(run, cutoff_out, cutoff)
-        ar = _bsel(run, ar_out, ar)
-        inb = _bsel(run, inb_out, inb)
-        rep_pending = torch.where(run, rep_pending & ~do_rep, rep_pending)
-        done = torch.where(run, done_out, done)
-
-    _, _, sat_f = _energy_at_cutoff(ar, inb, cutoff, s)
-    stats_f, _ = res_of(T, aff, cutoff, compute_flow=True)
-    return LevelResult(
-        T=T,
-        aff=aff,
-        res_per_point=torch.sqrt(E_old / torch.clamp(n_old, min=1)),
-        flow_t=stats_f.flow_t,
-        flow_rt=stats_f.flow_rt,
-        num_terms=n_old,
-        sat_frac=sat_f,
-        repeated=rep_pending0,
-    )
+    N sequences (see module docstring): `lm_init`, then `lm_trip` until
+    every row is done (`utils/loop.while_loop`: a host loop eagerly, a WHILE
+    node in a captured program; at most 2 * max_iterations + 2 trips),
+    then `lm_final`."""
+    p = LMProblem(pc_u, pc_v, pc_idepth, pc_color, pc_ok, dI_new, K_lvl, ref_aff,
+                  ref_exposure, new_exposure, settings, max_iterations)
+    carry, repeated = lm_init(p, T_init, aff_init, have_repeated)
+    loop.while_loop(carry.done, lambda: lm_trip(p, carry), 2 * max_iterations + 2)
+    return lm_final(p, carry, repeated)

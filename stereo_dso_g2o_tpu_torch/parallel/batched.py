@@ -8,7 +8,8 @@ and every part of the frame program is one program over that axis, each op
 once for all N sequences, one sequence its batch of one:
 `frame_track_batched` is `graph_system.frame_track` on the stacked state
 (the N x 5 pose hypotheses as rows of one LM loop, one K1 launch per search
-for all sequences), `frame_kf_subset_batched` is the keyframe pipeline
+for all sequences; on the card one replay of its captured program, keyed
+by N, `runtime/program.py`), `frame_kf_subset_batched` is the keyframe pipeline
 (`graph_system._kf_branch`) once over the keyframe-needing sequences (K1
 three launches, one packed host read, BA's flags one read an iteration,
 whatever the subset's size), and "fused" `frame_auto_batched` runs both
@@ -139,9 +140,10 @@ def frame_auto_batched(
     that takes no keyframe gets that row's old pixels back, so every leaf of
     its state is `frame_track`'s."""
     n = lefts.shape[0]
-    st_t, b_t, aux = frame_track(
-        states, lefts, rights, calib_cs, baselines, exposures, settings=settings,
-        n_levels=n_levels, n_tries=n_tries, w0=w0, h0=h0,
+    # eager: "fused" becomes a program when its keyframe half is one
+    st_t, b_t, aux = GS._frame_track(
+        states, lefts, rights, calib_cs, baselines, exposures, settings, n_levels,
+        n_tries, w0, h0,
     )
     slot = GS._free_slot(states.win).long()
     rows = torch.arange(n, device=slot.device)
@@ -172,7 +174,8 @@ def frame_track_batched(
     """`frame_track` over the sequence axis, as one program: (states,
     bundles, aux), stacked. The whole track half runs once for all N
     sequences (`frame_track` with a leading axis), as the JAX package's
-    vmap of it does."""
+    vmap of it does; on the card as one captured program per N
+    (`runtime/program.py`), which "deferred" and "gated" replay."""
     return frame_track(
         states, lefts, rights, calib_cs, baselines, exposures, settings=settings,
         n_levels=n_levels, n_tries=n_tries, w0=w0, h0=h0,

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import re
 import sys
 import time
@@ -76,14 +77,15 @@ def mean_ms(fn, device, reps: int) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-def busy_card_ms(fn, reps=20):
+def busy_card_ms(fn, reps=20, busy=1):
     """(host ms, device ms) per call of `fn`, `reps` calls enqueued while
-    the card is kept busy (`torch.cuda._sleep`): the calls then run back to
-    back, so the time between two events around them is the device's, and
-    the host clock around the loop reads what enqueuing a call costs."""
+    the card is kept busy (`torch.cuda._sleep`, `busy` times SLEEP_CYCLES):
+    the calls then run back to back, so the time between two events around
+    them is the device's, and the host clock around the loop reads what
+    enqueuing a call costs."""
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SLEEP_CYCLES)
+    torch.cuda._sleep(busy * SLEEP_CYCLES)
     a.record()
     t0 = time.perf_counter()
     for _ in range(reps):
@@ -91,7 +93,7 @@ def busy_card_ms(fn, reps=20):
     host_s = time.perf_counter() - t0
     b.record()
     torch.cuda.synchronize()
-    if host_s > SLEEP_MIN_S:
+    if host_s > busy * SLEEP_MIN_S:
         raise RuntimeError(f"busy_card_ms: the host took {host_s * 1e3:.1f} ms to enqueue {reps} "
                            f"calls, longer than the card was kept busy")
     return 1000.0 * host_s / reps, a.elapsed_time(b) / reps
@@ -110,8 +112,12 @@ def cuda_ms(fn, reps=20, rounds=5):
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
-    if time.perf_counter() - t0 <= 1e-3:
-        times = sorted(busy_card_ms(fn, reps)[1] for _ in range(rounds))
+    one_s = time.perf_counter() - t0
+    if one_s <= 1e-3:
+        # the card kept busy for twice what `reps` such calls take the host,
+        # at least SLEEP_MIN_S: a slow host's enqueue still fits
+        busy = max(1, math.ceil(2 * reps * one_s / SLEEP_MIN_S))
+        times = sorted(busy_card_ms(fn, reps, busy)[1] for _ in range(rounds))
         return times[len(times) // 2]
     times = []
     for _ in range(reps):
@@ -135,8 +141,11 @@ def device_ms(fn, device, reps=20):
 def recorded_searches():
     """Within the block, each call of the two search wrappers of
     `ops/trace_cuda` is also noted as (name, tensors, keywords) in the list
-    this yields: the operands a trace built for its kernel."""
+    this yields: the operands a trace built for its kernel. A replayed
+    program calls no wrapper, so the block runs the frame programs eagerly
+    (`runtime/program.disabled`)."""
     from stereo_dso_g2o_tpu_torch.ops import trace_cuda as tk
+    from stereo_dso_g2o_tpu_torch.runtime import program
 
     calls = []
     wrappers = {name: getattr(tk, name) for name in SEARCHES}
@@ -150,7 +159,8 @@ def recorded_searches():
     for name in SEARCHES:
         setattr(tk, name, recording(name))
     try:
-        yield calls
+        with program.disabled():
+            yield calls
     finally:
         for name, fn in wrappers.items():
             setattr(tk, name, fn)

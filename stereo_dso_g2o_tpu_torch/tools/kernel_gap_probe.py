@@ -28,6 +28,9 @@ CPU). The port's own keys answer the JAX tool's question, standalone
 against in-program, on this device: `in_frame_k1_us_mean`, K1's mean
 device time a launch inside frames `frames + 1` to `frames + 5` from
 torch.profiler, over `in_frame_k1_launches` launches (None on the CPU).
+On the card those frames replay the track program (`runtime/program.py`);
+K1 is a node at its top level, never inside a WHILE or IF node
+(`utils/loop` raises if it were), so the profiler records every launch.
 `chip_smoke.py` also holds both kernels to the plain version on these
 lanes (`probe` returns them).
 """

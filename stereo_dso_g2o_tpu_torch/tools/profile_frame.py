@@ -7,12 +7,18 @@ Port of `tools/profile_frame.py`:
         [traced=10] [seq=0] [small=0] [device=cuda|cpu]
 
 bench.py's sequence `seq`: 12 bootstrap frames, 8 warm graph frames, then
-`frames` timed frames (host clock, the device synchronized after each),
-each tagged keyframe or not by its own bundle. In place of the JAX tool's
-XLA cost analysis of the fused frame program, torch.profiler traces the
-last `traced` frames: the device's busy share and kernels per frame (the
-port launches every op eagerly, so the host's launch rate bounds a frame
-when the device is mostly idle), and the aten ops the host issues.
+`frames` timed frames as a user runs them (host clock, the device
+synchronized after each; on the card the track half replays its captured
+program, `runtime/program.py`), each tagged keyframe or not by its own
+bundle. In place of the JAX tool's XLA cost analysis of the fused frame
+program, torch.profiler traces `traced` more frames, run eagerly
+(`program.disabled()`, `traced_mode`): torch.profiler records a kernel
+inside a replayed WHILE node once per replay, not once per trip, so a
+replayed frame's device time and kernel count cannot be read from it.
+Over those eager frames: the device's busy share and kernels per frame
+(every op launched from the host, so the host's launch rate bounds a frame
+when the device is mostly idle), and the aten ops the host issues. A
+replay's own device time is `chip_smoke.py` [program]'s, from CUDA events.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import time
 
 import numpy as np
 
+from stereo_dso_g2o_tpu_torch.runtime import program
 from stereo_dso_g2o_tpu_torch.tools._common import (
     bootstrap, cli, emit, flag, profile_summary, profiled, sequence, sync,
 )
@@ -33,11 +40,12 @@ def main(frames=120, traced=10, seq=0, small=False, device=None) -> dict:
     from stereo_dso_g2o_tpu_torch.bench import BOOT, WARM
 
     n_timed, n_traced = int(frames), int(traced)
-    if not 0 < n_traced <= n_timed:
-        raise ValueError(f"traced={n_traced} must be in 1..frames={n_timed}")
+    if n_timed < 1 or n_traced < 1:
+        raise ValueError(f"frames={n_timed} and traced={n_traced} must be at least 1")
     warm_until = BOOT + WARM
+    end = warm_until + n_timed
     dev, cfg, settings, calib, lefts, rights, _ = sequence(
-        seq, warm_until + n_timed, flag(small), None, device)
+        seq, end + n_traced, flag(small), None, device)
     gs = bootstrap(calib, settings, lefts, rights, dev)
     for i in range(BOOT, warm_until):
         gs.add_frame(lefts[i], rights[i], i, timestamp=0.1 * i)
@@ -46,20 +54,17 @@ def main(frames=120, traced=10, seq=0, small=False, device=None) -> dict:
 
     # the graph path drains bundle i at frame i + fetch_lag; the keyframe
     # tag is read from the state the frame leaves (a new slot's frame id)
-    times, kinds = [], []
-    end = warm_until + n_timed
-    prof = profiled(dev)
-    for i in range(warm_until, end):
-        if i == end - n_traced:
-            prof.__enter__()
+    def frame(i):
         n_kf = len(gs.kf_shells)
         t0 = time.perf_counter()
         gs.add_frame(lefts[i], rights[i], i, timestamp=0.1 * i)
         gs.flush()
         sync(dev)
-        times.append(time.perf_counter() - t0)
-        kinds.append(len(gs.kf_shells) > n_kf)
-    prof.__exit__(None, None, None)
+        return time.perf_counter() - t0, len(gs.kf_shells) > n_kf
+
+    times, kinds = zip(*(frame(i) for i in range(warm_until, end)))
+    with program.disabled(), profiled(dev) as prof:
+        traced_s = sum(frame(i)[0] for i in range(end, end + n_traced))
 
     t_all = np.array(times)
     kf_mask = np.array(kinds)
@@ -76,7 +81,8 @@ def main(frames=120, traced=10, seq=0, small=False, device=None) -> dict:
                                if (~kf_mask).any() else None),
         "kf_rate": round(float(kf_mask.mean()), 3),
         "n_keyframes": len(gs.kf_shells),
-        **profile_summary(prof, 1e3 * float(t_all[-n_traced:].sum()), n_traced),
+        "traced_mode": "eager (program.disabled)",
+        **profile_summary(prof, 1e3 * traced_s, n_traced),
     }
     emit(out)
     return out

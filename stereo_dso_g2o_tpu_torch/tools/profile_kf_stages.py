@@ -13,8 +13,10 @@ tracking result of the last keyframe on the way. `frame_kf` is then run
 `graph_system._kf_branch` in its order, the JAX tool's names. `flag_insert`
 is what the branch spends outside its sections (flagging, the one packed
 host read, insertion, residual wiring, the state it assembles). Beside
-them: `frame_track` on the next frame from the same pre-state, and over the
-`frame_kf` runs torch.profiler's device busy share and kernels per call.
+them: `frame_track` on the next frame from the same pre-state (on the
+card a replay of its captured program, `runtime/program.py`, host clock),
+and over the `frame_kf` runs, which are eager, torch.profiler's device busy
+share and kernels per call.
 Reference: FullSystem::makeKeyFrame (FullSystem.cpp:1168-1221).
 """
 

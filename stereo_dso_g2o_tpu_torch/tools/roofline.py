@@ -24,6 +24,14 @@ rank, beside `search_launches_per_frame` from the wrappers' counters; and
 split by `_common.host_split` into aten ops, kernel launch calls, other
 runtime calls and the rest.
 
+Every measured frame runs eagerly (`program.disabled()`, the key `mode`;
+the warm frames replay the track program, `runtime/program.py`):
+torch.profiler records a kernel inside a replayed WHILE node once per
+replay, not once per trip, so a replayed frame's device time, launches
+and top ops cannot be read from it, and the host keys are of the same
+eager frames. A replay's own device time is `chip_smoke.py` [program]'s,
+from CUDA events.
+
 Eager PyTorch has no counterpart of XLA's cost analysis of a whole frame
 program, so no byte count is made up for the frame (`bytes_scope` says
 so): `achieved_GBps` and `pct_of_peak` (of `peak_GBps`, the H100's 3.35
@@ -39,6 +47,7 @@ from __future__ import annotations
 import sys
 import time
 
+from stereo_dso_g2o_tpu_torch.runtime import program
 from stereo_dso_g2o_tpu_torch.tools._common import (
     bootstrap, cli, device_launches, emit, flag, host_split, profiled, recorded_searches,
     search_kernel, sequence, sync,
@@ -103,22 +112,23 @@ def main(traced=12, seq=0, small=False, device=None) -> dict:
 
     i0, i1 = BOOT + WARM, BOOT + WARM + n_tr
     k0 = (tk.LAUNCHES, tk.LAUNCHES_SLAB)
-    with profiled(dev, host=False) as prof, recorded_searches() as calls:
-        wall_ms = run(i0, i1)
-    counted = {"epipolar_search": (tk.LAUNCHES - k0[0]) / n_tr,
-               "epipolar_search_slab": (tk.LAUNCHES_SLAB - k0[1]) / n_tr}
+    with program.disabled():
+        with profiled(dev, host=False) as prof, recorded_searches() as calls:
+            wall_ms = run(i0, i1)
+        counted = {"epipolar_search": (tk.LAUNCHES - k0[0]) / n_tr,
+                   "epipolar_search_slab": (tk.LAUNCHES_SLAB - k0[1]) / n_tr}
+        untraced_ms = run(i1, i1 + HOST_FRAMES)
+        with profiled(dev) as host_prof:
+            host_ms = run(i1 + HOST_FRAMES, i1 + 2 * HOST_FRAMES)
     launches = device_launches(prof)
-
-    untraced_ms = run(i1, i1 + HOST_FRAMES)
-    with profiled(dev) as host_prof:
-        host_ms = run(i1 + HOST_FRAMES, i1 + 2 * HOST_FRAMES)
     host = dict(host_split(host_prof, host_ms, HOST_FRAMES), untraced_wall_ms_per_frame=untraced_ms)
 
     search = [(name, us) for name, us in launches if search_kernel(name)]
     search_bytes = sum(tk.search_bound(*ops[0].shape[-3:-1], ops[1], kw["S"], kw["gn_iters"]).bytes
                        for _, ops, kw in calls)
     peak_GBps = tk.HBM_BYTES_PER_S / 1e9
-    out = {"backend": str(dev), "wall_ms_per_frame": wall_ms, "n_frames_traced": n_tr,
+    out = {"backend": str(dev), "mode": "eager (program.disabled)", "wall_ms_per_frame": wall_ms,
+           "n_frames_traced": n_tr,
            "device_ms_per_frame": None, "launches_per_frame": None, "top_ops": None,
            "short_kernel_share": None, "search_ops": None,
            "search_launches_per_frame": counted, "search_bytes_per_frame": search_bytes / n_tr,

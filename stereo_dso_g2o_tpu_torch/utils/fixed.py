@@ -4,12 +4,31 @@
   1-D mask: the indices of the True entries in raster order, cut or padded
   with -1 to exactly `size` entries (row by row for a batch of masks).
 - `scatter_drop` is `dst.at[idx].set(vals, mode="drop")`: rows whose index is
-  out of range are dropped instead of raising.
+  out of range are dropped instead of raising; a negative index drops too
+  (the JAX package's call sites send an unused lane's -1 past the end).
+- `constant` is a tensor of Python values made once per device and kept: a
+  captured program reads it, where it could not copy it from the host.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+_CONSTANTS = {}
+
+
+def constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """`torch.as_tensor(values, dtype=dtype, device=device)`, made at the
+    first call for these values, type and device and returned from then on
+    (read it, never write it)."""
+    arr = np.asarray(values)
+    device = torch.device(device)
+    key = (arr.dtype.str, arr.shape, arr.tobytes(), dtype, device)
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.as_tensor(arr, dtype=dtype, device=device)
+    return t
 
 
 def nonzero_fixed(mask: torch.Tensor, size: int, batched: bool = False) -> torch.Tensor:
@@ -32,18 +51,22 @@ def nonzero_fixed(mask: torch.Tensor, size: int, batched: bool = False) -> torch
 
 def scatter_drop(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
                  batched: bool = False) -> torch.Tensor:
-    """Out-of-place `dst.at[idx].set(vals, mode="drop")` along dim 0;
-    batched: along dim 1, row by row (dst (N, M, ...), idx (N, K), vals
-    (N, K, ...))."""
+    """Out-of-place `dst.at[idx].set(vals, mode="drop")` along dim 0, a
+    negative index dropped as one past the end is. batched: along dim 1,
+    row by row (dst (N, M, ...), idx (N, K), vals (N, K, ...)).
+    Fixed-shape: the rows that drop are written to a spare row past the
+    end, so no mask selects them (a masked index is a `nonzero`, which
+    waits for the device)."""
     if batched:
         N, M = dst.shape[:2]
         ok = (idx >= 0) & (idx < M)
         rows = torch.arange(N, device=idx.device)[:, None] * M
-        flat_idx = torch.where(ok, idx + rows, torch.full_like(idx, -1)).reshape(-1)
+        flat_idx = torch.where(ok, idx + rows, torch.full_like(idx, N * M)).reshape(-1)
         out = scatter_drop(dst.reshape((N * M,) + tuple(dst.shape[2:])), flat_idx,
                            vals.reshape((-1,) + tuple(vals.shape[2:])))
         return out.reshape(dst.shape)
-    ok = (idx >= 0) & (idx < dst.shape[0])
-    out = dst.clone()
-    out[idx[ok]] = vals[ok].to(dst.dtype)
-    return out
+    M = dst.shape[0]
+    at = torch.where((idx >= 0) & (idx < M), idx, torch.full_like(idx, M))
+    out = torch.cat([dst, dst.new_zeros((1,) + tuple(dst.shape[1:]))])
+    out.index_put_((at,), vals.to(dst.dtype))
+    return out[:M]

@@ -120,7 +120,7 @@ def rt_to_mat(R, t):
     T = torch.zeros(batch + (4, 4), dtype=R.dtype, device=R.device)
     T[..., :3, :3] = R
     T[..., :3, 3] = t
-    T[..., 3, 3] = 1.0
+    T[..., 3, 3].fill_(1.0)  # a fill: no Python number made into a tensor
     return T
 
 

@@ -3,7 +3,9 @@
 Port of `stereo_dso_g2o_tpu/utils/timing.py`: named sections accumulate
 wall time; when profiling is on (SDSO_PROFILE=1) a section synchronizes the
 CUDA device at its end so asynchronous kernel launches are charged to the
-section that issued them.
+section that issued them. While a program is being captured
+(`runtime/program.py`) nothing may wait for the device: a section then
+only times the capture.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ import torch
 
 
 def _sync():
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
+    if (torch.cuda.is_available() and torch.cuda.is_initialized()
+            and not torch.cuda.is_current_stream_capturing()):
         torch.cuda.synchronize()
 
 

@@ -189,6 +189,7 @@ def test_bench_tunnel_keys_and_bundle():
 def test_roofline_keys():
     out = roofline.main(traced=1, **SMALL)
     assert out["n_frames_traced"] == 1 and out["wall_ms_per_frame"] > 0
+    assert out["mode"] == "eager (program.disabled)"
     for k in ("device_ms_per_frame", "launches_per_frame", "top_ops", "short_kernel_share",
               "search_ops", "achieved_GBps", "pct_of_peak"):
         assert out[k] is None, k  # no device on the CPU

@@ -19,6 +19,7 @@ def test_profile_frame_keys():
               "kf_frame_ms_p50", "nonkf_frame_ms_p50", "kf_rate", "n_keyframes", *PROFILE_KEYS):
         assert k in out, k
     assert out["n_timed"] == 2 and out["aten_ops_per_frame"] > 0
+    assert out["traced_mode"] == "eager (program.disabled)"
     assert out["device_busy_share"] is None  # no device on the CPU
 
 
