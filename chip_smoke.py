@@ -474,40 +474,68 @@ def check_batched_k2(tensors, kw, tag):
 
 
 def kf_dispatch_probe(runner, log):
-    """Wrap `runner._dispatch_kf_subset`: every keyframe dispatch notes
-    (subset size, K1 launches, host reads) in log["dispatches"]; the first
-    also runs one of its sequences through the single-sequence keyframe
-    pipeline (`frame_kf`, on a copy of the pyramid stack it writes) and
-    notes that pipeline's K1 launches and host reads, and the largest
-    difference of the window poses between the two; the lanes of the
-    dispatch with the most sequences are kept."""
+    """Wrap `runner._dispatch_kf_subset`: every keyframe dispatch runs as
+    it comes (through its captured subset program on the card) and notes
+    (subset size, kernel launches, host reads, through a program, its
+    program built in it) in log["dispatches"]. The first dispatch also runs
+    one of its sequences through the single-sequence keyframe pipeline
+    (`frame_kf`; a replay of its program, if it was built then) and notes
+    that pipeline's launches and host reads and the largest difference of the
+    window poses between the two; the first dispatch of each size is run
+    again eagerly (`recorded_searches`, under `program.disabled()`), held
+    to the program's states and bundles bit for bit, and the lanes of the
+    largest are kept. The probe's own launches are summed in log["extra"]
+    (K1, K2), no main-path launches."""
     from stereo_dso_g2o_tpu_torch.frontend import graph_system as tgs
     from stereo_dso_g2o_tpu_torch.ops import trace_cuda as tk
     from stereo_dso_g2o_tpu_torch.parallel.batched import _tree_slice
+    from stereo_dso_g2o_tpu_torch.runtime import program
 
     inner = runner._dispatch_kf_subset
+    log.setdefault("extra", [0, 0])
+    log.setdefault("eager_differ", 0)
 
     def probe(states_pre, aux, expos, pots, need, common):
         single = None
         if "single" not in log:
             k = int(need[0])
-            st = _tree_slice(states_pre, k)
-            st = st._replace(dI0_slots=st.dI0_slots.clone())
-            k0, r0 = tk.LAUNCHES + tk.LAUNCHES_SLAB, tgs.HOST_READS
-            _, single = tgs.frame_kf(
-                st, _tree_slice(aux, k), runner.calib_cs[k], runner.baselines[k], expos[k],
-                pot=pots[k], caps=runner.caps, imm_cap=runner.settings.immature_cap,
-                uniform=runner.uniforms[k], **common)
-            log["single"] = (tk.LAUNCHES + tk.LAUNCHES_SLAB - k0, tgs.HOST_READS - r0)
-        k0, r0 = tk.LAUNCHES + tk.LAUNCHES_SLAB, tgs.HOST_READS
-        with recorded_searches() as calls:
-            out = inner(states_pre, aux, expos, pots, need, common)
-        log["dispatches"].append((int(need.size), tk.LAUNCHES + tk.LAUNCHES_SLAB - k0,
-                                  tgs.HOST_READS - r0))
+
+            def one():
+                return tgs.frame_kf(
+                    _tree_slice(states_pre, k), _tree_slice(aux, k), runner.calib_cs[k],
+                    runner.baselines[k], expos[k], pot=pots[k], caps=runner.caps,
+                    imm_cap=runner.settings.immature_cap, uniform=runner.uniforms[k], **common)
+
+            k0, n0 = tk.launches(), len(program.PROGRAMS)
+            _, single = one()
+            if len(program.PROGRAMS) > n0:  # its program was built: count a replay
+                k1 = tk.launches()
+                log["extra"] = [e + b - a for e, a, b in zip(log["extra"], k0, k1)]
+                k0 = k1
+                _, single = one()
+            r0 = tgs.HOST_READS
+            k1 = tk.launches()
+            log["single"] = (sum(k1) - sum(k0), tgs.HOST_READS - r0)
+            log["extra"] = [e + b - a for e, a, b in zip(log["extra"], k0, k1)]
+        k0, r0, n0 = tk.launches(), tgs.HOST_READS, len(program.PROGRAMS)
+        out = inner(states_pre, aux, expos, pots, need, common)
+        # (size, launches, host reads, through a program, its program built
+        # in it: the build's eager warm-up launches and reads are counted)
+        log["dispatches"].append((int(need.size), sum(tk.launches()) - sum(k0),
+                                  tgs.HOST_READS - r0, program.active(runner.device),
+                                  len(program.PROGRAMS) > n0))
         if single is not None:
             log["kf_pose_dev"] = float((out[1].w2c[0] - single.w2c).abs().max())
-        if int(need.size) > log.get("lanes_size", 0):
-            log["lanes_size"], log["lanes"] = int(need.size), calls
+        if int(need.size) not in log.setdefault("eager_sizes", set()):
+            log["eager_sizes"].add(int(need.size))
+            k0 = tk.launches()
+            with recorded_searches() as calls:
+                again = inner(states_pre, aux, expos, pots, need, common)
+            k1 = tk.launches()
+            log["extra"] = [e + b - a for e, a, b in zip(log["extra"], k0, k1)]
+            log["eager_differ"] += trees_equal(out[:2], again[:2])
+            if int(need.size) > log.get("lanes_size", 0):
+                log["lanes_size"], log["lanes"] = int(need.size), calls
         return out
 
     runner._dispatch_kf_subset = probe
@@ -516,21 +544,27 @@ def kf_dispatch_probe(runner, log):
 def check_kf_dispatches(log, tag):
     """Print the keyframe dispatches by subset size; fail unless each
     launched the epipolar kernels as often as one sequence's keyframe
-    pipeline and the batched poses agree with it."""
+    pipeline, the batched poses agree with it, and each dispatch run again
+    eagerly gave its program's bits."""
     single_k, single_reads = log["single"]
     by_size = {}
-    for size, k, reads in log["dispatches"]:
-        by_size.setdefault(size, []).append((k, reads))
-    print(f"[{tag}] keyframe dispatches (subset size: [(kernel launches, host reads)]) "
-          f"{dict(sorted(by_size.items()))}; one sequence's keyframe pipeline {single_k} launches, "
-          f"{single_reads} host reads; largest window-pose difference of the batched keyframe "
-          f"from the single-sequence one {log['kf_pose_dev']:.3g}")
-    if any(k != single_k for _, k, _ in log["dispatches"]):
+    for size, k, reads, _, built in log["dispatches"]:
+        by_size.setdefault(size, []).append((k, reads) + (("built",) if built else ()))
+    print(f"[{tag}] keyframe dispatches (subset size: [(kernel launches, host reads[, its "
+          f"program built in it])]) {dict(sorted(by_size.items()))}; one sequence's keyframe pipeline "
+          f"{single_k} launches, {single_reads} host reads; largest window-pose difference of "
+          f"the batched keyframe from the single-sequence one {log['kf_pose_dev']:.3g}; the "
+          f"first dispatch of each size {sorted(log['eager_sizes'])} run again eagerly: "
+          f"{log['eager_differ']} leaves differ")
+    if any(k != single_k for _, k, _, _, built in log["dispatches"] if not built):
         fail(f"{tag}: a keyframe dispatch launched the epipolar kernels another number of times "
              f"than one sequence's keyframe pipeline ({single_k}): {by_size}")
     if not log["kf_pose_dev"] <= BATCH_POSE_TOL:
         fail(f"{tag}: batched keyframe poses off the single-sequence keyframe by "
              f"{log['kf_pose_dev']} > {BATCH_POSE_TOL}")
+    if log["eager_differ"]:
+        fail(f"{tag}: a keyframe dispatch's program and its eager run differ in "
+             f"{log['eager_differ']} leaves")
 
 
 def frozen_twin(fs):
@@ -548,15 +582,19 @@ def frozen_twin(fs):
 
 
 def phase_program(dev, lefts, rights, twins, gt, launches):
-    """Phase 7b: the graph path with the track half as one captured program
-    against the same frames under `program.disabled()`, from two twins of
-    [graph]'s freeze: final state leaf by leaf and every frame's bundle bit
-    for bit, keyframes and ATE inside [graph]'s bounds, host reads of every
-    non-keyframe frame 2, ms per frame both ways; then one non-keyframe
-    frame traced both ways (aten ops and launch calls on the host, the
-    device's busy time), one replay timed, the program's capture time,
-    nodes and memory, and that frame with the retry ladder as a branch (an
-    IF node) against eager."""
+    """Phase 7b: the graph path with the whole frame as one captured
+    program (`frame_auto`: the track half, then the keyframe pipeline
+    under an IF node on `need_kf`) against the same frames under
+    `program.disabled()`, from two twins of [graph]'s freeze: final state
+    leaf by leaf and every frame's bundle bit for bit, keyframes and ATE
+    inside [graph]'s bounds, host reads of every frame after the first two
+    exactly 1 (the lagged drain), K1 launches equal both ways, ms per
+    keyframe and non-keyframe frame both ways; then one keyframe and one
+    non-keyframe replay timed with CUDA events, a non-keyframe frame traced
+    both ways (aten ops and launch calls on the host, the device's busy
+    time), the program's capture time, nodes and memory, the retry ladder
+    as a branch (an IF node) against eager, and K1 captured inside a WHILE
+    body counted once a trip."""
     import dataclasses
 
     from stereo_dso_g2o_tpu_torch.frontend import graph_system as tgs
@@ -574,10 +612,9 @@ def phase_program(dev, lefts, rights, twins, gt, launches):
         tk.reset_launches()
         with ctx:
             for i in range(BOOT, N_FRAMES):
-                if mode == "program" and i >= N_FRAMES - 8:  # the traced frame's, below
-                    pre[i] = (g.state, g.state.dI0_slots.clone())
-                host.reset()
+                pre[i] = g.state  # a frame writes no input: the state stays as it is
                 k0 = tk.LAUNCHES
+                host.reset()
                 t1 = time.perf_counter()
                 g.add_frame(lefts[i], rights[i], i, timestamp=0.1 * i)
                 torch.cuda.synchronize()
@@ -600,132 +637,155 @@ def phase_program(dev, lefts, rights, twins, gt, launches):
     frames = list(range(BOOT, N_FRAMES))
     nonkf = [j for j, i in enumerate(frames) if i >= BOOT + 2 and not P["kf"][j]]
     kfj = [j for j, i in enumerate(frames) if i >= BOOT + 2 and P["kf"][j]]
-    prog = next(pr for pr in program.PROGRAMS.values() if pr.name == "_frame_track"
-                and pr.inputs[-5].dim() == 2)  # the single-sequence key of this path
+    prog = next(pr for pr in program.PROGRAMS.values() if pr.name == "_frame_auto"
+                and pr.inputs[-6].dim() == 2)  # the single-sequence key of this path
 
     def stats(r, idx):
         v = [r["ms"][j] for j in idx]
         return f"median {float(np.median(v)):.1f} mean {float(np.mean(v)):.1f}"
 
-    print(f"[program] graph path frames {BOOT}..{N_FRAMES - 1} through the program and under "
-          f"program.disabled() from twins of the freeze: {state_differ} state leaves and "
+    print(f"[program] graph path frames {BOOT}..{N_FRAMES - 1} through the whole-frame program and "
+          f"under program.disabled() from twins of the freeze: {state_differ} state leaves and "
           f"{bundle_differ} bundle leaves differ; KFs {n_kf} at frames "
           f"{[sh.id for sh in P['g'].kf_shells]}, ATE {ate:.5f} m")
     print(f"[program] ms per frame (host clock, synchronized, frames {BOOT + 2}..): non-keyframe "
           f"program {stats(P, nonkf)}, eager {stats(E, nonkf)}; keyframe program {stats(P, kfj)}, "
           f"eager {stats(E, kfj)}; all program {stats(P, nonkf + kfj)}, eager {stats(E, nonkf + kfj)}")
-    print(f"[program] host reads per non-keyframe frame: program {sorted(set(P['reads'][j] for j in nonkf))}, "
-          f"eager median {float(np.median([E['reads'][j] for j in nonkf])):.1f}; per keyframe frame "
-          f"program {[P['reads'][j] for j in kfj]}; K1 launches counted through the replays "
-          f"{P['launches']} (eager {E['launches']}), per non-keyframe frame "
-          f"{sorted(set(P['k1'][j] for j in nonkf))}")
-    print(f"[program] the single-sequence program: captured in {prog.capture_s:.3f} s (warm-up "
-          f"{prog.warmup_s:.3f} s), {prog.nodes} nodes at the top level and {prog.body_nodes} in "
-          f"the bodies of its {prog.while_nodes} WHILE and {prog.if_nodes} IF nodes, K1/K2 per "
-          f"replay {prog.launches}, pool {prog.pool_bytes / 2**20:.1f} MiB, input buffers "
-          f"{prog.input_bytes / 2**20:.1f} MiB, replays {prog.replays}")
+    print(f"[program] host reads per frame: program non-keyframe "
+          f"{sorted(set(P['reads'][j] for j in nonkf))}, keyframe "
+          f"{sorted(set(P['reads'][j] for j in kfj))}; eager non-keyframe median "
+          f"{float(np.median([E['reads'][j] for j in nonkf])):.1f}, keyframe "
+          f"{[E['reads'][j] for j in kfj]}; K1 launches program {P['launches']}, eager "
+          f"{E['launches']}, per frame equal both ways: {P['k1'] == E['k1']} "
+          f"(non-keyframe {sorted(set(P['k1'][j] for j in nonkf))}, keyframe "
+          f"{sorted(set(P['k1'][j] for j in kfj))})")
+    print(f"[program] the single-sequence whole-frame program: captured in {prog.capture_s:.3f} s "
+          f"(warm-up {prog.warmup_s:.3f} s), {prog.nodes} nodes at the top level and "
+          f"{prog.body_nodes} in the bodies of its {prog.while_nodes} WHILE and {prog.if_nodes} IF "
+          f"nodes, K1/K2 launch sites {prog.launches}, pool {prog.pool_bytes / 2**20:.1f} MiB, "
+          f"input buffers {prog.input_bytes / 2**20:.1f} MiB, replays {prog.replays}")
     if state_differ or bundle_differ:
         fail(f"program: the program and eager differ in {state_differ} state and {bundle_differ} "
              "bundle leaves")
+    if not kfj or not nonkf:
+        fail(f"program: frames {BOOT + 2}.. took {len(kfj)} keyframes and {len(nonkf)} others")
     if not GRAPH_KF_RANGE[0] <= n_kf <= GRAPH_KF_RANGE[1]:
         fail(f"program: KF count {n_kf} outside {GRAPH_KF_RANGE}")
     if not ate <= GRAPH_ATE_MAX:
         fail(f"program: ATE {ate} > {GRAPH_ATE_MAX}")
-    if not nonkf or any(P["reads"][j] != 2 for j in nonkf):
-        fail(f"program: a non-keyframe frame read the device other than twice: "
-             f"{[P['reads'][j] for j in nonkf]}")
+    if any(P["reads"][j] != 1 for j in nonkf + kfj):
+        fail(f"program: a frame through the program read the device other than once: "
+             f"{[P['reads'][j] for j in nonkf + kfj]}")
     if P["launches"] <= 0 or min(P["k1"][j] for j in nonkf) <= 0:
         fail("program: K1 was not launched from the program's replays")
-    if prog.while_nodes < 1 or prog.nodes is None:
-        fail("program: the program holds no WHILE node")
+    if P["launches"] != E["launches"] or P["k1"] != E["k1"]:
+        fail(f"program: K1 launches differ between the program ({P['launches']}) and eager "
+             f"({E['launches']})")
+    if prog.while_nodes < 1 or prog.if_nodes < 1 or prog.nodes is None:
+        fail("program: the whole-frame program holds no WHILE or no IF node")
 
-    # one non-keyframe frame traced, from its pre-frame state, both ways
-    i = max(frames[j] for j in nonkf if frames[j] in P["pre"])
-    state, dI0 = P["pre"][i]
     g = P["g"]
     cal = g.calib
     common = dict(settings=g.settings, n_levels=cal.n_levels, n_tries=5, pot=g.pot, caps=g.caps,
                   w0=cal.w[0], h0=cal.h[0], imm_cap=g.settings.immature_cap)
     expo = torch.tensor(1.0, device=dev)
+    # the device's time of one replay, copy-in to the last copy-out (CUDA
+    # events, untraced): a keyframe frame and a non-keyframe frame from
+    # their pre-frame states (the profiler records a graph's kernel nodes
+    # once, not once a trip of a WHILE body, so its device time of a
+    # program frame is no measurement)
+    replay_ms = {}
+    for kind, j in (("keyframe", kfj[-1]), ("non-keyframe", nonkf[-1])):
+        i = frames[j]
+        for _ in range(5):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            _, bundle = tgs.frame_auto(P["pre"][i], lefts[i], rights[i], cal.c, cal.baseline,
+                                       expo, **common)
+            b.record()
+            torch.cuda.synchronize()
+            replay_ms.setdefault(kind, []).append(a.elapsed_time(b))
+            if bool(bundle.need_kf) != (kind == "keyframe"):
+                fail(f"program: the {kind} frame {i} replayed to another decision")
+    print(f"[program] the device's time of one replay of the whole-frame program (CUDA events, "
+          f"untraced, 5 replays): keyframe frame {frames[kfj[-1]]} median "
+          f"{float(np.median(replay_ms['keyframe'])):.2f} ms, non-keyframe frame "
+          f"{frames[nonkf[-1]]} median {float(np.median(replay_ms['non-keyframe'])):.2f} ms")
+
+    # one non-keyframe frame traced, from its pre-frame state, both ways
+    i = frames[nonkf[-1]]
+    state = P["pre"][i]
     traced = {}
     for mode in ("program", "eager"):
         ctx = program.disabled() if mode == "eager" else contextlib.nullcontext()
         with ctx:
-            st = state._replace(dI0_slots=dI0.clone())
-            tgs.frame_auto(st, lefts[i], rights[i], cal.c, cal.baseline, expo, **common)
+            tgs.frame_auto(state, lefts[i], rights[i], cal.c, cal.baseline, expo, **common)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             with profiled(dev) as prof:
                 for _ in range(3):
-                    tgs.frame_auto(st, lefts[i], rights[i], cal.c, cal.baseline, expo, **common)
+                    tgs.frame_auto(state, lefts[i], rights[i], cal.c, cal.baseline, expo, **common)
                 torch.cuda.synchronize()
             wall = 1000.0 * (time.perf_counter() - t1)
         traced[mode] = (profile_summary(prof, wall, 3), host_split(prof, wall / 3, 3))
-    # the device's time of one replay, copy-in to the last copy-out (CUDA
-    # events, untraced): the profiler records a graph's kernel nodes once,
-    # not once a trip of a WHILE body, so its device time of a program
-    # frame is no measurement
-    replay_ms = []
-    st = state._replace(dI0_slots=dI0.clone())
-    track_kw = {k: common[k] for k in ("settings", "n_levels", "n_tries", "w0", "h0")}
-    for _ in range(5):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        tgs.frame_track(st, lefts[i], rights[i], cal.c, cal.baseline, expo, **track_kw)
-        b.record()
-        torch.cuda.synchronize()
-        replay_ms.append(a.elapsed_time(b))
     # the retry ladder as a branch (always_retry_ladder=False): an IF node
     # around five levels' WHILEs, against eager from the same pre-frame
     # state, as it comes and with the ladder forced (no previous RMSE)
+    track_kw = {k: common[k] for k in ("settings", "n_levels", "n_tries", "w0", "h0")}
     ladder = dict(track_kw, settings=dataclasses.replace(g.settings, always_retry_ladder=False))
     ladder_differ = []
-    for st_l in (st, st._replace(last_rmse0=torch.zeros_like(st.last_rmse0))):
+    for st_l in (state, state._replace(last_rmse0=torch.zeros_like(state.last_rmse0))):
         got = tgs.frame_track(st_l, lefts[i], rights[i], cal.c, cal.baseline, expo, **ladder)
         with program.disabled():
             want = tgs.frame_track(st_l, lefts[i], rights[i], cal.c, cal.baseline, expo, **ladder)
         ladder_differ.append(trees_equal(got, want))
-    prog_l = next(pr for pr in program.PROGRAMS.values() if pr.if_nodes)
+    prog_l = next(pr for pr in program.PROGRAMS.values()
+                  if pr.name == "_frame_track" and pr.if_nodes)
     print(f"[program] the retry ladder as a branch, frame {i} as it comes and with the ladder "
           f"forced: {ladder_differ} leaves differ from eager; its program {prog_l.if_nodes} IF and "
           f"{prog_l.while_nodes} WHILE nodes, {prog_l.nodes} + {prog_l.body_nodes} nodes, captured "
           f"in {prog_l.capture_s:.3f} s")
     if any(ladder_differ):
         fail(f"program: the ladder's program differs from eager in {ladder_differ} leaves")
-    # a search kernel captured inside a node's body is refused: a replay
-    # adds the launches captured, which would then be one whatever the trips
+    # a search kernel captured inside a node's body counts its launches on
+    # the device: a WHILE node of TRIPS trips adds TRIPS launches a replay
     import _torch_trace_lanes
 
-    dI = dI0[0].contiguous()
+    dI = g.state.dI0_slots[0].contiguous()
     lanes, _ = _torch_trace_lanes.edge_lanes(dI, 46, False, seed=0, reps=1)
     kw = dict(S=46, edge=tk.EDGE_CLAMP, huber_th=float(g.settings.huber_th),
               gn_iters=int(g.settings.trace_gn_iterations),
               gn_threshold=float(g.settings.trace_gn_threshold),
               radius=int(g.settings.min_trace_test_radius))
+    trips = 3
 
-    def search_in_loop(done, *ops):
+    def search_in_loop(done, n, *ops):
+        done, n = done.clone(), n.clone()  # a program writes no input
+
         def trip():
             tk.epipolar_search(*ops, **kw)
-            done.fill_(True)
+            n.add_(1)
+            torch.ge(n, trips, out=done)
 
-        loop.while_loop(done, trip, 1)
-        return done
+        loop.while_loop(done, trip, trips)
+        return n
 
     ops = (dI, lanes["scal"], lanes["color"], lanes["weights"], lanes["patx"], lanes["paty"])
-    try:
-        program.run(search_in_loop, (torch.zeros((), dtype=torch.bool, device=dev), *ops), {})
-        refused = ""
-    except RuntimeError as e:
-        refused = str(e)
-    print(f"[program] K1 inside a WHILE body, captured: {refused or 'not refused'}")
-    if "inside a WHILE node's body" not in refused:
-        fail("program: a K1 launch inside a WHILE body was captured without an error")
+    zero = (torch.zeros((), dtype=torch.bool, device=dev), torch.zeros((), dtype=torch.int32,
+                                                                      device=dev))
+    program.run(search_in_loop, (*zero, *ops), {})  # captured at its first call
+    k0 = tk.LAUNCHES
+    ran = [int(program.run(search_in_loop, (*zero, *ops), {})) for _ in range(2)]
+    toy = tk.LAUNCHES - k0
+    print(f"[program] K1 inside a WHILE body of {trips} trips, captured: 2 replays ran {ran} trips "
+          f"and counted {toy} K1 launches")
+    if ran != [trips, trips] or toy != 2 * trips:
+        fail(f"program: K1 inside a WHILE body counted {toy} launches over 2 replays of {trips} "
+             f"trips")
 
     summ, split = traced["program"]
     print(f"[program] non-keyframe frame {i} traced (program, torch.profiler, 3 frames): aten ops "
-          f"{summ['aten_ops_per_frame']} a frame, launch calls {split['launch_calls_per_frame']:.1f}; "
-          f"device time of one replay (CUDA events, untraced, median of 5) "
-          f"{float(np.median(replay_ms)):.2f} ms")
+          f"{summ['aten_ops_per_frame']} a frame, launch calls {split['launch_calls_per_frame']:.1f}")
     summ, split = traced["eager"]
     print(f"[program] non-keyframe frame {i} traced (eager, torch.profiler, 3 frames): aten ops "
           f"{summ['aten_ops_per_frame']} a frame, launch calls {split['launch_calls_per_frame']:.1f}, "
@@ -785,14 +845,14 @@ def phase_batched(dev, settings, calib, K, poses_cw, seq0, graph_ms, launches):
     # state, and the lanes of a batched frame without a keyframe are kept
     short, pose_dev, k1_calls, single_k1 = {}, [], None, []
     kf_log = {"dispatches": []}
-    fused_dev, fused_kf_differ, fused_k1 = [], 0, []
+    fused_dev, fused_kf_differ, fused_k1, fused_prog_differ = [], 0, [], 0
     short_ms = {}  # "deferred" through its program and under program.disabled()
     expos = torch.ones(N_SEQ, device=dev)
     for mode in ("deferred", "deferred eager", "gated"):
         r = runner_from_freeze(mode.split()[0])
         if mode == "gated":
             kf_dispatch_probe(r, kf_log)
-            fz = runner_from_freeze("fused")
+            fz, fe = runner_from_freeze("fused"), runner_from_freeze("fused")
         for i in range(BOOT, BOOT + GATED_FRAMES):
             if mode != "gated":
                 ctx = program.disabled() if mode == "deferred eager" else contextlib.nullcontext()
@@ -814,6 +874,14 @@ def phase_batched(dev, settings, calib, K, poses_cw, seq0, graph_ms, launches):
             k0 = tk.LAUNCHES
             fz.add_frames((L_all[:, i], R_all[:, i]), i, timestamp=0.1 * i)
             fused_k1.append(tk.LAUNCHES - k0)
+            # and "fused" eagerly from the same state: the program's bits
+            fe.states = tree_map(torch.clone, pre)
+            for g, pot in zip(fe.systems, pots):
+                g.pot = pot
+            with program.disabled():
+                fe.add_frames((L_all[:, i], R_all[:, i]), i, timestamp=0.1 * i)
+            fused_prog_differ += trees_equal((fz.states, fz._pending_q[-1][0]),
+                                             (fe.states, fe._pending_q[-1][0]))
             b_g, b_f = r._pending_q[-1][0], fz._pending_q[-1][0]
             fused_kf_differ += int((b_g.need_kf != b_f.need_kf).sum())
             for k in range(N_SEQ):
@@ -853,6 +921,13 @@ def phase_batched(dev, settings, calib, K, poses_cw, seq0, graph_ms, launches):
           f"pose difference (track pose and window poses) {max(fused_dev):.3g} (median "
           f"{float(np.median(fused_dev)):.3g}); K1 launches a \"fused\" frame "
           f"{sorted(set(fused_k1))}")
+    fprog = next(pr for pr in program.PROGRAMS.values() if pr.name == "_frame_auto"
+                 and tuple(pr.inputs[-6].shape) == (N_SEQ, H_, W_))
+    print(f"[batched] {GATED_FRAMES} frames \"fused\" through its program and under "
+          f"program.disabled() from the same pre-frame states: {fused_prog_differ} leaves differ; "
+          f"its program {fprog.report()}")
+    if fused_prog_differ:
+        fail(f'batched: "fused" through its program and eager differ in {fused_prog_differ} leaves')
     if fused_kf_differ:
         fail(f'batched: "fused" and "gated" keyframe flags differ in {fused_kf_differ} places')
     if not max(fused_dev) <= BATCH_POSE_TOL:
@@ -864,7 +939,7 @@ def phase_batched(dev, settings, calib, K, poses_cw, seq0, graph_ms, launches):
         edge = "stereo" if kw["edge"] == tk.EDGE_ZERO else "temporal"
         check_batched_k1(tensors, kw, f"keyframe dispatch launch {j} ({edge}, "
                          f"{tensors[0].shape[0]} x N={tensors[1].shape[1]})")
-    del fz
+    del fz, fe
     if k1_calls is None:
         fail("batched: no frame of the short run launched K1 once per search for all sequences")
     k1_rows = []
@@ -886,7 +961,17 @@ def phase_batched(dev, settings, calib, K, poses_cw, seq0, graph_ms, launches):
 
     runner = runner_from_freeze("deferred")
     kfs_boot = [len(g.kf_shells) for g in runner.systems]
-    runner.warm_kf_buckets()
+    t_warm = time.perf_counter()
+    runner.warm_kf_buckets((L_all[:, BOOT], R_all[:, BOOT]))
+    torch.cuda.synchronize()
+    subset = {pr.inputs[-1].shape[0]: pr.report() for pr in program.PROGRAMS.values()
+              if pr.name == "_kf_subset"
+              and any(tuple(x.shape[-3:-1]) == (H_, W_) for x in pr.inputs)}
+    print(f"[batched] warm_kf_buckets in {time.perf_counter() - t_warm:.1f} s; the keyframe "
+          f"subset programs by size: {dict(sorted(subset.items()))}")
+    if not set(range(1, N_SEQ + 1)) <= set(subset):
+        fail(f"batched: keyframe subset programs of sizes {sorted(subset)} after warm_kf_buckets, "
+             f"not 1..{N_SEQ}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tk.reset_launches()
@@ -1032,7 +1117,7 @@ def phase_batched_slab(dev, settings, launches):
     pose_dev, frame_ms, lanes, main_k, prog_k2 = [], [], None, [0, 0], 0
     for i in range(BOOT, n):
         pre = runner.states
-        k0 = (tk.LAUNCHES, tk.LAUNCHES_SLAB)
+        k0, extra0 = (tk.LAUNCHES, tk.LAUNCHES_SLAB), list(log["extra"])
         t1 = time.perf_counter()
         # the first frame eagerly, its searches' operands noted; the others
         # through the batched track program, K2 inside it
@@ -1043,7 +1128,7 @@ def phase_batched_slab(dev, settings, launches):
         main_k[0] += tk.LAUNCHES - k0[0]
         main_k[1] += tk.LAUNCHES_SLAB - k0[1]
         if lanes is not None:
-            prog_k2 += tk.LAUNCHES_SLAB - k0[1]
+            prog_k2 += tk.LAUNCHES_SLAB - k0[1] - (log["extra"][1] - extra0[1])
         if lanes is None:
             lanes = next((c for c in calls if c[0] == "epipolar_search_slab"
                           and c[1][0].dim() == 4 and c[2]["edge"] == tk.EDGE_CLAMP), None)
@@ -1056,8 +1141,9 @@ def phase_batched_slab(dev, settings, launches):
                 runner.baselines[k], expos[k], n_tries=5, **runner._common())
             pose_dev.append(float((T_b[k] - b1.T).abs().max()))
     trajs = runner.trajectories()
-    # the single-sequence keyframe pipeline the probe ran is no main-path launch
-    main_k[1] -= log["single"][0] if "single" in log else 0
+    # the single-sequence keyframe pipeline and the eager runs the probe
+    # made are no main-path launches
+    main_k = [m - e for m, e in zip(main_k, log["extra"])]
     launches["batched-slab"] = tuple(main_k)
     print(f"[batched-slab] {SLAB_SEQ} sequences x {SLAB_FRAMES} frames \"gated\": ms per batched "
           f"frame median {float(np.median(frame_ms)):.1f} mean {float(np.mean(frame_ms)):.1f}; "
@@ -1065,13 +1151,19 @@ def phase_batched_slab(dev, settings, launches):
           f"single-sequence program {max(pose_dev):.3g} (median {float(np.median(pose_dev)):.3g})")
     prog = next(pr for pr in program.PROGRAMS.values() if pr.name == "_frame_track"
                 and tuple(pr.inputs[-5].shape) == (SLAB_SEQ, H2, W2))
-    print(f"[batched-slab] frames {BOOT + 1}..{n - 1} through the batched track program: K2 "
-          f"launches {prog_k2}, of which {prog.replays * prog.launches[1]} from inside it "
+    kf_prog_k2 = sum(k for _, k, _, through, built in log["dispatches"] if through and not built)
+    subset = [pr.report() for pr in program.PROGRAMS.values() if pr.name == "_kf_subset"
+              and any(tuple(x.shape[-3:-1]) == (H2, W2) for x in pr.inputs)]
+    print(f"[batched-slab] frames {BOOT + 1}..{n - 1} through the programs: K2 launches {prog_k2}, "
+          f"of which {prog.replays * prog.launches[1]} from inside the batched track program "
           f"({prog.replays} replays x {prog.launches[1]}; capture {prog.capture_s:.3f} s, "
           f"{prog.nodes} nodes at the top level, {prog.body_nodes} in the bodies, pool "
-          f"{prog.pool_bytes / 2**20:.1f} MiB)")
+          f"{prog.pool_bytes / 2**20:.1f} MiB) and {kf_prog_k2} from inside the captured keyframe "
+          f"subset programs {subset}")
     if prog.replays * prog.launches[1] <= 0:
         fail("batched-slab: K2 was not launched from inside the captured batched program")
+    if kf_prog_k2 <= 0:
+        fail("batched-slab: K2 was not launched from inside a captured keyframe subset program")
     if main_k[1] <= 0:
         fail("batched-slab: the slab kernel was not launched")
     if main_k[0] != 0:

@@ -6,8 +6,10 @@ Schur (SC) parts as one-hot-host contractions over the [NP, F] residual
 cube, the marginal prior HM/bM, the preconditioned fixed-lambda solve with
 late nullspace orthogonalization, back-substitution of the point steps,
 point marginalization into HM/bM and slot-indexed frame marginalization.
-The JAX `lax.while_loop` of `optimize_fused` becomes a host loop with the
-same early exit.
+The JAX `lax.while_loop` of `optimize_fused` is `utils/loop.while_loop`
+(a WHILE node inside a captured program, a host loop eagerly) with the
+same early exit, and its masked `fori_loop` over the flagged frames one
+`utils/loop.cond` per slot.
 
 The JAX functions take `axis_name=` and `psum` over it when the point axis
 is sharded; here they take `reduce=`, a callable that sums a tensor over
@@ -44,21 +46,20 @@ from stereo_dso_g2o_tpu_torch.config import (
     default_settings,
 )
 from stereo_dso_g2o_tpu_torch.ops import residuals as R
-from stereo_dso_g2o_tpu_torch.utils import host, se3
-from stereo_dso_g2o_tpu_torch.utils.tree import per_row, select_rows
+from stereo_dso_g2o_tpu_torch.utils import loop, se3
+from stereo_dso_g2o_tpu_torch.utils.fixed import constant
+from stereo_dso_g2o_tpu_torch.utils.tree import leaves, per_row, select_rows, tree_map
 
 C_SCALE = np.asarray([SCALE_F, SCALE_F, SCALE_C, SCALE_C], dtype=np.float32)
 
 
 def _c_scale(win):
-    return torch.as_tensor(C_SCALE, device=win.device)
+    return constant(C_SCALE, torch.float32, win.device)
 
 
 def _row_scale(win):
-    return torch.tensor(
-        [SCALE_XI_TRANS] * 3 + [SCALE_XI_ROT] * 3 + [SCALE_A, SCALE_B],
-        dtype=win.state.dtype, device=win.device,
-    )
+    return constant([SCALE_XI_TRANS] * 3 + [SCALE_XI_ROT] * 3 + [SCALE_A, SCALE_B],
+                    win.state.dtype, win.device)
 
 
 def _lead(win: W.Window):
@@ -108,7 +109,7 @@ def adjoints(win: W.Window):
     )
     a = affLL[..., 0]
     AT[..., 6, 6] = -a
-    AT[..., 7, 7] = -1.0
+    AT[..., 7, 7].fill_(-1.0)
     AH[..., 6, 6] = a
     AH[..., 7, 7] = a
 
@@ -396,9 +397,7 @@ def nullspaces(win: W.Window):
     lead = _lead(win)
     Adj = se3.adjoint(win.evalPT)
     t = win.evalPT[..., :3, 3]
-    inv_scale = torch.tensor(
-        [1.0 / SCALE_XI_TRANS] * 3 + [1.0 / SCALE_XI_ROT] * 3, dtype=dtype, device=dev
-    )
+    inv_scale = constant([1.0 / SCALE_XI_TRANS] * 3 + [1.0 / SCALE_XI_ROT] * 3, dtype, dev)
     zc = torch.zeros(lead + (CPARS,), dtype=dtype, device=dev)
     valid = win.frame_valid[..., None]
     cols = []
@@ -418,7 +417,7 @@ def orthogonalize(x, N):
     Nn = N / torch.clamp(norms, min=1e-12)
     NtN = Nn.T @ Nn
     eye = torch.eye(NtN.shape[0], dtype=N.dtype, device=N.device)
-    coef = torch.linalg.solve(NtN + 1e-10 * eye, Nn.T @ x)
+    coef = _solve(NtN + 1e-10 * eye, Nn.T @ x)
     return x - Nn @ coef
 
 
@@ -434,8 +433,23 @@ class SolveOut(NamedTuple):
     step_pt: torch.Tensor  # (NP,)
 
 
+def _solve(A, b):
+    """torch.linalg.solve(A, b) of a vector b with no error check (no wait
+    for the device; a singular system gives non-finite values, which the
+    caller zeroes). On the card b is the first column of a square
+    right-hand side: one right-hand column of 16 rows or more takes a path
+    there that allocates through the stream-ordered allocator, which the
+    body of a WHILE or IF node cannot hold; a square one takes the path of
+    `inv_ex`, which does not (NVIDIA H100, PyTorch 2.11)."""
+    if not A.is_cuda:
+        return torch.linalg.solve_ex(A, b, check_errors=False).result
+    n = A.shape[-1]
+    B = torch.cat([b[..., None], b.new_zeros(tuple(b.shape) + (n - 1,))], -1)
+    return torch.linalg.solve_ex(A, B, check_errors=False).result[..., 0]
+
+
 def solve_system(win: W.Window, acc_A: Accum, sc: Schur, settings: Settings,
-                 iteration: int, lam=1e-5, do_orth=True):
+                 iteration, lam=1e-5, do_orth=True):
     F = win.F
     D = CPARS + 8 * F
     dev = win.device
@@ -469,10 +483,14 @@ def solve_system(win: W.Window, acc_A: Accum, sc: Schur, settings: Settings,
     SVecI = 1.0 / torch.sqrt(torch.abs(HFinal[..., diag, diag]) + 10.0)
     Hs = SVecI[..., :, None] * HFinal * SVecI[..., None, :]
     bs = SVecI * bFinal
-    xs = _per_seq(torch.linalg.solve, win, Hs, bs)
+    xs = _per_seq(_solve, win, Hs, bs)
     x = SVecI * xs
 
-    if do_orth and iteration >= 2:
+    # `iteration`: an int, or a () tensor inside BA's device loop (the JAX
+    # package's `jnp.where(iteration >= 2, x_orth, x)`)
+    if do_orth and isinstance(iteration, torch.Tensor):
+        x = torch.where(iteration >= 2, _per_seq(orthogonalize, win, x, nullspaces(win)), x)
+    elif do_orth and iteration >= 2:
         x = _per_seq(orthogonalize, win, x, nullspaces(win))
 
     # a non-finite solve must not poison the window state
@@ -621,12 +639,15 @@ def optimize_fused(win: W.Window, dI_stack, settings: Settings = default_setting
     package's early exit: a window stops once an iteration converged and
     at least min_opt_iterations ran. Returns (win, energy, nres).
 
-    A window stacked over N sequences is the JAX package's vmap of its
-    `while_loop`: every iteration runs once for all sequences, a sequence
-    that stopped keeps the window, energy and count it stopped with (it is
-    never stepped again), and the loop ends when every sequence stopped or
-    `max_its` ran. The flags of all sequences are one host read an
-    iteration.
+    The JAX package's `lax.while_loop`: `utils/loop.while_loop` over a
+    carry updated in place (a WHILE node inside a captured program, a host
+    loop reading one flag a trip eagerly), at most `max_its` trips. A
+    window stacked over N sequences is its vmap: every trip runs once for
+    all sequences, a sequence that stopped keeps the window, energy and
+    count it stopped with (a device mask `running` freezes its rows), and
+    the loop ends when every sequence stopped or `max_its` ran. A trip
+    after every row stopped changes nothing. Eagerly the host reads the
+    rows' flags once a trip, after it.
 
     With `reduce` (see `ba_iteration`) every shard computes the flag from the
     same summed system, so it is the same everywhere; but it is read on the
@@ -634,26 +655,35 @@ def optimize_fused(win: W.Window, dI_stack, settings: Settings = default_setting
     in the next sum. So the count of shards that have not stopped goes
     through `reduce` too, and all stop together."""
     lead = _lead(win)
-    energy = torch.zeros(lead, dtype=torch.float32, device=win.device)
-    nres = torch.zeros(lead, dtype=torch.int32, device=win.device)
-    running = [True] * max(1, int(np.prod(lead)))  # per sequence, on the host
-    for it in range(max_its):
-        w_n, e, conv, nr = ba_iteration(win, dI_stack, it, settings=settings, reduce=reduce)
-        if all(running):
-            win, energy, nres = w_n, e.to(torch.float32), nr.to(torch.int32)
-        else:
-            keep = torch.as_tensor(running, device=win.device)
-            win = select_rows(keep, w_n, win)
-            energy = torch.where(keep, e.to(torch.float32), energy)
-            nres = torch.where(keep, nr.to(torch.int32), nres)
-        stop = conv & (it + 1 >= settings.min_opt_iterations)
+    dev = win.device
+    carry = dict(
+        win=tree_map(torch.clone, win),
+        energy=torch.zeros(lead, dtype=torch.float32, device=dev),
+        nres=torch.zeros(lead, dtype=torch.int32, device=dev),
+        running=torch.ones(lead, dtype=torch.bool, device=dev),
+        it=torch.zeros((), dtype=torch.int32, device=dev),
+    )
+    done = torch.full(lead, max_its <= 0, dtype=torch.bool, device=dev)
+
+    def trip():
+        c = carry
+        w_n, e, conv, nr = ba_iteration(c["win"], dI_stack, c["it"], settings=settings,
+                                        reduce=reduce)
+        keep = c["running"]
+        new = (select_rows(keep, w_n, c["win"]),
+               torch.where(keep, e.to(torch.float32), c["energy"]),
+               torch.where(keep, nr.to(torch.int32), c["nres"]))
+        torch._foreach_copy_(leaves((c["win"], c["energy"], c["nres"])),
+                             leaves(new))
+        stop = conv & (c["it"] + 1 >= settings.min_opt_iterations)
         if reduce is not None:
             stop = reduce((~stop).to(torch.int32)) == 0
-        go = host.tolist((~stop).reshape(-1))
-        running = [r and g for r, g in zip(running, go)]
-        if not any(running):
-            break
-    return win, energy, nres
+        c["running"].logical_and_(~stop)
+        c["it"].add_(1)
+        torch.logical_or(~c["running"], c["it"] >= max_its, out=done)
+
+    loop.while_loop(done, trip, max_its, first_trip=max_its > 0)
+    return carry["win"], carry["energy"], carry["nres"]
 
 
 # ---------------------------------------------------------------------------
@@ -664,8 +694,9 @@ def optimize_fused(win: W.Window, dI_stack, settings: Settings = default_setting
 def _slot_mask(win: W.Window, slot):
     """(F,) bool, True at `slot` (an int, or (N,) for N stacked sequences:
     (N, F))."""
-    s = torch.as_tensor(slot, device=win.device)
-    return torch.arange(win.F, device=win.device) == s[..., None]
+    if not isinstance(slot, torch.Tensor):
+        slot = constant(slot, torch.int64, win.device)
+    return torch.arange(win.F, device=win.device) == slot[..., None]
 
 
 def _at_col(x, slot):
@@ -763,7 +794,8 @@ def flag_points_for_removal(win: W.Window, dI_stack, frames_to_marg, last_slot,
     )
     # recorded states outlive the residual's removal (see the JAX package)
     lr0_state = _at_col(win.res_state, last_slot)
-    prev = torch.as_tensor(prev_slot, device=win.device)
+    prev = prev_slot if isinstance(prev_slot, torch.Tensor) else constant(
+        prev_slot, torch.int64, win.device)
     prev_ok = (prev >= 0)[..., None]
     lr1_state = _at_col(win.res_state, torch.clamp(prev, min=0))
     oob_b = lr0_state == W.RES_OOB
@@ -835,7 +867,8 @@ def _eliminate_block(Hs, bs, idx8):
     """Schur-eliminate the 8x8 block `idx8` of one scaled system."""
     blk = Hs[idx8][:, idx8]
     blk = 0.5 * (blk + blk.T)
-    blk_inv = torch.linalg.inv(blk + 1e-6 * torch.eye(8, dtype=blk.dtype, device=blk.device))
+    blk_inv = torch.linalg.inv_ex(
+        blk + 1e-6 * torch.eye(8, dtype=blk.dtype, device=blk.device)).inverse
     rows = Hs[idx8, :]
     Hs = Hs - rows.T @ blk_inv @ rows
     bs = bs - rows.T @ (blk_inv @ bs[idx8])
@@ -869,19 +902,19 @@ def marginalize_frame(win: W.Window, slot: int, settings: Settings = default_set
     bM_new = SVec * bs
     HM_new = 0.5 * (HM_new + HM_new.transpose(-1, -2))
 
-    slot_mask = torch.ones((D,), dtype=torch.bool, device=dev)
-    slot_mask[idx8] = False
+    d = torch.arange(D, device=dev)
+    slot_mask = (d < io) | (d >= io + 8)
     HM_new = torch.where(slot_mask[:, None] & slot_mask[None, :], HM_new, torch.zeros_like(HM_new))
     bM_new = torch.where(slot_mask, bM_new, torch.zeros_like(bM_new))
 
     def zrow(x, val=0):
         out = x.clone()
-        out[..., slot] = val
+        out[..., slot].fill_(val)
         return out
 
     def zrow8(x):
         out = x.clone()
-        out[..., slot, :] = 0
+        out[..., slot, :].fill_(0)
         return out
 
     return win.replace(
@@ -905,22 +938,41 @@ def drop_frame_refs(win: W.Window, slot: int):
     )
 
 
+# the fields `marginalize_frame(drop_frame_refs(...))` changes
+_MARG_FIELDS = ("HM", "bM", "frame_valid", "frame_id", "state", "state_zero", "prior",
+                "res_exists", "pt_status")
+
+
 def marginalize_frames_masked(win: W.Window, flagged, settings: Settings = default_settings()):
     """All flagged-frame marginalizations (drop refs + Schur-eliminate), in
-    slot order. flagged: (F,) bool (numpy or tensor; a tensor is read).
+    slot order. flagged: (F,) bool; for N stacked sequences (N, F), the JAX
+    package's vmap of its masked loop over slots, which marginalizes each
+    sequence's flagged slots in slot order.
 
-    For N stacked sequences flagged is (N, F): the JAX package's vmap of its
-    loop over slots, which marginalizes each sequence's flagged slots in slot
-    order. Slot s runs once for all sequences if some sequence flagged it;
-    the others keep their window."""
-    if isinstance(flagged, torch.Tensor):
-        flagged = host.tolist(flagged)
-    flagged = np.asarray(flagged, dtype=bool)
+    A tensor mask stays on the device: slot s is one `utils/loop.cond` on
+    "some row flagged s" (an IF node inside a captured program, one read
+    eagerly), whose body selects by rows, so an unflagged slot costs
+    nothing. A numpy mask (the host `FullSystem`'s) is read as it is."""
+    on_host = not isinstance(flagged, torch.Tensor)
+    if on_host:
+        flagged = np.asarray(flagged, dtype=bool)
     for s_ in range(win.F):
         rows = flagged[..., s_]
-        if not rows.any():
+        if on_host and not rows.any():
             continue
-        w_m = marginalize_frame(drop_frame_refs(win, s_), s_, settings=settings)
-        keep = torch.as_tensor(rows, device=win.device)
-        win = w_m if rows.all() else select_rows(keep, w_m, win)
+
+        def body(w=win, s_=s_, rows=rows):
+            w_m = marginalize_frame(drop_frame_refs(w, s_), s_, settings=settings)
+            if on_host:
+                if rows.all():
+                    return w_m
+                rows = torch.as_tensor(rows, device=w.device)
+            return select_rows(rows, w_m, w)
+
+        if on_host:
+            win = body()
+            continue
+        new = loop.cond(rows.any(), lambda body=body: [getattr(body(), f) for f in _MARG_FIELDS],
+                        [getattr(win, f) for f in _MARG_FIELDS])
+        win = win.replace(**dict(zip(_MARG_FIELDS, new)))
     return win

@@ -12,12 +12,24 @@ import torch
 
 from stereo_dso_g2o_tpu_torch.backend import window as W
 from stereo_dso_g2o_tpu_torch.config import SCALE_A, SCALE_B
+from stereo_dso_g2o_tpu_torch.utils.fixed import constant
 from stereo_dso_g2o_tpu_torch.utils.tree import at_rows
+
+
+def _value(val, like: torch.Tensor) -> torch.Tensor:
+    """`val` as a tensor of `like`'s type on its device: a tensor as it is,
+    a Python number once per device (`utils/fixed.constant`), host arrays
+    (the host `FullSystem`'s) copied."""
+    if isinstance(val, torch.Tensor):
+        return val.to(dtype=like.dtype, device=like.device)
+    if isinstance(val, (bool, int, float)):
+        return constant(val, like.dtype, like.device)
+    return torch.as_tensor(val, dtype=like.dtype, device=like.device)
 
 
 def _set_row(x, idx, val):
     out = x.clone()
-    out[idx] = torch.as_tensor(val, dtype=x.dtype, device=x.device)
+    out[idx] = _value(val, x)
     return out
 
 
@@ -25,8 +37,7 @@ def _set_at(x, slot, val):
     """x with row slot[n] of every sequence n set to val (val per sequence
     or one for all)."""
     out = x.clone()
-    out[torch.arange(x.shape[0], device=x.device), slot] = torch.as_tensor(
-        val, dtype=x.dtype, device=x.device)
+    out[torch.arange(x.shape[0], device=x.device), slot] = _value(val, x)
     return out
 
 
@@ -46,7 +57,6 @@ def insert_frame(win: W.Window, slot, T_w2c, aff, exposure,
     frame goes into its slot slot[n]."""
     if _many(slot):
         s = slot.long()
-        aff = torch.as_tensor(aff)
         state = torch.zeros(aff.shape[:-1] + (8,), dtype=win.state.dtype, device=win.device)
         state[..., 6] = aff[..., 0] / SCALE_A
         state[..., 7] = aff[..., 1] / SCALE_B

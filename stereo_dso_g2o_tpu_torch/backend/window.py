@@ -204,7 +204,7 @@ def precalc(win: Window):
     K[..., 1, 1] = win.c_value[..., 1]
     K[..., 0, 2] = win.c_value[..., 2]
     K[..., 1, 2] = win.c_value[..., 3]
-    Ki = torch.linalg.inv(K)
+    Ki = torch.linalg.inv_ex(K).inverse
 
     R = torch.swapaxes(T[..., :3, :3], -4, -3)
     t = torch.swapaxes(T[..., :3, 3], -3, -2)

@@ -252,7 +252,7 @@ def main(frames=None, nseq=None, small=False, ladder_fine=None, obs=None, device
     runner = BatchedRunner([bootstrap(s[0], s[1]) for s in seqs])
     L_all = torch.stack([s[0] for s in seqs])  # (S, N, H, W) uint8, on the device
     R_all = torch.stack([s[1] for s in seqs])
-    runner.warm_kf_buckets()
+    runner.warm_kf_buckets((L_all[:, BOOT], R_all[:, BOOT]))  # every program, before timing
     warm_until_b = BOOT + WARM
     for i in range(BOOT, warm_until_b):
         runner.add_frames((L_all[:, i], R_all[:, i]), i, timestamp=0.1 * i)

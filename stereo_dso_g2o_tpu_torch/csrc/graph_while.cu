@@ -24,8 +24,15 @@
 //
 // The kernel reads one byte and writes the condition: launch-bound, one
 // thread, nothing to tune. Each call returns a cudaError_t (0: success).
+//
+// For the report and for a graph CUDA will not instantiate: sdso_graph_nodes
+// counts a graph's nodes by type (a body's at its end, sdso_cond_end), and
+// sdso_graph_fault instantiates a graph once more to name the node it
+// fails at (its type and, for a kernel, the kernel's name).
 
 #include <cuda_runtime.h>
+
+#include <cstdio>
 
 namespace {
 
@@ -76,9 +83,38 @@ int sdso_cond_begin(void* stream, void* body_stream, const void* flag, int is_wh
   return cudaSuccess;
 }
 
-// flag: the WHILE node's, set again at the end of its body; null for an IF
+namespace {
+
+constexpr int kTypes = 16;  // cudaGraphNodeType values counted
+
+cudaError_t count_types(cudaGraph_t graph, unsigned long long* n_out,
+                        unsigned long long* types_out) {
+  size_t n = 0;
+  cudaError_t err = cudaGraphGetNodes(graph, nullptr, &n);
+  if (err != cudaSuccess) return err;
+  *n_out = n;
+  if (types_out == nullptr || n == 0) return cudaSuccess;
+  cudaGraphNode_t* nodes = new cudaGraphNode_t[n];
+  err = cudaGraphGetNodes(graph, nodes, &n);
+  for (size_t i = 0; err == cudaSuccess && i < n; ++i) {
+    cudaGraphNodeType type;
+    // a type this runtime cannot name (the conditional nodes, with some
+    // CUDA versions) counts as the last one
+    int k = cudaGraphNodeGetType(nodes[i], &type) == cudaSuccess ? static_cast<int>(type)
+                                                                 : kTypes - 1;
+    types_out[k < kTypes ? k : kTypes - 1] += 1;
+  }
+  cudaGetLastError();  // a type not named leaves no error behind
+  delete[] nodes;
+  return err;
+}
+
+}  // namespace
+
+// flag: the WHILE node's, set again at the end of its body; null for an IF.
+// types_out (kTypes counts): the body's nodes by type are added to it.
 int sdso_cond_end(void* body_stream, const void* flag, unsigned long long handle,
-                  unsigned long long* body_nodes_out) {
+                  unsigned long long* body_nodes_out, unsigned long long* types_out) {
   cudaStream_t s = static_cast<cudaStream_t>(body_stream);
   cudaError_t err = cudaSuccess;
   if (flag != nullptr) {
@@ -90,18 +126,44 @@ int sdso_cond_end(void* body_stream, const void* flag, unsigned long long handle
   cudaError_t end = cudaStreamEndCapture(s, &body);
   if (err != cudaSuccess) return err;
   if (end != cudaSuccess) return end;
-  size_t n = 0;
-  err = cudaGraphGetNodes(body, nullptr, &n);
-  *body_nodes_out = n;
-  return err;
+  return count_types(body, body_nodes_out, types_out);
 }
 
 // Nodes at the top level of a graph (a captured program kept with
-// keep_graph=True), for the report.
-int sdso_graph_nodes(void* graph, unsigned long long* n_out) {
-  size_t n = 0;
-  cudaError_t err = cudaGraphGetNodes(static_cast<cudaGraph_t>(graph), nullptr, &n);
-  *n_out = n;
+// keep_graph=True), and by type (types_out: kTypes counts, added to).
+int sdso_graph_nodes(void* graph, unsigned long long* n_out, unsigned long long* types_out) {
+  return count_types(static_cast<cudaGraph_t>(graph), n_out, types_out);
+}
+
+// Instantiate `graph` once more; if CUDA refuses it, write what it
+// says of the node at fault into `what` (its cudaGraphInstantiateResult,
+// the node's type, a kernel node's function name). Returns the error.
+int sdso_graph_fault(void* graph, char* what, int what_len) {
+  cudaGraphExec_t exec;
+  cudaGraphInstantiateParams params = {};
+  cudaError_t err = cudaGraphInstantiateWithParams(&exec, static_cast<cudaGraph_t>(graph), &params);
+  if (err == cudaSuccess) {
+    cudaGraphExecDestroy(exec);
+    snprintf(what, what_len, "instantiated");
+    return 0;
+  }
+  int type = -1;
+  const char* name = "";
+  if (params.errNode_out != nullptr) {
+    cudaGraphNodeType t;
+    if (cudaGraphNodeGetType(params.errNode_out, &t) == cudaSuccess) {
+      type = static_cast<int>(t);
+      if (t == cudaGraphNodeTypeKernel) {
+        cudaKernelNodeParams kp = {};
+        if (cudaGraphKernelNodeGetParams(params.errNode_out, &kp) != cudaSuccess ||
+            cudaFuncGetName(&name, kp.func) != cudaSuccess)
+          name = "?";
+      }
+    }
+  }
+  cudaGetLastError();  // the refusal is reported here, not left pending
+  snprintf(what, what_len, "cudaError %d, instantiate result %d, node type %d, kernel %s",
+           static_cast<int>(err), static_cast<int>(params.result_out), type, name);
   return err;
 }
 

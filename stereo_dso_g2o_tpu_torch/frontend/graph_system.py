@@ -2,11 +2,11 @@
 
 Port of `stereo_dso_g2o_tpu/frontend/graph_system.py`. The JAX package
 jits `frame_auto` into one XLA program whose keyframe decision is a
-`lax.cond`; here the track half (`frame_track`) is one program on the card,
-captured once per shape as a CUDA graph and replayed
-(`runtime/program.py`), the keyframe branch plain functions that launch
-torch ops (and the epipolar kernels) eagerly, and the cond a host branch
-on `need_kf`:
+`lax.cond`; here `frame_auto` is one program on the card, captured once
+per shape as a CUDA graph and replayed (`runtime/program.py`), whose
+keyframe decision is an IF node on the device's `need_kf` (BA's loop a
+WHILE node inside it), and so are `frame_track` and `frame_kf`, the halves
+the batched runner dispatches apart:
 
   track (pyramids + cascade + retry ladder + speculative depth refinement)
   ->  keyframe decision (FullSystem.cpp:1127-1152)
@@ -29,15 +29,14 @@ The keyframe pipeline (`_kf_branch`) runs N sequences at once too, as the
 JAX package's vmap of it: every step once for all of them, one sequence as
 the batch of one (`frame_kf`, `frame_auto`'s keyframe branch).
 
-The frame program waits for the device wherever its Python needs a device
-value (`utils/host.py`): `need_kf` after tracking (`frame_auto`), and on a
-keyframe one packed read of (selector salt, flagged frames), the two
-counts of `IMM.insert_activated` and BA's convergence flags once an
-iteration (`ba.optimize_fused`), each one read for all sequences of a
-batch; the host bookkeeping's fetch of a bundle is one more. Run eagerly
-(on the CPU, or inside `program.disabled()`), the tracker's LM loop also
-reads once an iteration of every level (`tracker_ops.lm_level`); the
-captured program reads nothing. `HOST_READS` is their count.
+The captured program reads nothing; `GraphSystem.add_frame` reads the
+device once a frame, at the lagged drain of a bundle (`utils/host.Fetch`).
+Run eagerly (on the CPU, or inside `program.disabled()`), each loop and
+branch of the program reads its flag on the host (`utils/loop.py`): the
+tracker's LM levels once an iteration, `need_kf`, and on a keyframe BA's
+convergence flags once an iteration, the selector's potentials and the
+flagged frames one read each, every read for all sequences of a batch.
+`HOST_READS` is their count (`utils/host.py`).
 
 Deviations from the reference, as in the JAX module: one selection pass at
 the potential adapted from the previous keyframe's yield plus the random
@@ -66,10 +65,11 @@ from stereo_dso_g2o_tpu_torch.ops import trace as trace_ops
 from stereo_dso_g2o_tpu_torch.ops import tracker_ops
 from stereo_dso_g2o_tpu_torch.ops.pyramid import build_pyramid
 from stereo_dso_g2o_tpu_torch.runtime import program
-from stereo_dso_g2o_tpu_torch.utils import host, se3
+from stereo_dso_g2o_tpu_torch.utils import host, loop, se3
+from stereo_dso_g2o_tpu_torch.utils.fixed import constant
 from stereo_dso_g2o_tpu_torch.utils.smalls import matmul_fma
 from stereo_dso_g2o_tpu_torch.utils.timing import PROF
-from stereo_dso_g2o_tpu_torch.utils.tree import at_rows, first, lead_one
+from stereo_dso_g2o_tpu_torch.utils.tree import at_rows, first, lead_one, select_rows, tree_map
 
 
 def __getattr__(name):
@@ -218,7 +218,7 @@ def flag_frames(win: W.Window, imm_valid, kf_out_count, settings: Settings):
     w2c = win.w2c()
     latest = back
     latest_id = FS._at_slot(win.frame_id, latest)[..., None]
-    rel = torch.einsum("...tij,...sjk->...stik", w2c, torch.linalg.inv(w2c))  # [s,t]
+    rel = torch.einsum("...tij,...sjk->...stik", w2c, torch.linalg.inv_ex(w2c).inverse)  # [s,t]
     d = torch.linalg.norm(rel[..., :3, 3], dim=-1)  # (F_s, F_t)
     t_ok = valid & ~(win.frame_id > latest_id - s.min_frame_age + 1)
     eye = torch.eye(F, dtype=torch.bool, device=dev)
@@ -432,15 +432,22 @@ def _nonkf_branch(state: GraphState, imm_spec, aux: TrackAux):
 
 
 def _kf_branch(state: GraphState, aux: TrackAux, calib_c, baseline, new_exposure,
-               settings: Settings, n_levels: int, pots: Sequence[int], caps: Tuple[int, ...],
+               settings: Settings, n_levels: int, pots, caps: Tuple[int, ...],
                w0: int, h0: int, imm_cap: int,
                uniforms: Optional[Sequence[Optional[Callable]]] = None):
     """The whole keyframe pipeline (makeKeyFrame) from the PRE-frame state +
     the tracking result, in the JAX branch's order of operations, for N
     sequences at once: `state` and `aux` stacked over N, calib_c (N, 4),
-    baseline and new_exposure (N,), a selector potential and a thinning
-    draw per sequence. Each step runs once for all N (K1 three launches in
-    all); one sequence is the batch of one."""
+    baseline and new_exposure (N,), a selector potential per sequence
+    (`pots`, (N,) integers on the device) and its salt from the state.
+    Each step runs once for all N (K1 three launches in all); one sequence
+    is the batch of one. No host read: BA's loop, the selector's
+    potentials and the flagged frames are device loops and branches
+    (`utils/loop.py`), the thinning draw `selector.graph_uniform`.
+
+    `uniforms`: per sequence, None (that draw) or a host function
+    `uniform(salt, shape, device)` in its place, which reads the salts (a
+    test's injected draw; eager only, `_host_draw`)."""
     s = settings
     win, imm = state.win, state.imm
     dev = win.device
@@ -456,25 +463,17 @@ def _kf_branch(state: GraphState, aux: TrackAux, calib_c, baseline, new_exposure
             settings=s, n_levels=n_levels,
         )
 
-    # STEP 2: flagging policy (pre-insertion window). The selector's salt
-    # (its hash and its thinning draw) and the flagged slots (which frames
-    # are marginalized below) are needed on the host: the keyframe's one
-    # packed read, for all sequences
+    # STEP 2: flagging policy (pre-insertion window); the flags stay on the
+    # device (STEP 10 marginalizes slot by slot under a device branch)
     flagged = flag_frames(win, imm.valid, state.kf_out_count, s)
     slot = _free_slot(win)
     kf_id = state.next_kf_id.to(torch.int32)
-    packed = host.tolist(torch.cat([state.salt.to(torch.int32)[:, None],
-                                    flagged.to(torch.int32)], -1))
-    salts = [row[0] for row in packed]
-    flagged_host = np.asarray([row[1:] for row in packed], dtype=bool)
 
     # STEP 3: insert the KF. Its level-0 pyramid goes into the slot's row of
-    # the (N, F, H, W, 3) stack IN PLACE (41 MB a sequence at 1216x352: not
-    # cloned per keyframe). The row belonged to no valid frame, so the
-    # pre-frame state, which shares the stack, still reads what it read
-    # before.
+    # a new (N, F, H, W, 3) stack, as the JAX package's `.at[].set` (41 MB
+    # a sequence at 1216x352): the pre-frame state keeps its own stack
     win = builder.insert_frame(win, slot, T_new_w2c, aff_best, new_exposure, kf_id)
-    dI0 = state.dI0_slots
+    dI0 = state.dI0_slots.clone()
     dI0[rows, slot.long()] = dIpL[0]
 
     # STEP 4: residuals from active points to the new KF
@@ -533,15 +532,14 @@ def _kf_branch(state: GraphState, aux: TrackAux, calib_c, baseline, new_exposure
     with PROF.section("graph.kf.new_traces", True):
         asg = build_pyramid(dIpL[0][..., 0], 3)[1]
         ths = SEL.block_thresholds(asg[0], s)
-        selm = SEL.select(dIpL[0], asg[0], asg[1], asg[2], ths, pots, 1.0, salts, s)
+        selm = SEL.select(dIpL[0], asg[0], asg[1], asg[2], ths, pots, 1.0, state.salt, s)
         num_have = torch.sum(selm.counts, dim=-1)
         quotia = s.desired_immature_density / torch.clamp(num_have.to(torch.float64), min=1.0)
         shape = tuple(selm.status_map.shape[1:])
-        u = torch.stack([
-            torch.as_tensor(
-                (SEL.torch_uniform if draw is None else draw)(salt, shape, dev), device=dev)
-            for salt, draw in zip(salts, uniforms or [None] * N)
-        ])
+        if uniforms is not None and any(d is not None for d in uniforms):
+            u = _host_draw(state.salt, shape, uniforms)
+        else:
+            u = SEL.graph_uniform(state.salt, shape)
         # compared in the draw's precision, as one sequence's 0-dim quotia is
         q = quotia[:, None, None]
         thin = (q < 0.95) & ~(u < q.to(u.dtype))
@@ -551,7 +549,7 @@ def _kf_branch(state: GraphState, aux: TrackAux, calib_c, baseline, new_exposure
 
     # STEP 10: marginalize flagged frames
     with PROF.section("graph.kf.marg_frames", True):
-        win = ba.marginalize_frames_masked(win, flagged_host, settings=s)
+        win = ba.marginalize_frames_masked(win, flagged, settings=s)
         imm = imm.replace(valid=imm.valid & ~flagged[..., None])
 
     aff_slot = at_rows(aff_all, slot.long())
@@ -601,51 +599,114 @@ def _kf_branch(state: GraphState, aux: TrackAux, calib_c, baseline, new_exposure
     return st, bundle
 
 
-def _kf_one(state: GraphState, aux_one: TrackAux, calib_c, baseline, new_exposure,
-            settings: Settings, n_levels: int, pot: int, caps: Tuple[int, ...],
-            w0: int, h0: int, imm_cap: int, uniform: Optional[Callable]):
+def _host_draw(salts, shape, uniforms):
+    """The thinning draws of `_kf_branch` where a host function replaces
+    `selector.graph_uniform` for some sequences: one read of the salts."""
+    dev = salts.device
+    out = []
+    for k, (salt, draw) in enumerate(zip(host.tolist(salts), uniforms)):
+        u = SEL.graph_uniform(salts[k], shape) if draw is None else draw(salt, shape, dev)
+        out.append(torch.as_tensor(u, device=dev))
+    return torch.stack(out)
+
+
+def _kf_one(state: GraphState, aux_one: TrackAux, calib_c, baseline, new_exposure, pot,
+            settings: Settings, n_levels: int, caps: Tuple[int, ...],
+            w0: int, h0: int, imm_cap: int, uniform: Optional[Callable] = None):
     """The keyframe pipeline of one sequence as the batch of one (`aux_one`
-    with its leading axis)."""
-    dev = state.win.device
+    with its leading axis; `pot` a () integer tensor)."""
     st, bundle = _kf_branch(
-        lead_one(state), aux_one, calib_c[None], torch.as_tensor(baseline, device=dev)[None],
-        torch.as_tensor(new_exposure, device=dev)[None], settings, n_levels, [pot], caps,
-        w0, h0, imm_cap, [uniform],
+        lead_one(state), aux_one, calib_c[None], baseline.reshape(1), new_exposure.reshape(1),
+        settings, n_levels, pot.reshape(1), caps, w0, h0, imm_cap,
+        None if uniform is None else [uniform],
     )
     return first(st), first(bundle)
 
 
+def _frame_auto(state: GraphState, left, right, calib_c, baseline, new_exposure, pots,
+                settings: Settings, n_levels: int, n_tries: int, caps: Tuple[int, ...],
+                w0: int, h0: int, imm_cap: int, gate: bool = True,
+                uniforms: Optional[Sequence[Optional[Callable]]] = None):
+    """`frame_auto` (one sequence, images (H, W)) or "fused" (N stacked,
+    images (N, H, W)) run eagerly: what their programs capture. The track
+    half, the non-keyframe update, and the keyframe pipeline from the
+    pre-frame state, kept per row where `need_kf` holds. With `gate` the
+    pipeline is the body of a `utils/loop.cond` on "some row needs a
+    keyframe" (an IF node in the program: the JAX package's scalar
+    `lax.cond`, which runs the taken branch only); without it, it always
+    runs (the JAX package's vmap of that cond, which runs both)."""
+    if left.dim() == 2:
+        st, bundle = _frame_auto(
+            lead_one(state), left[None], right[None], calib_c[None], baseline.reshape(1),
+            new_exposure.reshape(1), pots.reshape(1), settings, n_levels, n_tries, caps,
+            w0, h0, imm_cap, gate, uniforms)
+        return first(st), first(bundle)
+    imm_spec, aux = _track_common(state, left, right, calib_c, baseline, new_exposure,
+                                  settings, n_levels, n_tries, w0, h0)
+    nonkf = _nonkf_branch(state, imm_spec, aux)
+
+    def kf():
+        st_k, b_k = _kf_branch(state, aux, calib_c, baseline, new_exposure, settings, n_levels,
+                               pots, caps, w0, h0, imm_cap, uniforms)
+        picked = select_rows(aux.need_kf, (st_k, b_k), nonkf)
+        return tree_map(lambda x, like: x.to(like.dtype), picked, nonkf)
+
+    return loop.cond(aux.need_kf.any(), kf, nonkf) if gate else kf()
+
+
+def _on_device(x, dtype, dev) -> torch.Tensor:
+    """An input of a frame program on `dev`: a tensor as it is; a Python
+    number on a program path made once per device (`utils/fixed.constant`:
+    no copy from the host that waits for the device), else a new tensor."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=dev)
+    if program.active(dev):
+        return constant(x, dtype, dev)
+    return torch.as_tensor(x, dtype=dtype, device=dev)
+
+
+def _no_host_draw(uniform, arg: str):
+    """A host draw (`uniform=`, `uniforms=`) cannot be captured: on a
+    program path it raises and names the argument."""
+    draws = uniform if isinstance(uniform, (list, tuple)) else [uniform]
+    if any(d is not None for d in draws):
+        raise ValueError(
+            f"`{arg}`: a host function cannot be captured into the frame program, which "
+            "draws with selector.graph_uniform (the JAX package's draw); pass it only on "
+            "the CPU or inside program.disabled()")
+
+
 def frame_auto(state: GraphState, left, right, calib_c, baseline, new_exposure,
                settings: Settings = default_settings(), n_levels: int = 6,
-               n_tries: int = 5, pot: int = 3, caps: Tuple[int, ...] = (),
+               n_tries: int = 5, pot=3, caps: Tuple[int, ...] = (),
                w0: int = 0, h0: int = 0, imm_cap: int = 2048,
                uniform: Optional[Callable] = None):
-    """One full frame: the track half (`frame_track`, on the card one
-    replay of its program), then a host branch on `need_kf`: the keyframe
-    pipeline from the pre-frame state and the track's aux (`frame_kf`,
-    eager), or the track's speculative non-KF update. What the JAX
-    package's `frame_track` + `frame_kf` compute, its `frame_auto`'s kf
-    branch. (`parallel/batched.frame_auto_batched` runs N sequences with no
-    host branch, as the JAX package's vmap of its `lax.cond` does.)
+    """One full frame, the JAX package's `jax.jit(frame_auto)`: the track
+    half, then the keyframe pipeline from the pre-frame state under a
+    branch on the device's `need_kf`, or the track's speculative non-KF
+    update. On the card one program per shape, captured at its first call
+    and replayed after it (`runtime/program.py`): the branch is an IF node
+    whose body holds BA's WHILE node and the selector's and the
+    marginalization's IF nodes, and nothing in it reads the host. On the
+    CPU, and inside `program.disabled()`, it runs eagerly (one read of
+    `need_kf`, and the reads of its loops).
 
     left/right: (H, W) raw images on the state's device. Pose hypotheses
     (constant-velocity motion model, FullSystem.cpp:349-377) and the affine
-    init come from GraphState. `uniform(salt, shape, device)` is the
-    selector's thinning draw (default: a torch.Generator seeded from the
-    salt). Returns (GraphState, FrameBundle)."""
-    with PROF.section("graph.track", True):
-        st, bundle, aux = frame_track(
-            state, left, right, calib_c, baseline, new_exposure, settings=settings,
-            n_levels=n_levels, n_tries=n_tries, w0=w0, h0=h0,
-        )
-    if host.flag(aux.need_kf):
-        with PROF.section("graph.kf", True):
-            return frame_kf(
-                state, aux, calib_c, baseline, new_exposure, settings=settings,
-                n_levels=n_levels, pot=pot, caps=caps, w0=w0, h0=h0, imm_cap=imm_cap,
-                uniform=uniform,
-            )
-    return st, bundle
+    init come from GraphState. `pot`: the selector potential, an int or a
+    () integer tensor, an input of the program (not part of its key).
+    `uniform(salt, shape, device)` replaces the thinning draw
+    (`selector.graph_uniform`) eagerly only: on a program path it raises.
+    Returns (GraphState, FrameBundle)."""
+    dev = left.device
+    args = (state, left, right, calib_c, _on_device(baseline, torch.float32, dev),
+            _on_device(new_exposure, torch.float32, dev), _on_device(pot, torch.int32, dev))
+    static = dict(settings=settings, n_levels=n_levels, n_tries=n_tries, caps=tuple(caps),
+                  w0=w0, h0=h0, imm_cap=imm_cap)
+    if program.active(dev):
+        _no_host_draw(uniform, "uniform")
+        return program.run(_frame_auto, args, static, key=(trace_ops.DEFAULT_ROUTE,))
+    return _frame_auto(*args, **static, uniforms=None if uniform is None else [uniform])
 
 
 def frame_track(state: GraphState, left, right, calib_c, baseline, new_exposure,
@@ -699,16 +760,31 @@ def _frame_track(state: GraphState, left, right, calib_c, baseline, new_exposure
 
 def frame_kf(state_pre: GraphState, aux: TrackAux, calib_c, baseline, new_exposure,
              settings: Settings = default_settings(), n_levels: int = 6,
-             pot: int = 3, caps: Tuple[int, ...] = (), w0: int = 0, h0: int = 0,
+             pot=3, caps: Tuple[int, ...] = (), w0: int = 0, h0: int = 0,
              imm_cap: int = 2048, uniform: Optional[Callable] = None):
     """The keyframe pipeline of one sequence from the PRE-frame state +
     frame_track's aux: the same function as frame_auto's keyframe branch,
     run as the batch of one (`parallel/batched.frame_kf_subset_batched`
-    runs several sequences' as one)."""
-    return _kf_one(
-        state_pre, lead_one(aux), calib_c, baseline, new_exposure, settings, n_levels,
-        pot, caps, w0, h0, imm_cap, uniform,
-    )
+    runs several sequences' as one). On the card one program per shape
+    (the JAX package's `jax.jit(frame_kf)`), eagerly on the CPU and inside
+    `program.disabled()`; `pot` and `uniform` as in `frame_auto`."""
+    dev = calib_c.device
+    args = (state_pre, aux, calib_c, _on_device(baseline, torch.float32, dev),
+            _on_device(new_exposure, torch.float32, dev), _on_device(pot, torch.int32, dev))
+    static = dict(settings=settings, n_levels=n_levels, caps=tuple(caps), w0=w0, h0=h0,
+                  imm_cap=imm_cap)
+    if program.active(dev):
+        _no_host_draw(uniform, "uniform")
+        return program.run(_frame_kf, args, static, key=(trace_ops.DEFAULT_ROUTE,))
+    return _frame_kf(*args, **static, uniform=uniform)
+
+
+def _frame_kf(state_pre: GraphState, aux: TrackAux, calib_c, baseline, new_exposure, pot,
+              settings: Settings, n_levels: int, caps: Tuple[int, ...], w0: int, h0: int,
+              imm_cap: int, uniform: Optional[Callable] = None):
+    """`frame_kf` run eagerly (what its program captures)."""
+    return _kf_one(state_pre, lead_one(aux), calib_c, baseline, new_exposure, pot, settings,
+                   n_levels, caps, w0, h0, imm_cap, uniform)
 
 
 def tracker_build_ref(us, vs, idepths, weights, valid, dI_ref, n_levels):
@@ -764,7 +840,7 @@ class GraphSystem:
         self.n_frame_marginalizations = 0  # by this system, as FullSystem counts its own
         self.init_failed = False  # initialization is always host-side; kept
         # for interface parity with FullSystem (CLI reset logic)
-        self._pending_q = []  # [(FrameBundle (device), frame_id, ts), ...]
+        self._pending_q = []  # [(FrameBundle (device), frame_id, ts, its Fetch), ...]
 
     # -- construction ------------------------------------------------------
     @classmethod
@@ -849,12 +925,13 @@ class GraphSystem:
 
     # -- stepping ----------------------------------------------------------
     #
-    # The JAX package dispatches frame i+1 without waiting on frame i and
-    # drains the small FrameBundle `fetch_lag` frames behind. Here the frame
-    # program reads `need_kf` on the host every frame, so the lag hides
-    # nothing; the interface is kept (add_frame returns the bundle of
-    # `fetch_lag` frames earlier, `flush`, `trajectory` flushes) because
-    # bench-style callers and the batched runner depend on it.
+    # As the JAX package, frame i+1 is dispatched without waiting on frame
+    # i, and the small FrameBundle drains `fetch_lag` frames behind: each
+    # frame's bundle starts its copy to the host behind the frame's program
+    # (`utils/host.Fetch`), and the drain waits for that copy only, so the
+    # device runs up to `fetch_lag` frames ahead of the host. The selector
+    # potential a frame uses is the one adapted at the drain before it, two
+    # frames stale, as in the JAX runner.
     fetch_lag = 2
 
     def add_frame(self, left, right, frame_id: int, timestamp: float = 0.0,
@@ -862,24 +939,22 @@ class GraphSystem:
         s = self.settings
         state, bundle = frame_auto(
             self.state, device_image(left, self.device), device_image(right, self.device),
-            self.calib.c, self.calib.baseline,
-            torch.tensor(float(exposure), dtype=torch.float32, device=self.device),
+            self.calib.c, self.calib.baseline, float(exposure),
             settings=s, n_levels=self.calib.n_levels, n_tries=5,
             pot=self.pot, caps=self.caps,
             w0=self.calib.w[0], h0=self.calib.h[0],
             imm_cap=s.immature_cap, uniform=self.uniform,
         )
         self.state = state
-        self._pending_q.append((bundle, frame_id, timestamp))
+        self._pending_q.append((bundle, frame_id, timestamp, host.Fetch(bundle)))
         drained = None
         while len(self._pending_q) > self.fetch_lag:
             drained = self._drain_one()
         return drained
 
     def _drain_one(self):
-        bundle, frame_id, timestamp = self._pending_q.pop(0)
-        host.count()  # one wait for the frame; the copies after it find it done
-        b = FrameBundle(*[x.cpu().numpy() for x in bundle])
+        _, frame_id, timestamp, fetch = self._pending_q.pop(0)
+        b = FrameBundle(*fetch.get())  # one wait, for that frame's copy
         ref_kf_id = len(self.kf_shells) - 1
         self.apply_bundle(b, frame_id, timestamp, ref_kf_id)
         return b

@@ -25,8 +25,7 @@ from stereo_dso_g2o_tpu_torch.ops import distance_map as DM
 from stereo_dso_g2o_tpu_torch.ops import trace as trace_ops
 from stereo_dso_g2o_tpu_torch.ops.interp import take
 from stereo_dso_g2o_tpu_torch.ops.residuals import _bilinear3_frames, by_host
-from stereo_dso_g2o_tpu_torch.utils import host
-from stereo_dso_g2o_tpu_torch.utils.fixed import nonzero_fixed, scatter_drop
+from stereo_dso_g2o_tpu_torch.utils.fixed import constant, nonzero_fixed, scatter_drop
 from stereo_dso_g2o_tpu_torch.utils.timing import PROF
 from stereo_dso_g2o_tpu_torch.utils.tree import at_rows, per_row, seq_scalar
 
@@ -80,7 +79,8 @@ def _set_slot(x, slot, val):
     """x with row `slot` set to val; for N stacked sequences and a (N,)
     slot, row slot[n] of sequence n."""
     out = x.clone()
-    val = torch.as_tensor(val, dtype=x.dtype, device=x.device)
+    if not isinstance(val, torch.Tensor):
+        val = constant(val, x.dtype, x.device)
     if isinstance(slot, torch.Tensor) and slot.dim() == 1:
         out[torch.arange(x.shape[0], device=x.device), slot.long()] = val
     else:
@@ -217,7 +217,7 @@ def optimize_immature(imm: ImmatureSet, candidate, RTll, tTll, aff_ht, frame_val
     fx3, fy3, cx3, cy3 = (seq_scalar(c_value[..., i], 3) for i in range(4))  # (lane, frame, pixel)
     Hd, Wd = dI_stack.shape[-3:-1]
     wM3, hM3 = float(Wd - 3), float(Hd - 3)
-    pat = torch.as_tensor(PATTERN, dtype=imm.u.dtype, device=dev)
+    pat = constant(PATTERN, imm.u.dtype, dev)
 
     NFULL = F * C
     cand_full = (candidate & imm.valid).reshape(lead + (-1,))
@@ -339,7 +339,7 @@ def optimize_immature(imm: ImmatureSet, candidate, RTll, tTll, aff_ht, frame_val
 
 def _not_slot(F, slot, device):
     """(F, 1) bool, False at the slot's row ((N, F, 1) for a (N,) slot)."""
-    s = torch.as_tensor(slot, device=device)
+    s = slot if isinstance(slot, torch.Tensor) else constant(slot, torch.int64, device)
     return (torch.arange(F, device=device) != s[..., None])[..., None]
 
 
@@ -510,46 +510,42 @@ def insert_activated(win, imm: ImmatureSet, act: ActivationResult,
                      settings: Settings = default_settings(), max_insert: int = 1024):
     """activatePointsMT STEP4: accepted immature points become window points
     in free point slots with residuals to their IN targets; consumed and
-    dropped immature slots are invalidated. Returns (win, imm, n_inserted):
-    an int, or a (N,) tensor for N stacked sequences. Two host reads, for
-    all sequences together."""
+    dropped immature slots are invalidated. Returns (win, imm, n_inserted),
+    n_inserted a () tensor, (N,) for N stacked sequences.
+
+    Fixed shapes, as the JAX function: `max_insert` lanes pair the accepted
+    points with the free slots in index order, and no count is read. Its
+    quirk is kept: the JAX function parks the lanes it does not use at
+    point slot 0 and writes slot 0's old values back, and lets the last
+    write win, so an insertion into a free slot 0 is lost whenever some
+    lane is parked (the immature point is still consumed); its lanes
+    without a source write "not consumed" to immature index 0 last. Here a
+    write that loses goes to `utils/fixed.scatter_drop`'s spare row."""
     lead = tuple(imm.u.shape[:-2])
     bt = bool(lead)
     F, C = imm.u.shape[-2:]
-    dev = imm.u.device
     acc_flat = (act.accepted & imm.valid).reshape(lead + (-1,))
     src = nonzero_fixed(acc_flat, max_insert, batched=bt)
     free = nonzero_fixed(win.pt_status == W.PT_INACTIVE, max_insert, batched=bt)
     ok = (src >= 0) & (free >= 0)
     src_safe = torch.clamp(src, min=0)
-    n_ok = host.tolist(ok.sum(-1))
-    parked = torch.as_tensor(n_ok, device=dev) < max_insert
-    # Reference quirk, reproduced: the JAX package parks the unused lanes
-    # at point slot 0 and writes slot 0's old values back; its scatter lets
-    # the last write win, so an insertion into a free slot 0 is lost
-    # whenever some lane is parked (the immature point is still consumed).
-    write = ok & ~((free == 0) & (parked[..., None] if bt else parked))
-    seq = torch.nonzero(write)[:, 0] if bt else None
-    dst = free[write]
-    s = src_safe[write]
-    k = int(host.item(write.sum()))
-    at = (seq, dst) if bt else dst
+    parked = ~ok.all(-1, keepdim=True)
+    write = ok & ~((free == 0) & parked)
+    dst = torch.where(write, free, torch.full_like(free, -1))
 
     def put(arr, vals):
-        out = arr.clone()
-        out[at] = vals.to(arr.dtype)
-        return out
+        return scatter_drop(arr, dst, vals.to(arr.dtype), batched=bt)
 
     def const(val, dtype, shape=()):
-        return torch.full((k,) + shape, val, dtype=dtype, device=dev)
+        return torch.full(tuple(src.shape) + shape, val, dtype=dtype, device=src.device)
 
     def src_of(x, tail=()):
         flat = x.reshape(lead + (-1,) + tail)
-        return flat[seq, s] if bt else flat[s]
+        return at_rows(flat, src_safe) if bt else flat[src_safe]
 
     win = win.replace(
         pt_status=put(win.pt_status, const(W.PT_ACTIVE, torch.int32)),
-        pt_host=put(win.pt_host, (s // C).to(torch.int32)),
+        pt_host=put(win.pt_host, (src_safe // C).to(torch.int32)),
         pt_u=put(win.pt_u, src_of(imm.u)),
         pt_v=put(win.pt_v, src_of(imm.v)),
         pt_idepth=put(win.pt_idepth, src_of(act.idepth)),
@@ -566,19 +562,15 @@ def insert_activated(win, imm: ImmatureSet, act: ActivationResult,
         res_linearized=put(win.res_linearized, const(False, torch.bool, (F,))),
         res_energy=put(win.res_energy, const(0.0, torch.float32, (F,))),
     )
-    inserted = torch.zeros(lead + (F * C,), dtype=torch.bool, device=dev)
-    if bt:
-        inserted[torch.nonzero(ok)[:, 0], src_safe[ok]] = True
-        # same last-write-wins quirk at immature index 0
-        inserted[:, 0] = inserted[:, 0] & ~parked
-        n_ins = torch.as_tensor(n_ok, dtype=torch.int32, device=dev)
-    else:
-        inserted[src_safe[ok]] = True
-        if n_ok < max_insert:  # same last-write-wins quirk at immature index 0
-            inserted[0] = False
-        n_ins = n_ok
+    # consumed: the lanes with a source, each its own index; the JAX
+    # function's sourceless lanes then write False at index 0
+    none = torch.zeros(lead + (F * C,), dtype=torch.bool, device=src.device)
+    inserted = scatter_drop(none, torch.where(src >= 0, src, torch.full_like(src, -1)), ok,
+                            batched=bt)
+    unused = (src < 0).any(-1, keepdim=True)
+    inserted = torch.cat([inserted[..., :1] & ~unused, inserted[..., 1:]], -1)
     gone = inserted.reshape(lead + (F, C)) | act.dropped
-    return win, imm.replace(valid=imm.valid & ~gone), n_ins
+    return win, imm.replace(valid=imm.valid & ~gone), ok.sum(-1)
 
 
 def activation_gate(win, imm: ImmatureSet, newest_slot, min_act_dist, calib_c,
@@ -601,13 +593,14 @@ def activation_gate(win, imm: ImmatureSet, newest_slot, min_act_dist, calib_c,
         torch.stack([zero, zero, one], -1),
     ], -2)
     w2c = win.w2c()
-    slot = torch.as_tensor(newest_slot, device=w2c.device)
+    slot = newest_slot if isinstance(newest_slot, torch.Tensor) else constant(
+        newest_slot, torch.int64, w2c.device)
     w2c_new = at_rows(w2c, slot.long()) if slot.dim() else w2c[slot]
     # products of one matrix per sequence: one call per sequence
     # (utils/tree.per_row), as one sequence alone makes it
     many = w2c.dim() == 4
     T_hn = per_row(lambda a, b: torch.einsum("ij,fjk->fik", a, b), many,
-                   w2c_new, torch.linalg.inv(w2c))
+                   w2c_new, torch.linalg.inv_ex(w2c).inverse)
     KRKi1 = per_row(lambda k, r, ki: torch.einsum("ij,fjk,kl->fil", k, r, ki), many,
                     K1, T_hn[..., :3, :3], Ki0)
     Kt1 = per_row(lambda k, t: torch.einsum("ij,fj->fi", k, t), many, K1, T_hn[..., :3, 3])

@@ -30,13 +30,13 @@ def distance_map(us1, vs1, valid, h1: int, w1: int, iters: int = 40):
     def roll2(x, dy, dx):
         y = torch.roll(x, (dy, dx), dims=(-2, -1))
         if dy == 1:
-            y[..., 0, :] = big
+            y[..., 0, :].fill_(big)
         if dy == -1:
-            y[..., -1, :] = big
+            y[..., -1, :].fill_(big)
         if dx == 1:
-            y[..., :, 0] = big
+            y[..., :, 0].fill_(big)
         if dx == -1:
-            y[..., :, -1] = big
+            y[..., :, -1].fill_(big)
         return y
 
     def grow(d, k, diag):

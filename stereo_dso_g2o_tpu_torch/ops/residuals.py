@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 from stereo_dso_g2o_tpu_torch.backend import window as W
+from stereo_dso_g2o_tpu_torch.utils.fixed import constant
 from stereo_dso_g2o_tpu_torch.utils.tree import at_rows, seq_scalar
 from stereo_dso_g2o_tpu_torch.config import (
     PATTERN,
@@ -161,7 +162,7 @@ def linearize(win: W.Window, dI_stack: torch.Tensor,
     Jpdd = torch.stack([d_d_x, d_d_y], -1)
 
     # ---- pattern residuals at the CURRENT state (Residuals.cpp:213-302) ----
-    pat = torch.as_tensor(PATTERN, dtype=u.dtype, device=dev)
+    pat = constant(PATTERN, u.dtype, dev)
     pu = u[..., None] + pat[:, 0]
     pv = v[..., None] + pat[:, 1]
     P3 = torch.stack([pu, pv, torch.ones_like(pu)], -1)  # (NP, 8, 3)

@@ -7,14 +7,19 @@ host-side density controller with random thinning.
 
 The thinning draw is injectable: `PixelSelector(uniform=...)` takes a
 function `uniform(salt, shape) -> tensor of U[0,1)`. The default draws from
-a `torch.Generator` seeded from the salt; the JAX package draws from
-`jax.random`, which torch cannot reproduce, so parity tests pass in a
-function that returns the JAX draw.
+a `torch.Generator` seeded from the salt; the JAX package's host selector
+draws from `jax.random.PRNGKey(salt)`, so parity tests pass in a function
+that returns the JAX draw. The graph path's keyframe branch draws with
+`graph_uniform`, the JAX package's own draw (threefry2x32) computed on the
+device from the device salt, equal to it bit for bit.
 
 `block_thresholds`, `select` and `map_to_points` also take a leading
 sequence axis (images (N, H, W)), as the JAX package's batched keyframe
 program vmaps them; `select` then takes a potential and a salt per
-sequence.
+sequence, on the device: the potential is snapped there, and each
+supported potential's cell winners are one `utils/loop.cond` over the rows
+that have it (the JAX package's `lax.switch`), so a new potential captures
+nothing new.
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ import numpy as np
 import torch
 
 from stereo_dso_g2o_tpu_torch.config import Settings, default_settings
-from stereo_dso_g2o_tpu_torch.utils.fixed import nonzero_fixed
+from stereo_dso_g2o_tpu_torch.utils import loop
+from stereo_dso_g2o_tpu_torch.utils.fixed import constant, nonzero_fixed
 
 # The 16 unit direction vectors (PixelSelector2.cpp:368-384).
 _DIRECTIONS = np.array(
@@ -83,13 +89,13 @@ def block_thresholds(asg0: torch.Tensor, settings: Settings = default_settings()
             for dx in (-1, 0, 1):
                 y = torch.roll(x, (dy, dx), dims=(-2, -1))
                 if dy == 1:
-                    y[..., 0, :] = 0.0
+                    y[..., 0, :].fill_(0.0)
                 if dy == -1:
-                    y[..., -1, :] = 0.0
+                    y[..., -1, :].fill_(0.0)
                 if dx == 1:
-                    y[..., :, 0] = 0.0
+                    y[..., :, 0].fill_(0.0)
                 if dx == -1:
-                    y[..., :, -1] = 0.0
+                    y[..., :, -1].fill_(0.0)
                 total = total + y
         return total
 
@@ -162,18 +168,23 @@ def select(dI0, asg0, asg1, asg2, ths_smoothed, pot, th_factor: float = 1.0,
     """One selection pass at potential `pot` (PixelSelector2::select).
 
     N sequences (images (N, H, W), thresholds (N, h32, w32)) take `pot` and
-    `salt` as sequences of N ints, as the JAX package's vmap of its traced
-    potential: each sequence's directions hash its own salt on its own cell
-    sizes (pot, 2 pot, 4 pot), and the cell winners run once for each
-    potential among the sequences, over the sequences that have it."""
+    `salt` as (N,) integer tensors on the device (or sequences of N ints),
+    as the JAX package's vmap of its traced potential: each potential is
+    snapped to `SUPPORTED_POTS` on the device (ties to the smaller), each
+    sequence's directions hash its own salt on its own cell sizes (pot,
+    2 pot, 4 pot), and the cell winners run once for each supported
+    potential that some sequence has (`utils/loop.cond`), over all rows,
+    kept where the row has it."""
     H, W = asg0.shape[-2:]
     lead = tuple(asg0.shape[:-2])
     dev = asg0.device
-    dirs = torch.as_tensor(_DIRECTIONS, device=dev)
+    dirs = constant(_DIRECTIONS, torch.float32, dev)
     if lead:
-        pots = [snap_pot(int(p)) for p in pot]
-        cell0 = torch.as_tensor(pots, device=dev)[:, None]
-        salt = torch.as_tensor([int(x) for x in salt], dtype=torch.int64, device=dev)[:, None, None]
+        supported = constant(SUPPORTED_POTS, torch.int64, dev)
+        pot = torch.as_tensor(pot, device=dev).to(torch.int64)
+        snapped = supported[torch.argmin(torch.abs(supported - pot[:, None]), dim=-1)]
+        cell0 = snapped[:, None]
+        salt = torch.as_tensor(salt, device=dev).to(torch.int64)[:, None, None]
     else:
         pot = snap_pot(int(pot))
         cell0 = pot
@@ -234,12 +245,57 @@ def select(dI0, asg0, asg1, asg2, ths_smoothed, pot, th_factor: float = 1.0,
     if not lead:
         status, counts = _select_at_pot(v0, v1, v2, pot, H, W)
         return Selection(status_map=status, counts=counts)
-    status = torch.zeros(lead + (H, W), dtype=torch.int32, device=dev)
-    counts = torch.zeros(lead + (3,), dtype=torch.int32, device=dev)
-    for p in sorted(set(pots)):
-        rows = torch.as_tensor([i for i, q in enumerate(pots) if q == p], device=dev)
-        status[rows], counts[rows] = _select_at_pot(v0[rows], v1[rows], v2[rows], p, H, W)
-    return Selection(status_map=status, counts=counts)
+    out = (torch.zeros(lead + (H, W), dtype=torch.int32, device=dev),
+           torch.zeros(lead + (3,), dtype=torch.int32, device=dev))
+    for p in SUPPORTED_POTS:
+        rows = snapped == p
+
+        def at_pot(p=p, rows=rows, prev=out):
+            st, cnt = _select_at_pot(v0, v1, v2, p, H, W)
+            return (torch.where(rows[:, None, None], st, prev[0]),
+                    torch.where(rows[:, None], cnt, prev[1]))
+
+        out = loop.cond(rows.any(), at_pot, out)
+    return Selection(status_map=out[0], counts=out[1])
+
+
+_M32_MASK = 0xFFFFFFFF
+
+
+def _threefry2x32(k0, k1, x0, x1):
+    """JAX's threefry2x32 hash (`jax/_src/prng.py`, 5 x 4 rounds) on
+    uint32 values held in int64 tensors, masked to 32 bits after every
+    add and shift."""
+    M = _M32_MASK
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    rotations = ((13, 15, 26, 6), (17, 29, 16, 24))
+    x0 = (x0 + ks[0]) & M
+    x1 = (x1 + ks[1]) & M
+    for i in range(5):
+        for r in rotations[i % 2]:
+            x0 = (x0 + x1) & M
+            x1 = (((x1 << r) & M) | (x1 >> (32 - r))) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & M
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & M
+    return x0, x1
+
+
+def graph_uniform(salt, shape) -> torch.Tensor:
+    """The JAX package's keyframe thinning draw (graph_system.py:492-495),
+    `jax.random.uniform(jax.random.fold_in(jax.random.PRNGKey(17),
+    uint32(salt)), shape)` (float32, threefry with partitionable bits),
+    bit for bit, on the device of `salt`: a () or (N,) integer tensor, one
+    draw of `shape` per salt ((N,) + shape). No host read."""
+    salt = salt.to(torch.int64) & _M32_MASK
+    zero = torch.zeros_like(salt)
+    # PRNGKey(17) = (0, 17); fold_in hashes the count pair (0, salt)
+    k0, k1 = _threefry2x32(zero, zero + 17, zero, salt)
+    n = int(np.prod(shape))
+    lo = torch.arange(n, dtype=torch.int64, device=salt.device)  # the iota's low words
+    b0, b1 = _threefry2x32(k0[..., None], k1[..., None], torch.zeros_like(lo), lo)
+    bits = ((b0 ^ b1) >> 9) | 0x3F800000  # 23 mantissa bits under the exponent of 1.0
+    u = bits.to(torch.int32).view(torch.float32) - 1.0
+    return u.reshape(tuple(salt.shape) + tuple(shape))
 
 
 def torch_uniform(salt: int, shape, device) -> torch.Tensor:

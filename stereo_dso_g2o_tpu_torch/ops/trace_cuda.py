@@ -55,8 +55,13 @@ pyramid's rule, so both kernels sample the same values.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
 it runs its plain version (`epipolar_search_ref`,
-`epipolar_search_slab_ref`). `LAUNCHES` / `LAUNCHES_SLAB` count kernel
-launches. `search_bound` is the least time the card could take for one
+`epipolar_search_slab_ref`). `LAUNCHES` / `LAUNCHES_SLAB` count the kernel
+launches the device ran: an eager launch adds one on the host; a launch
+captured into a program (`runtime/program.py`) captures, next to it, an
+increment of a per-device counter (`launch_counter`), so that the count
+advances each time the graph, or the WHILE or IF node's body around it,
+actually runs. Reading either name reads those counters (it waits for
+the device). `search_bound` is the least time the card could take for one
 search, which both kernels' times are set beside.
 """
 
@@ -98,8 +103,11 @@ BAND_EXTRA = 20  # ... and along it, beyond S: pattern, bilinear, gradient, GN t
 # published peaks of one H100 SXM: the roofline a search's bound is taken from
 HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12
 
-LAUNCHES = 0  # resident-kernel launches since the last reset_launches()
-LAUNCHES_SLAB = 0  # slab-kernel launches since the last reset_launches()
+# launches since the last reset_launches(), (resident, slab): made eagerly,
+# counted on the host; captured into a program, counted on the device
+_EAGER = [0, 0]
+_COUNTERS = {}  # device -> (2,) int64 counter the captured launches increment
+CAPTURED = [0, 0]  # launches captured into programs (not runs: sites)
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {
@@ -116,9 +124,56 @@ BUILD_SECONDS = {}  # kernel name -> wall time of the nvcc run this process made
 
 
 def reset_launches():
-    global LAUNCHES, LAUNCHES_SLAB
-    LAUNCHES = 0
-    LAUNCHES_SLAB = 0
+    _EAGER[:] = [0, 0]
+    for c in _COUNTERS.values():
+        c.zero_()
+
+
+def launch_counter(device) -> torch.Tensor:
+    """The (2,) int64 counter of launches captured on `device`; a program
+    makes it before it captures (a capture allocates in its own pool)."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    c = _COUNTERS.get(device)
+    if c is None:
+        c = _COUNTERS[device] = torch.zeros(2, dtype=torch.int64, device=device)
+    return c
+
+
+def _count(k: int, device):
+    """One launch of kernel k (0 resident, 1 slab) on `device`: on the host
+    eagerly; under capture an increment of the device counter, captured
+    next to the launch."""
+    if not torch.cuda.is_current_stream_capturing():
+        _EAGER[k] += 1
+        return
+    device = torch.device(device)
+    c = _COUNTERS.get(device)
+    if c is None:
+        raise RuntimeError(f"no launch counter on {device}: call launch_counter() before capturing")
+    c.narrow(0, k, 1).add_(1)
+    CAPTURED[k] += 1
+
+
+def launches() -> tuple:
+    """(resident, slab) launches the device ran since the last
+    reset_launches(): the eager ones and the captured ones that ran (reads
+    the device counters: waits for the device)."""
+    out = list(_EAGER)
+    for c in _COUNTERS.values():
+        for k, v in enumerate(c.tolist()):
+            out[k] += v
+    return tuple(out)
+
+
+def __getattr__(name):
+    # LAUNCHES / LAUNCHES_SLAB: launches(), one kernel each
+    if name == "LAUNCHES":
+        return launches()[0]
+    if name == "LAUNCHES_SLAB":
+        return launches()[1]
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _nvcc() -> str:
@@ -264,7 +319,6 @@ def epipolar_search(dI, scal, color, weights, patx, paty, *, S: int,
                     radius: int, edge: int):
     """Discrete epipolar search + GN refinement per lane: (N, 8) float32
     for one image, (B, N, 8) for a batch of B sequences (one launch)."""
-    global LAUNCHES
     batched = _check(dI, scal, color, weights, patx, paty, edge)
     if not 1 <= S <= MAX_STEPS:
         raise ValueError(f"S must be in [1, {MAX_STEPS}], got {S}")
@@ -279,7 +333,7 @@ def epipolar_search(dI, scal, color, weights, patx, paty, *, S: int,
     if out.numel():
         out = _launch("epipolar_search", *ops, dI.shape[-3], dI.shape[-2], S, huber_th,
                       gn_iters, gn_threshold, radius, edge, ops[0].shape[0], WARPS)
-        LAUNCHES += 1
+        _count(0, dI.device)
     return out if batched else out[0]
 
 
@@ -372,7 +426,6 @@ def epipolar_search_slab(dI, scal, color, weights, patx, paty, *, S: int,
     dimension). Only dI[..., 0] is read. `band_len` caps the staged band's
     length (a multiple of 4; default from S): taps beyond it read global
     memory, so it changes the time and never the answer."""
-    global LAUNCHES_SLAB
     batched = _check(dI, scal, color, weights, patx, paty, edge)
     if band_len is not None and (band_len < 4 or band_len % 4):
         raise ValueError(f"band_len must be a positive multiple of 4, got {band_len}")
@@ -395,7 +448,7 @@ def epipolar_search_slab(dI, scal, color, weights, patx, paty, *, S: int,
         out = _launch("epipolar_search_slab", plane, *ops, dI.shape[-3], dI.shape[-2], S,
                       huber_th, gn_iters, gn_threshold, radius, edge, band_len,
                       plane.shape[0], SLAB_WARPS)
-        LAUNCHES_SLAB += 1
+        _count(1, dI.device)
     return out if batched else out[0]
 
 

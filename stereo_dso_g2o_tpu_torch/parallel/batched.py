@@ -5,20 +5,16 @@ program is `vmap`ped over a leading sequence axis, so stepping N sequences
 is one dispatch and one small fetch per frame. Here the state of all
 sequences lives stacked (every leaf of `GraphState` with a leading axis N)
 and every part of the frame program is one program over that axis, each op
-once for all N sequences, one sequence its batch of one:
+once for all N sequences, one sequence its batch of one, and on the card
+one captured program (`runtime/program.py`) that reads nothing:
 `frame_track_batched` is `graph_system.frame_track` on the stacked state
 (the N x 5 pose hypotheses as rows of one LM loop, one K1 launch per search
-for all sequences; on the card one replay of its captured program, keyed
-by N, `runtime/program.py`), `frame_kf_subset_batched` is the keyframe pipeline
-(`graph_system._kf_branch`) once over the keyframe-needing sequences (K1
-three launches, one packed host read, BA's flags one read an iteration,
-whatever the subset's size), and "fused" `frame_auto_batched` runs both
-over all N and selects per sequence on the device. Measured on an NVIDIA
-H100 80GB HBM3 at 700 W (chip_smoke.py [batched], 4 sequences at
-1216x352, "deferred", frames 14-31): 789.6 ms per batched frame (mean)
-against 4 x 633.8 ms for the single-sequence frame program in the same
-run, 0.311 of N single frames; 4.35 K1 launches and 64.1 host reads a
-batched frame, 3 K1 launches a keyframe dispatch whatever its size.
+for all sequences; one program per N), `frame_kf_subset_batched` is the
+keyframe pipeline (`graph_system._kf_branch`) once over the
+keyframe-needing sequences (K1 three launches whatever the subset's size;
+one program per subset size), and "fused" `frame_auto_batched` runs both
+over all N and selects per sequence on the device (one program per N).
+`BatchedRunner.warm_kf_buckets` captures them before a timed run.
 
 Three dispatch modes (`kf_mode`):
 
@@ -61,8 +57,11 @@ from stereo_dso_g2o_tpu_torch.frontend.graph_system import (
     GraphSystem,
     frame_track,
 )
+from stereo_dso_g2o_tpu_torch.ops import trace as trace_ops
+from stereo_dso_g2o_tpu_torch.runtime import program
 from stereo_dso_g2o_tpu_torch.utils import host
-from stereo_dso_g2o_tpu_torch.utils.tree import select_rows, tree_map
+from stereo_dso_g2o_tpu_torch.utils.fixed import constant
+from stereo_dso_g2o_tpu_torch.utils.tree import tree_map
 
 # ---------------------------------------------------------------------------
 # trees of tensors (utils/tree.py): stack, slice and scatter over sequences
@@ -94,16 +93,10 @@ def _tree_scatter(stacked, items, idx):
 
 
 def _tree_rows(tree, idx):
-    """Rows `idx` of every leaf, stacked in that order (a copy)."""
-    i = torch.as_tensor(np.asarray(idx), dtype=torch.long)
-    on = {}
-
-    def take(x):
-        if x.device not in on:
-            on[x.device] = i.to(x.device)
-        return x[on[x.device]]
-
-    return tree_map(take, tree)
+    """Rows `idx` of every leaf, stacked in that order (a copy); the
+    indices go to each device once per value (`utils/fixed.constant`)."""
+    idx = [int(i) for i in idx]
+    return tree_map(lambda x: x[constant(idx, torch.int64, x.device)], tree)
 
 
 # ---------------------------------------------------------------------------
@@ -118,7 +111,7 @@ def frame_auto_batched(
     calib_cs,  # (N, 4)
     baselines,  # (N,)
     exposures,  # (N,)
-    pots: Sequence[int],  # per-sequence selector potential
+    pots,  # per-sequence selector potential: (N,) integers
     settings: Settings = default_settings(),
     n_levels: int = 6,
     n_tries: int = 5,
@@ -129,33 +122,29 @@ def frame_auto_batched(
     uniforms: Optional[Sequence[Optional[Callable]]] = None,
 ):
     """`frame_auto` over the sequence axis, as the JAX package's vmap of it
-    computes it: the track program over all N sequences, the keyframe
+    computes it: the track half over all N sequences, the keyframe
     pipeline over all N, and a per-sequence select on `need_kf` on the
     device (the vmapped `lax.cond` runs both branches for every sequence).
     `need_kf` is read on the host zero times. Returns (states, bundles),
-    stacked.
+    stacked. On the card one program per N (`runtime/program.py`);
+    `uniforms` (host draws) only eagerly."""
+    dev = lefts.device
+    args = (states, lefts, rights, calib_cs, baselines, exposures,
+            _pots_on(pots, dev))
+    static = dict(settings=settings, n_levels=n_levels, n_tries=n_tries, caps=tuple(caps),
+                  w0=w0, h0=h0, imm_cap=imm_cap, gate=False)
+    if program.active(dev):
+        GS._no_host_draw(uniforms, "uniforms")
+        return program.run(GS._frame_auto, args, static, key=(trace_ops.DEFAULT_ROUTE,))
+    return GS._frame_auto(*args, **static, uniforms=uniforms)
 
-    The keyframe pipeline writes each sequence's level-0 pyramid into its
-    free slot's row of the shared (N, F, H, W, 3) stack in place; a sequence
-    that takes no keyframe gets that row's old pixels back, so every leaf of
-    its state is `frame_track`'s."""
-    n = lefts.shape[0]
-    # eager: "fused" becomes a program when its keyframe half is one
-    st_t, b_t, aux = GS._frame_track(
-        states, lefts, rights, calib_cs, baselines, exposures, settings, n_levels,
-        n_tries, w0, h0,
-    )
-    slot = GS._free_slot(states.win).long()
-    rows = torch.arange(n, device=slot.device)
-    dI0 = states.dI0_slots
-    saved = dI0[rows, slot]  # the rows the keyframe pipeline overwrites
-    st_k, b_k = GS._kf_branch(
-        states, aux, calib_cs, baselines, exposures, settings, n_levels, pots, caps,
-        w0, h0, imm_cap, uniforms,
-    )
-    kf = aux.need_kf
-    dI0[rows, slot] = torch.where(kf[:, None, None, None], dI0[rows, slot], saved)
-    return select_rows(kf, st_k, st_t), select_rows(kf, b_k, b_t)
+
+def _pots_on(pots, dev) -> torch.Tensor:
+    """Per-sequence potentials as an int32 tensor on `dev`: host values
+    made once per device and value (`utils/fixed.constant`)."""
+    if isinstance(pots, torch.Tensor):
+        return pots.to(device=dev)
+    return constant([int(p) for p in pots], torch.int32, dev)
 
 
 def frame_track_batched(
@@ -201,18 +190,34 @@ def frame_kf_subset_batched(
     """The keyframe pipeline over the keyframe-needing subset as one pass
     of ops (`graph_system._kf_branch` once over the rows `idx`, gathered
     from the stacked states). Returns (states, bundles), stacked over `idx`.
+    On the card one program per subset size (`runtime/program.py`), which
+    `BatchedRunner.warm_kf_buckets` captures before a timed run.
 
     The JAX function pads `idx` with duplicates to a bucket size ({1, 2, N})
-    so that few program variants compile. Nothing compiles here, and a
-    duplicate row would compute the same values at the cost of a whole
-    keyframe pipeline, so the subset is not padded."""
+    so that few program variants compile. Here a duplicate row would
+    compute the same values at the cost of a whole keyframe pipeline, so
+    the subset is not padded: a program per size 1..N."""
     idx = [int(i) for i in idx]
-    sel = torch.as_tensor(idx, device=calib_cs.device)
-    return GS._kf_branch(
-        _tree_rows(states_pre, idx), _tree_rows(aux, idx), calib_cs[sel], baselines[sel],
-        exposures[sel], settings, n_levels, [pots[k] for k in idx], caps, w0, h0, imm_cap,
-        None if uniforms is None else [uniforms[k] for k in idx],
-    )
+    dev = calib_cs.device
+    sel = constant(idx, torch.int64, dev)
+    args = (_tree_rows(states_pre, idx), _tree_rows(aux, idx), calib_cs[sel], baselines[sel],
+            exposures[sel], _pots_on(pots, dev)[sel])
+    static = dict(settings=settings, n_levels=n_levels, caps=tuple(caps), w0=w0, h0=h0,
+                  imm_cap=imm_cap)
+    if program.active(dev):
+        GS._no_host_draw(uniforms, "uniforms")
+        return program.run(_kf_subset, args, static, key=(trace_ops.DEFAULT_ROUTE,))
+    return _kf_subset(*args, **static,
+                      uniforms=None if uniforms is None else [uniforms[k] for k in idx])
+
+
+def _kf_subset(states, aux, calib_cs, baselines, exposures, pots, settings: Settings,
+               n_levels: int, caps: Tuple[int, ...], w0: int, h0: int, imm_cap: int,
+               uniforms=None):
+    """`frame_kf_subset_batched` on its gathered rows, run eagerly (what its
+    program captures)."""
+    return GS._kf_branch(states, aux, calib_cs, baselines, exposures, settings, n_levels, pots,
+                         caps, w0, h0, imm_cap, uniforms)
 
 
 class BatchedRunner:
@@ -284,7 +289,10 @@ class BatchedRunner:
         n = len(self.systems)
         if exposures is None:
             exposures = [1.0] * n
-        expos = torch.as_tensor(np.asarray(exposures, np.float32), device=self.device)
+        expos = np.asarray(exposures, np.float32)
+        # on a program path made once per value: a copy from the host waits
+        expos = (constant(expos, torch.float32, self.device) if program.active(self.device)
+                 else torch.as_tensor(expos, device=self.device))
         lefts, rights = self._stacked_frames(frames)
         common = self._common()
 
@@ -372,21 +380,45 @@ class BatchedRunner:
     def _current_pots(self):
         return [int(gs.pot) for gs in self.systems]
 
-    def warm_kf_buckets(self):
-        """Make sure nothing is built inside the steady-state loop, without
-        touching the runner's state. The JAX module compiles its keyframe
-        bucket variants for one frame's shape here; eager PyTorch compiles
-        no program, so what is left is building the CUDA kernels (on a CUDA
-        device)."""
-        if self.device.type == "cuda":
-            from stereo_dso_g2o_tpu_torch.ops import trace_cuda
+    def warm_kf_buckets(self, frame=None):
+        """Capture, before a timed run, every program the steady-state loop
+        replays, without touching the runner's state (the JAX runner
+        compiles its keyframe buckets here): the track program, the
+        keyframe subset's for every size 1..N ("deferred", "gated") or the
+        "fused" one. frame: one (left, right) pair or stacked (N, H, W)
+        images (only their shapes matter); without it, or off the card or
+        inside `program.disabled()`, only the CUDA kernels are built."""
+        if self.device.type != "cuda":
+            return
+        from stereo_dso_g2o_tpu_torch.ops import trace_cuda
 
-            trace_cuda.build()
+        trace_cuda.build()
+        if frame is None or not program.active(self.device):
+            return
+        n = len(self.systems)
+        lefts, rights = (torch.as_tensor(f).to(self.device) for f in frame)
+        if lefts.dim() == 2:
+            lefts, rights = (x.expand((n,) + tuple(x.shape)) for x in (lefts, rights))
+        common = self._common()
+        expos = constant([1.0] * n, torch.float32, self.device)
+        pots = self._current_pots()
+        if self.kf_mode == "fused":
+            frame_auto_batched(self.states, lefts, rights, self.calib_cs, self.baselines, expos,
+                               pots, n_tries=5, caps=self.caps,
+                               imm_cap=self.settings.immature_cap, **common)
+            return
+        _, _, aux = frame_track_batched(self.states, lefts, rights, self.calib_cs,
+                                        self.baselines, expos, n_tries=5, **common)
+        for size in range(1, n + 1):
+            frame_kf_subset_batched(self.states, aux, self.calib_cs, self.baselines, expos, pots,
+                                    list(range(size)), caps=self.caps,
+                                    imm_cap=self.settings.immature_cap, **common)
 
     def _drain_one(self):
         bundles, frame_id, timestamp = self._pending_q.pop(0)
-        host.count()  # one wait for the frame; the copies after it find it done
-        b_all = FrameBundle(*[x.cpu().numpy() for x in bundles])
+        # one wait, for a packed copy of the frame's bundles; it starts here,
+        # since a "deferred" keyframe replaces some of them until then
+        b_all = FrameBundle(*host.Fetch(bundles).get())
         for k, gs in enumerate(self.systems):
             bk = FrameBundle(*[x[k] for x in b_all])
             # apply_bundle also adapts gs.pot per sequence; the value, stale

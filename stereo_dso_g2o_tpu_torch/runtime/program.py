@@ -11,22 +11,25 @@ device. `run(fn, args, static)` gives the port the same on the card:
   `args` and each leaf's shape, dtype and device. A new key builds a
   `Program`; a known one replays it.
 - **Building** copies the inputs into buffers of the program's own, runs
-  `fn` once eagerly on a side stream (cuBLAS, the kernels' libraries and
-  every lazy module load there), then captures `fn` on those buffers into
-  one graph, noting the K1/K2 launches it holds. Inside the capture
+  `fn` once eagerly on a side stream with every branch's body taken
+  (`utils/loop.every_branch`: cuBLAS, cuSOLVER, the kernels' libraries and
+  every lazy module load happen there, not in the capture), then captures
+  `fn` on those buffers into one graph. Inside the capture
   (`utils/loop.capturing`, handed `csrc/graph_while.cu` and a pool for
-  node bodies) each LM level's loop (`utils/loop.while_loop`) becomes a
-  WHILE node and the retry ladder (`utils/loop.cond`) an IF node: the
-  graph holds no host read, and no K1/K2 launch inside a node (`utils/loop`
-  raises), so each replay launches exactly the recorded ones. If the
-  capture fails, `run` raises and names the failure; it never runs eagerly
-  instead.
-- **Each call** copies the inputs in, replays, adds the recorded launches
-  to `ops/trace_cuda.LAUNCHES` / `LAUNCHES_SLAB`, and returns the outputs:
+  node bodies) each loop (`utils/loop.while_loop`: the LM levels, BA)
+  becomes a WHILE node and each branch (`utils/loop.cond`: the retry
+  ladder, the keyframe pipeline, the selector's potentials, the flagged
+  frames' marginalization) an IF node: the graph holds no host read. A
+  K1/K2 launch, at the top level or inside a node, captures an increment
+  of the device's launch counter next to it (`ops/trace_cuda`), so the
+  counts are those the device ran. If the capture fails, `run` raises
+  and names the failure; it never runs eagerly instead.
+- **Each call** copies the inputs in, replays and returns the outputs:
   an output that is an input buffer is the caller's own tensor (the
   program writes no input), every other one a copy, so that nothing the
   caller keeps (a state, a bundle that waits `fetch_lag` frames, the aux a
-  keyframe needs) changes at the next replay.
+  keyframe needs) changes at the next replay. Nothing waits for the
+  device: the host may run ahead of it.
 
 `disabled()` is the counterpart of `jax.disable_jit()`: inside it `run`
 calls `fn` eagerly, on the card too (`chip_smoke.py` and the tools put the
@@ -45,7 +48,7 @@ import torch
 
 from stereo_dso_g2o_tpu_torch.ops import trace_cuda
 from stereo_dso_g2o_tpu_torch.utils import host, loop
-from stereo_dso_g2o_tpu_torch.utils.tree import tree_map
+from stereo_dso_g2o_tpu_torch.utils.tree import leaves, tree_map
 
 _DISABLED = 0
 PROGRAMS: Dict[tuple, "Program"] = {}  # key -> its program
@@ -66,13 +69,6 @@ def disabled():
 def active(device) -> bool:
     """Whether `run` replays a program for tensors on `device`."""
     return torch.device(device).type == "cuda" and not _DISABLED
-
-
-def leaves(tree) -> list:
-    """The tensor leaves of a tree (`utils/tree.tree_map`'s order)."""
-    out = []
-    tree_map(lambda x: out.append(x) or x, tree)
-    return out
 
 
 def _unflatten(tree, new_leaves):
@@ -97,16 +93,14 @@ def _lib():
         lib = ctypes.CDLL(str(trace_cuda.build(["graph_while"])["graph_while"]))
         p, u64p = ctypes.c_void_p, ctypes.POINTER(ctypes.c_ulonglong)
         lib.sdso_cond_begin.argtypes = [p, p, p, ctypes.c_int, u64p]
-        lib.sdso_cond_end.argtypes = [p, p, ctypes.c_ulonglong, u64p]
-        lib.sdso_graph_nodes.argtypes = [p, u64p]
-        for fn in (lib.sdso_cond_begin, lib.sdso_cond_end, lib.sdso_graph_nodes):
+        lib.sdso_cond_end.argtypes = [p, p, ctypes.c_ulonglong, u64p, u64p]
+        lib.sdso_graph_nodes.argtypes = [p, u64p, u64p]
+        lib.sdso_graph_fault.argtypes = [p, ctypes.c_char_p, ctypes.c_int]
+        for fn in (lib.sdso_cond_begin, lib.sdso_cond_end, lib.sdso_graph_nodes,
+                   lib.sdso_graph_fault):
             fn.restype = ctypes.c_int
         _LIB.append(lib)
     return _LIB[0]
-
-
-def _launches() -> tuple:
-    return trace_cuda.LAUNCHES, trace_cuda.LAUNCHES_SLAB
 
 
 class Program:
@@ -123,7 +117,7 @@ class Program:
         self.args = _unflatten(args, self.inputs)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), loop.every_branch():
             fn(*self.args, **static)
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
@@ -133,27 +127,39 @@ class Program:
         self.pool = torch.cuda.graph_pool_handle()
         self.body_pool = torch.cuda.graph_pool_handle()
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept: its nodes are counted
-        k0, r0 = _launches(), host.READS
+        trace_cuda.launch_counter(dev)
+        k0, r0 = tuple(trace_cuda.CAPTURED), host.READS
         try:
-            with loop.capturing(_lib(), self.body_pool, _launches) as cap, \
+            with loop.capturing(_lib(), self.body_pool) as cap, \
                     torch.cuda.graph(self.graph, pool=self.pool):
                 out = fn(*self.args, **static)
         except Exception as e:
             raise RuntimeError(f"capturing the program {name} failed: {type(e).__name__}: {e}") from e
-        finally:
-            # the wrappers counted their captures: launches happen per replay
-            self.launches = (trace_cuda.LAUNCHES - k0[0], trace_cuda.LAUNCHES_SLAB - k0[1])
-            trace_cuda.LAUNCHES, trace_cuda.LAUNCHES_SLAB = k0
+        # K1/K2 launches the graph holds, inside its nodes' bodies included
+        self.launches = tuple(c - k for c, k in zip(trace_cuda.CAPTURED, k0))
         if host.READS != r0:
             raise RuntimeError(f"the program {name} read the device {host.READS - r0} times")
         self.while_nodes, self.if_nodes, self.body_nodes = (
             cap.while_nodes, cap.if_nodes, cap.body_nodes)
-        n = ctypes.c_ulonglong()
-        rc = _lib().sdso_graph_nodes(self.graph.raw_cuda_graph(), ctypes.byref(n))
+        n, types = ctypes.c_ulonglong(), (ctypes.c_ulonglong * 16)()
+        raw = self.graph.raw_cuda_graph()
+        rc = _lib().sdso_graph_nodes(raw, ctypes.byref(n), types)
         if rc != 0:
             raise RuntimeError(f"counting the graph's nodes failed: cudaError {rc}")
         self.nodes = n.value
-        self.graph.instantiate()
+        # nodes by cudaGraphNodeType (0 kernel, 1 memcpy, 2 memset, ...; 15
+        # a type the runtime does not name, the conditional nodes with the
+        # H100's CUDA), at the top level and in the bodies
+        self.node_types = {k: v for k, v in enumerate(types) if v}
+        self.body_types = {k: v for k, v in enumerate(cap.body_types) if v}
+        try:
+            self.graph.instantiate()
+        except Exception as e:
+            what = ctypes.create_string_buffer(512)
+            _lib().sdso_graph_fault(raw, what, len(what))
+            raise RuntimeError(
+                f"instantiating the program {name} failed ({e}): {what.value.decode()}; "
+                f"nodes by type {self.node_types}, in the bodies {self.body_types}") from e
         torch.cuda.synchronize(dev)
         self.capture_s = time.perf_counter() - t0
         self.input_bytes = sum(x.numel() * x.element_size() for x in self.inputs)
@@ -179,8 +185,6 @@ class Program:
         torch._foreach_copy_(self.inputs, in_leaves)
         self.graph.replay()
         self.replays += 1
-        trace_cuda.LAUNCHES += self.launches[0]
-        trace_cuda.LAUNCHES_SLAB += self.launches[1]
         copies = [torch.empty_like(x) for x in self.made]
         if copies:
             torch._foreach_copy_(copies, self.made)
@@ -188,6 +192,22 @@ class Program:
             in_leaves[j] if j is not None else copies[self.made_at[id(x)]]
             for x, j in zip(self.outputs, self.plan)
         ])
+
+
+    def report(self) -> dict:
+        """What `chip_smoke.py` and the tools print of a program."""
+        return dict(name=self.name, capture_s=round(self.capture_s, 4),
+                    warmup_s=round(self.warmup_s, 4), nodes=self.nodes,
+                    body_nodes=self.body_nodes, node_types=self.node_types,
+                    body_types=self.body_types, while_nodes=self.while_nodes,
+                    if_nodes=self.if_nodes, launch_sites=list(self.launches),
+                    pool_mib=round(self.pool_bytes / 2**20, 1),
+                    input_mib=round(self.input_bytes / 2**20, 1), replays=self.replays)
+
+
+def report() -> list:
+    """`Program.report()` of every program built, in the order built."""
+    return [p.report() for p in PROGRAMS.values()]
 
 
 def run(fn: Callable, args, static: dict, key=()):

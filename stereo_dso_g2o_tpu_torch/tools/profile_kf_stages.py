@@ -6,16 +6,18 @@ Port of `tools/profile_kf_stages.py`:
         [capture_after=40] [reps=5] [seq=0] [small=0] [device=cuda|cpu]
 
 bench.py's sequence `seq` is stepped through `graph_system.frame_track` /
-`frame_kf` up to frame `capture_after`, keeping the pre-frame state and the
-tracking result of the last keyframe on the way. `frame_kf` is then run
-`reps` more times from that capture with the profiler's sections on
+`frame_kf` up to frame `capture_after` (on the card replays of their
+captured programs, `runtime/program.py`), keeping the pre-frame state and
+the tracking result of the last keyframe on the way. `frame_kf` is then
+run `reps` more times from that capture eagerly (`program.disabled()`: a
+replay runs no section) with the profiler's sections on
 (`utils/timing.PROF`, each section synchronizes the device): the stages of
 `graph_system._kf_branch` in its order, the JAX tool's names. `flag_insert`
-is what the branch spends outside its sections (flagging, the one packed
-host read, insertion, residual wiring, the state it assembles). Beside
-them: `frame_track` on the next frame from the same pre-state (on the
-card a replay of its captured program, `runtime/program.py`, host clock),
-and over the `frame_kf` runs, which are eager, torch.profiler's device busy
+is what the branch spends outside its sections (flagging, insertion,
+residual wiring, the state it assembles). Beside them: `frame_kf` replayed
+through its program (`kf_program_ms`, host clock, synchronized),
+`frame_track` on the next frame from the same pre-state (a replay of its
+program), and over the eager `frame_kf` runs torch.profiler's device busy
 share and kernels per call.
 Reference: FullSystem::makeKeyFrame (FullSystem.cpp:1168-1221).
 """
@@ -47,6 +49,7 @@ def main(capture_after=40, reps=5, seq=0, small=False, device=None) -> dict:
 
     from stereo_dso_g2o_tpu_torch.bench import BOOT
     from stereo_dso_g2o_tpu_torch.frontend.graph_system import frame_kf, frame_track
+    from stereo_dso_g2o_tpu_torch.runtime import program
     from stereo_dso_g2o_tpu_torch.utils.timing import PROF
 
     capture_after, reps = int(capture_after), int(reps)
@@ -71,8 +74,12 @@ def main(capture_after=40, reps=5, seq=0, small=False, device=None) -> dict:
     state_pre, aux, kf_frame = cap
     emit({"progress": "captured_kf_state", "frame": kf_frame})
 
-    def kf():
+    def kf_program():
         return frame_kf(state_pre, aux, calib.c, calib.baseline, one, **kf_kw)
+
+    def kf():
+        with program.disabled():
+            return kf_program()
 
     kf()  # warm
     sync(dev)
@@ -107,6 +114,7 @@ def main(capture_after=40, reps=5, seq=0, small=False, device=None) -> dict:
         results[f"prefix_{name}_ms"] = round(cum, 3)
         results[f"stage_{name}_ms"] = round(stage[name], 3)
     results["kf_branch_ms"] = round(total_ms, 3)
+    results["kf_program_ms"] = round(timed_ms(kf_program, dev, reps)[0], 3)
     results["frame_track_ms"] = round(timed_ms(
         lambda: frame_track(state_pre, lefts[capture_after], rights[capture_after], calib.c,
                             calib.baseline, one, n_tries=5, **common), dev, reps)[0], 3)

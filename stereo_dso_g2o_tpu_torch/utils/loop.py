@@ -10,13 +10,13 @@ the capture hands in: nothing is read, the device decides. Under
 `bounded()` every loop runs to its bound and every branch's body runs,
 with no read: what the nodes compute, checked where there is no card (a
 trip after the last changes nothing, and a body leaves what its predicate
-does not select as it was).
+does not select as it was). Under `every_branch()` every branch's body
+runs and loops run as they do eagerly: a program's warm-up, which runs
+every op of the capture once.
 
-A node's body is captured once and runs as often as the device decides,
-so no search kernel may be launched inside one: its launch counter
-(`ops/trace_cuda.LAUNCHES`), which a replay advances by the launches
-captured, would then count one launch whatever the trips. `_conditional`
-raises if the counters moved while a body was captured.
+A node's body is captured once and runs as often as the device decides;
+a search kernel launched inside one counts its launches on the device
+(`ops/trace_cuda.launch_counter`), each time the body runs.
 """
 
 from __future__ import annotations
@@ -29,8 +29,10 @@ from typing import Callable, Optional
 import torch
 
 from stereo_dso_g2o_tpu_torch.utils import host
+from stereo_dso_g2o_tpu_torch.utils.tree import leaves, tree_map
 
 _BOUNDED = False
+_EVERY_BRANCH = False
 _CAPTURE: Optional["Capture"] = None  # the capture in progress
 _BODY_STREAMS = {}  # (device, depth) -> the stream node bodies are captured on
 
@@ -38,17 +40,17 @@ _BODY_STREAMS = {}  # (device, depth) -> the stream node bodies are captured on
 @dataclasses.dataclass
 class Capture:
     """What a capture in progress gives its loops and branches: the bound
-    `csrc/graph_while.cu` (`sdso_cond_begin`, `sdso_cond_end`), the graph
-    pool a body's allocations go to, and a function that reads the search
-    kernels' launch counters. It counts the nodes it adds."""
+    `csrc/graph_while.cu` (`sdso_cond_begin`, `sdso_cond_end`) and the
+    graph pool a body's allocations go to. It counts the nodes it adds."""
 
     lib: ctypes.CDLL
     body_pool: tuple
-    launches: Callable[[], tuple]
     depth: int = 0
     while_nodes: int = 0
     if_nodes: int = 0
     body_nodes: int = 0
+    # the bodies' nodes by cudaGraphNodeType
+    body_types: ctypes.Array = dataclasses.field(default_factory=lambda: (ctypes.c_ulonglong * 16)())
 
 
 @contextlib.contextmanager
@@ -63,13 +65,24 @@ def bounded():
 
 
 @contextlib.contextmanager
-def capturing(lib, body_pool, launches):
+def every_branch():
+    """Within the block, branches always run their body (loops as eagerly)."""
+    global _EVERY_BRANCH
+    prev, _EVERY_BRANCH = _EVERY_BRANCH, True
+    try:
+        yield
+    finally:
+        _EVERY_BRANCH = prev
+
+
+@contextlib.contextmanager
+def capturing(lib, body_pool):
     """Within the block (a graph capture), loops and branches on a
     capturing stream become conditional nodes; yields their `Capture`."""
     global _CAPTURE
     if _CAPTURE is not None:
         raise RuntimeError("a program is already being captured")
-    _CAPTURE = Capture(lib, body_pool, launches)
+    _CAPTURE = Capture(lib, body_pool)
     try:
         yield _CAPTURE
     finally:
@@ -116,27 +129,23 @@ def _conditional(flag: torch.Tensor, body: Callable[[], None], is_while: bool):
            "adding a conditional node")
     nodes = ctypes.c_ulonglong()
     routed = _allocate_to(dev, cap.body_pool) if cap.depth == 0 else contextlib.nullcontext()
-    launches = cap.launches()
     cap.depth += 1
     try:
         with torch.cuda.stream(stream), routed:
             body()
             _check(cap.lib.sdso_cond_end(stream.cuda_stream, flag.data_ptr() if is_while else None,
-                                         handle, ctypes.byref(nodes)), "capturing a node's body")
+                                         handle, ctypes.byref(nodes), cap.body_types),
+                   "capturing a node's body")
     finally:
         cap.depth -= 1
-    if cap.launches() != launches:
-        raise RuntimeError(
-            f"a search kernel was launched inside a {'WHILE' if is_while else 'IF'} node's body "
-            f"(launch counters {launches} -> {cap.launches()}): a replay would count it once "
-            f"whatever the trips or branch; launch it outside the loop or branch")
     cap.body_nodes += nodes.value
 
 
 def _while_node(done: torch.Tensor, trip: Callable[[], None]):
     """`while_loop` inside a capture: a WHILE node whose body is `trip` and
     whose condition, "some entry of `done` is not set", the device
-    evaluates before every trip."""
+    evaluates before every trip (the first included: a loop whose first
+    trip always runs starts with `done` unset)."""
     flag = torch.logical_not(done.all())
 
     def body():
@@ -150,38 +159,46 @@ def _while_node(done: torch.Tensor, trip: Callable[[], None]):
 def _if_node(pred: torch.Tensor, body: Callable, otherwise):
     """`cond` inside a capture: an IF node on `pred`, whose body writes
     `body()`'s result over a copy of `otherwise`."""
-    outs = [x.clone() for x in otherwise]
+    outs = tree_map(lambda x: x.clone(), otherwise)
 
     def write():
-        for o, r in zip(outs, body()):
-            o.copy_(r)
+        got = leaves(body())
+        dst = leaves(outs)
+        if len(got) != len(dst):
+            raise RuntimeError(f"a branch's body gave {len(got)} tensors for {len(dst)}")
+        torch._foreach_copy_(dst, got)
 
     _conditional(pred.to(torch.bool), write, False)
     _CAPTURE.if_nodes += 1
-    return type(otherwise)(*outs)
+    return outs
 
 
-def while_loop(done: torch.Tensor, trip: Callable[[], None], bound: int):
+def while_loop(done: torch.Tensor, trip: Callable[[], None], bound: int,
+               first_trip: bool = False):
     """Run `trip()` until every entry of the bool tensor `done` is set.
     `trip` updates `done` and the rest of its carry in place; a trip after
     every entry is set must change nothing, and after `bound` trips every
-    entry is set."""
+    entry is set. `first_trip`: the caller's `done` starts unset, so the
+    host loop runs the first trip without reading it (one read a trip)."""
     if _capturing(done):
         _while_node(done, trip)
     elif _BOUNDED:
         for _ in range(bound):
             trip()
     else:
+        if first_trip:
+            trip()
         while not host.flag(done.all()):
             trip()
 
 
 def cond(pred: torch.Tensor, body: Callable, otherwise):
-    """`body()` if the () bool tensor `pred` holds, else `otherwise` (a
-    NamedTuple of tensors of body's shapes). `body` must give `otherwise`'s
-    values wherever it does not act, so running it always is the same."""
+    """`body()` if the () bool tensor `pred` holds, else `otherwise` (a tree
+    of tensors of body's structure and shapes, `utils/tree.py`). `body`
+    must give `otherwise`'s values wherever it does not act, so running it
+    always is the same."""
     if _capturing(pred):
         return _if_node(pred, body, otherwise)
-    if _BOUNDED or host.flag(pred):
+    if _BOUNDED or _EVERY_BRANCH or host.flag(pred):
         return body()
     return otherwise

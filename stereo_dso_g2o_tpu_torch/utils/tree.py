@@ -25,6 +25,13 @@ def tree_map(fn: Callable, tree, *rest):
     raise TypeError(f"tree_map: a {type(tree).__name__} is neither a tensor nor a container")
 
 
+def leaves(tree) -> list:
+    """The tensor leaves of a tree, in `tree_map`'s order."""
+    out = []
+    tree_map(lambda x: out.append(x) or x, tree)
+    return out
+
+
 def lead_one(tree):
     """Every leaf with a leading axis of one: one sequence as a batch of one."""
     return tree_map(lambda x: x[None], tree)

@@ -4,7 +4,10 @@ bench entry's small corridor, bootstrapped by the port's FullSystem), with
 every Python-level read of a tensor counted by patching `Tensor.__bool__`,
 `__int__`, `__float__`, `__index__`, `.item`, `.tolist`, `.cpu` and
 `.numpy`. The two counts must be equal, and the tracker's LM loop must be
-among them (a read every iteration of every level)."""
+among them (a read every iteration of every level); run eagerly, the
+keyframe reads exactly once for each of its loops' trips and branches
+(BA's flags once a trip, one read per supported selector potential, one
+per window slot's marginalization)."""
 
 import numpy as np
 import pytest
@@ -12,10 +15,11 @@ import torch
 from _torch_parity import ReadCounter
 
 from stereo_dso_g2o_tpu_torch import bench as tbench
+from stereo_dso_g2o_tpu_torch.backend import ba
 from stereo_dso_g2o_tpu_torch.frontend import graph_system as tgs
 from stereo_dso_g2o_tpu_torch.frontend.full_system import FullSystem
 from stereo_dso_g2o_tpu_torch.models.camera import make_calib
-from stereo_dso_g2o_tpu_torch.ops import tracker_ops
+from stereo_dso_g2o_tpu_torch.ops import selector, tracker_ops
 
 
 @pytest.fixture(scope="module")
@@ -47,6 +51,14 @@ def test_host_reads_count_every_read_of_frame_track_and_frame_kf(warmed, monkeyp
         return lm_level(*a, **kw)
 
     monkeypatch.setattr(tracker_ops, "lm_level", count_levels)
+    trips = [0]
+    ba_iteration = ba.ba_iteration
+
+    def count_trips(*a, **kw):
+        trips[0] += 1
+        return ba_iteration(*a, **kw)
+
+    monkeypatch.setattr(ba, "ba_iteration", count_trips)
     counter = ReadCounter(monkeypatch)
     tgs.reset_host_reads()
     st, bundle, aux = tgs.frame_track(gs.state, lt, rt, cal.c, cal.baseline, expo,
@@ -59,7 +71,9 @@ def test_host_reads_count_every_read_of_frame_track_and_frame_kf(warmed, monkeyp
     # the track half reads once an LM iteration of each level it runs
     assert loops[0] == cal.n_levels
     assert track_reads[0] == track_reads[1] >= cal.n_levels, (track_reads, counter.by)
-    # the keyframe adds its packed read, insert_activated's two counts and
-    # BA's convergence flag an iteration
-    assert total[0] == total[1] >= track_reads[0] + 4, (total, counter.by)
+    # the keyframe adds BA's convergence flags once a trip, one read per
+    # supported selector potential and one per window slot
+    kf_reads = trips[0] + len(selector.SUPPORTED_POTS) + gs.state.win.F
+    assert trips[0] >= 1
+    assert total[0] == total[1] == track_reads[0] + kf_reads, (total, kf_reads, counter.by)
     assert int(b_kf.slot) >= 0 and np.isfinite(bundle.T.numpy()).all()
