@@ -20,16 +20,27 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
      memory; and the time of making the intensity plane;
   4. slice: renders 40 frames of the bench corridor (sequence 0) on the
      card, runs the port's FullSystem over them at the KITTI-resolution
-     bench settings, and checks: not lost, finite poses, the kernel was
-     launched, a frame marginalization ran, KF count and ATE inside the
-     bounds recorded in PERF.md;
+     bench settings through its programs (every jitted unit one captured
+     program: a first pass builds them, a second from the same start
+     replays them), then again under program.disabled(), and checks: the
+     replaying pass and eager bit for bit (every pose, the keyframe ids,
+     the final window and immature set), K1 launches equal frame by frame,
+     one host read on every tracked non-keyframe frame, not lost, finite
+     poses, the kernel was launched, a frame marginalization ran, KF count
+     and ATE inside the bounds recorded in PERF.md; prints ms per frame
+     both ways (keyframe and non-keyframe apart, the frames that built
+     programs apart), host reads per frame, each program's report and the
+     peak memory;
   5. slab kernel vs plain, and vs the resident kernel, on a rendered
      2048x1024 pair (over the 6 MB gate) at max_pix_search 0.027 (S = 86):
      temporal N=5120, stereo N=2560 both ways, stereo N=8192 (what
      stereo_match gives it); both kernels timed there; the edge lanes and
      the plane's time as in phase 3;
-  6. stereo_match on that pair: went through the slab kernel, enough good
-     points, inverse depth against the renderer's ground truth;
+  6. stereo_match on that pair: stereo_match_points one program, held bit
+     for bit to program.disabled() with K2 launched as often both ways
+     (from inside the program, counted on the device), ms per call both
+     ways; went through the slab kernel, enough good points, inverse depth
+     against the renderer's ground truth;
   7. the main path as bench.py drives it: FullSystem over frames 0-11,
      GraphSystem.from_full_system, add_frame over frames 12-39: not lost,
      finite poses, the resident kernel launched, a keyframe and a frame
@@ -96,8 +107,9 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
      plain version;
   10. checkpoint: FullSystem over 16 frames, saved at frame 10, loaded and
      continued: trajectory and window equal the uninterrupted run's exactly;
-  11. diagnostics: eigenvalue_record of phase 7's final window: finite, the
-     nullspace responses small against the pose block's largest eigenvalue;
+  11. diagnostics: eigenvalue_record of phase 7's final window (its Hessian
+     one program), ms per record both ways: finite, the nullspace
+     responses small against the pose block's largest eigenvalue;
   12. sharded BA and multi-sequence: the sharded BA step and GN loop over a
      one-rank nccl group equal ba.ba_iteration / ba.optimize_fused bit for
      bit (several ranks are checked on the CPU only, with gloo, by
@@ -130,7 +142,9 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
      growing baseline, rendered by the port: the frame it snaps at, the
      median relative inverse-depth error against the renderer's up to scale
      and the translation's direction, held to the JAX package's run on the
-     same frames on the CPU; ms per track_frame, good points per level;
+     same frames on the CPU, each of a pass that builds the initializer's
+     programs, one that replays them and two eager ones, all four bit for
+     bit; ms per track_frame both ways, good points per level;
   17. tools, the port's tools (stereo_dso_g2o_tpu_torch/tools): the
      keyframe audit over phase 14's obs file (as `python -m`), one BA
      iteration at F = 8 and F = 16, profile_frame and profile_kf_stages
@@ -565,6 +579,140 @@ def check_kf_dispatches(log, tag):
     if log["eager_differ"]:
         fail(f"{tag}: a keyframe dispatch's program and its eager run differ in "
              f"{log['eager_differ']} leaves")
+
+
+def phase_slice(dev, calib, settings, lefts, rights, gt, launches):
+    """Phase 4: FullSystem over the 40 frames through its programs (a
+    first pass builds them: its frames that built a program are timed
+    apart; a second pass from the same start replays them), then again
+    from the same start under `program.disabled()`: every pose, the
+    keyframe ids, the final window and immature set bit for bit, K1 frame
+    by frame (the second pass, whose launches are all replays'); ms per
+    frame both ways (keyframe and non-keyframe apart), host reads per
+    frame, each program's report, peak memory; KF count and ATE inside
+    the bounds."""
+    from stereo_dso_g2o_tpu_torch.frontend.full_system import FullSystem
+    from stereo_dso_g2o_tpu_torch.io import trajectory
+    from stereo_dso_g2o_tpu_torch.ops import trace_cuda as tk
+    from stereo_dso_g2o_tpu_torch.runtime import program
+    from stereo_dso_g2o_tpu_torch.utils import host
+    from stereo_dso_g2o_tpu_torch.utils.timing import PROF
+
+    t_phase = time.perf_counter()
+    runs = {}
+    for mode in ("build", "program", "eager"):
+        ctx = program.disabled() if mode == "eager" else contextlib.nullcontext()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.empty_cache()
+        built_before = set(program.PROGRAMS)
+        fs = FullSystem(calib, settings, device=dev)
+        tk.reset_launches()
+        ms, reads, k1, built, kf = [], [], [], [], []
+        # SDSO_PROFILE=1: per-section host times and a torch.profiler trace
+        # of the last PROFILE_FRAMES frames, of the eager run (the profiler
+        # records a replayed WHILE body once, not once a trip)
+        profile = PROF.enabled and mode == "eager"
+        traced = contextlib.ExitStack()
+        prof = None
+        with ctx:
+            for i in range(N_FRAMES):
+                if profile and i == N_FRAMES - PROFILE_FRAMES:
+                    prof = traced.enter_context(torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]))
+                n_prog, k0, kfs = len(program.PROGRAMS), tk.LAUNCHES, len(fs.kf_shells)
+                host.reset()
+                t1 = time.perf_counter()
+                fs.add_frame(lefts[i], rights[i], i, timestamp=0.1 * i)
+                torch.cuda.synchronize()
+                ms.append(1000.0 * (time.perf_counter() - t1))
+                reads.append(host.READS)
+                k1.append(tk.LAUNCHES - k0)
+                built.append(len(program.PROGRAMS) - n_prog)
+                kf.append(len(fs.kf_shells) > kfs)
+                if fs.is_lost:
+                    fail(f"slice: the {mode} run was lost at frame {i}")
+        traced.close()
+        if profile:
+            print_profile(prof, sum(ms[-PROFILE_FRAMES:]))
+        PROF.reset()
+        runs[mode] = dict(fs=fs, ms=ms, reads=reads, k1=k1, built=built, kf=kf,
+                          launches=(tk.LAUNCHES, tk.LAUNCHES_SLAB),
+                          peak=torch.cuda.max_memory_allocated(),
+                          reserved=torch.cuda.max_memory_reserved(),
+                          programs=[k for k in program.PROGRAMS if k not in built_before])
+    B, P, E = runs["build"], runs["program"], runs["eager"]
+    launches["full_system"] = P["launches"]
+    fs = P["fs"]
+    traj, traj_e = fs.trajectory(), E["fs"].trajectory()
+    if len(traj) != N_FRAMES or not all(np.isfinite(T).all() for T in traj):
+        fail("slice: non-finite or missing poses")
+    poses_differ = sum(not np.array_equal(a, b) for a, b in zip(traj, traj_e))
+    state_differ = trees_equal((fs.win, fs.imm), (E["fs"].win, E["fs"].imm))
+    kf_ids, kf_ids_e = [s.id for s in fs.kf_shells], [s.id for s in E["fs"].kf_shells]
+    ate = trajectory.ate_rmse(traj, gt)
+    n_kf = len(fs.kf_shells)
+    steady = list(range(2, N_FRAMES))
+    nonkf = [i for i in steady if not P["kf"][i]]
+    kfi = [i for i in steady if P["kf"][i]]
+    building = [i for i in range(N_FRAMES) if B["built"][i]]
+
+    def stats(r, idx):
+        v = [r["ms"][i] for i in idx]
+        return (f"median {float(np.median(v)):.1f} mean {float(np.mean(v)):.1f}" if v
+                else "none")
+
+    print(f"[slice] FullSystem over {N_FRAMES} frames through its programs and under "
+          f"program.disabled() from the same start: {poses_differ} poses, {state_differ} window and "
+          f"immature leaves differ; keyframe ids equal {kf_ids == kf_ids_e}; K1 launches program "
+          f"{P['launches']}, eager {E['launches']}, equal frame by frame {P['k1'] == E['k1']}")
+    print(f"[slice] ms per frame (host clock, synchronized), frames 2..: non-keyframe program "
+          f"{stats(P, nonkf)}, eager {stats(E, nonkf)}; keyframe program {stats(P, kfi)}, eager "
+          f"{stats(E, kfi)}; all program {stats(P, steady)}, eager {stats(E, steady)}; first two "
+          f"{P['ms'][0]:.0f}/{P['ms'][1]:.0f} ms, eager {E['ms'][0]:.0f}/{E['ms'][1]:.0f}; the "
+          f"first pass's frames that built programs {building} (programs "
+          f"{[B['built'][i] for i in building]}): {[round(B['ms'][i]) for i in building]} ms, "
+          f"its other frames 2.. median "
+          f"{float(np.median([B['ms'][i] for i in steady if i not in building])):.1f}")
+    print(f"[slice] host reads per frame (utils/host.py): program non-keyframe "
+          f"{sorted(set(P['reads'][i] for i in range(3, N_FRAMES) if not P['kf'][i]))}, keyframe "
+          f"{[P['reads'][i] for i in range(3, N_FRAMES) if P['kf'][i]]}; eager non-keyframe median "
+          f"{float(np.median([E['reads'][i] for i in nonkf])):.1f}, keyframe "
+          f"{[E['reads'][i] for i in range(3, N_FRAMES) if E['kf'][i]]}")
+    print(f"[slice] KFs {n_kf} at frames {kf_ids}, ATE {ate:.5f} m, frame marginalizations "
+          f"{fs.n_frame_marginalizations}, peak memory allocated (reserved, pools included): the "
+          f"pass that built the programs {B['peak'] / 2**20:.0f} ({B['reserved'] / 2**20:.0f}) "
+          f"MiB, the replaying pass {P['peak'] / 2**20:.0f} ({P['reserved'] / 2**20:.0f}) MiB, "
+          f"eager {E['peak'] / 2**20:.0f} ({E['reserved'] / 2**20:.0f}) MiB; "
+          f"{len(B['programs'])} programs built "
+          f"({len(P['programs'])} by the second pass), "
+          f"{sum(program.PROGRAMS[k].pool_bytes for k in B['programs']) / 2**20:.1f} MiB of pools, "
+          f"{sum(program.PROGRAMS[k].input_bytes for k in B['programs']) / 2**20:.1f} MiB of "
+          f"input buffers")
+    for k in B["programs"]:
+        r = program.PROGRAMS[k].report()
+        print(f"[slice] program {r['name']}: capture {r['capture_s']} s (warm-up "
+              f"{r['warmup_s']} s), nodes {r['nodes']} + {r['body_nodes']} in {r['while_nodes']} "
+              f"WHILE and {r['if_nodes']} IF bodies, K1/K2 sites {r['launch_sites']}, pool "
+              f"{r['pool_mib']} MiB, inputs {r['input_mib']} MiB, replays {r['replays']}")
+    print(f"[slice] phase {time.perf_counter() - t_phase:.1f} s")
+    if poses_differ or state_differ or kf_ids != kf_ids_e:
+        fail("slice: the programs and eager differ")
+    if P["programs"]:
+        fail("slice: the second pass built programs: a key holds what differs between runs")
+    if P["k1"] != E["k1"]:
+        fail(f"slice: K1 launches differ frame by frame: {P['k1']} against {E['k1']}")
+    if P["launches"][0] <= 0:
+        fail("slice: the epipolar kernel was not launched on the main path")
+    if any(P["reads"][i] != 1 for i in range(3, N_FRAMES) if not P["kf"][i]):
+        fail(f"slice: a tracked non-keyframe frame read the device other than once: {P['reads']}")
+    if fs.n_frame_marginalizations < 1:
+        fail("slice: no frame marginalization ran")
+    if not KF_RANGE[0] <= n_kf <= KF_RANGE[1]:
+        fail(f"slice: KF count {n_kf} outside {KF_RANGE}")
+    if not ate <= ATE_MAX:
+        fail(f"slice: ATE {ate} > {ATE_MAX}")
 
 
 def frozen_twin(fs):
@@ -1199,6 +1347,7 @@ def phase_checkpoint(dev, settings, calib, lefts, rights, launches):
     from stereo_dso_g2o_tpu_torch.runtime import checkpoint
 
     tk.reset_launches()
+    t_run = time.perf_counter()
     fs_a = FullSystem(calib, settings, device=dev)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "state")
@@ -1217,12 +1366,14 @@ def phase_checkpoint(dev, settings, calib, lefts, rights, launches):
     for i in range(CKPT_AT, CKPT_FRAMES):
         fs_b.add_frame(lefts[i], rights[i], i, timestamp=0.1 * i)
     torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
     launches["checkpoint"] = (tk.LAUNCHES, tk.LAUNCHES_SLAB)
     ta, tb = np.stack(fs_a.trajectory()), np.stack(fs_b.trajectory())
     worst = float(np.abs(ta - tb).max())
     differ = fields_equal(fs_a.win, fs_b.win) + fields_equal(fs_a.imm, fs_b.imm)
     print(f"[checkpoint] saved at frame {CKPT_AT} of {CKPT_FRAMES} ({size / 2**20:.1f} MiB in "
-          f"{save_s:.1f} s, loaded in {load_s:.1f} s); resumed run against the uninterrupted one: "
+          f"{save_s:.1f} s, loaded in {load_s:.1f} s; the phase's {2 * CKPT_FRAMES - CKPT_AT} "
+          f"frames through the programs in {run_s:.1f} s); resumed run against the uninterrupted one: "
           f"max |d pose| {worst:.3g}, window and immature fields that differ {differ}; KFs "
           f"{len(fs_b.kf_shells)}")
     if fs_a.is_lost or fs_b.is_lost or not np.isfinite(tb).all():
@@ -1235,9 +1386,25 @@ def phase_checkpoint(dev, settings, calib, lefts, rights, launches):
 
 def phase_diagnostics(win, settings):
     """Phase 11."""
+    from stereo_dso_g2o_tpu_torch.runtime import program
     from stereo_dso_g2o_tpu_torch.runtime.diagnostics import eigenvalue_record
 
-    rec = eigenvalue_record(win, settings=settings)
+    t0 = time.perf_counter()
+    rec = eigenvalue_record(win, settings=settings)  # builds the Hessian's program
+    build_s = time.perf_counter() - t0
+    ms, same = {"program": [], "eager": []}, {"program": True, "eager": True}
+    for mode in ("program", "eager", "eager", "program"):
+        ctx = program.disabled() if mode == "eager" else contextlib.nullcontext()
+        with ctx:
+            for _ in range(3):
+                t0 = time.perf_counter()
+                got = eigenvalue_record(win, settings=settings)
+                ms[mode].append(1000.0 * (time.perf_counter() - t0))
+                same[mode] &= got == rec
+    print(f"[diagnostics] eigenvalue_record: the Hessian's program built in {build_s:.2f} s; ms "
+          f"per record, median of 6 (order program, eager, eager, program): program "
+          f"{float(np.median(ms['program'])):.2f}, eager {float(np.median(ms['eager'])):.2f}; "
+          f"every record equal to the first: {same}")
     D = 4 + 8 * win.F
     vals = [v for k in ("ev_H", "ev_H_pose", "ev_H_ab", "H_diag", "nullspace_response") for v in rec[k]]
     top, resp = rec["ev_H"][0], max(rec["nullspace_response"])
@@ -1303,8 +1470,12 @@ def phase_dist_and_multiseq(dev, settings, calib, win, dI_stack, seqs, launches)
     if int(want[3]) <= 0:
         fail("dist_ba: the window has no residual")
 
+    from stereo_dso_g2o_tpu_torch.runtime import program
+
     L_all, R_all = seqs
     tk.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    at_start, n_prog = torch.cuda.memory_allocated(), len(program.PROGRAMS)
     runner = MultiSequenceRunner([calib, calib], settings)
     t0 = time.perf_counter()
     for i in range(MULTISEQ_FRAMES):
@@ -1315,7 +1486,12 @@ def phase_dist_and_multiseq(dev, settings, calib, win, dI_stack, seqs, launches)
     trajs = runner.trajectories()
     print(f"[multiseq] 2 sequences x {MULTISEQ_FRAMES} frames on {runner.devices} in {secs:.1f} s: "
           f"KFs {[len(fs.kf_shells) for fs in runner.systems]}, lost "
-          f"{[fs.is_lost for fs in runner.systems]}, kernel launches {launches['multiseq']}")
+          f"{[fs.is_lost for fs in runner.systems]}, kernel launches {launches['multiseq']}, peak "
+          f"memory allocated {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB ("
+          f"{at_start / 2**20:.0f} at the start of the phase), reserved "
+          f"{torch.cuda.max_memory_reserved() / 2**20:.0f} MiB with every program's pool; programs "
+          f"built {len(program.PROGRAMS) - n_prog} (the programs of [slice] replayed for both "
+          f"sequences)")
     for s, (fs, traj) in enumerate(zip(runner.systems, trajs)):
         if fs.is_lost or not fs.initialized:
             fail(f"multiseq: sequence {s} lost or not initialized")
@@ -1437,7 +1613,11 @@ def phase_bench(graph_kf_frames, launches, obs):
     from stereo_dso_g2o_tpu_torch import bench
     from stereo_dso_g2o_tpu_torch.ops import trace_cuda as tk
 
+    from stereo_dso_g2o_tpu_torch.runtime import program
+
     tk.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    at_start, n_prog = torch.cuda.memory_allocated(), len(program.PROGRAMS)
     t0 = time.perf_counter()
     out = bench.main(frames=N_FRAMES, nseq=BENCH_NSEQ, obs=obs)
     torch.cuda.synchronize()
@@ -1453,7 +1633,10 @@ def phase_bench(graph_kf_frames, launches, obs):
           f"{lines[1]['value']} frames/s; KFs {single['n_keyframes']} at frames {out['kf_frames']} "
           f"(graph phase {graph_kf_frames}), ATE {single['ate_rmse_m']} m, lost {single['lost']}; "
           f"K1 launches single {split['single']} batched {split['batched']}, kernel launches "
-          f"{launches['bench']}; obs file {len(recs) - 1} frame records")
+          f"{launches['bench']}; obs file {len(recs) - 1} frame records; peak memory allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB ({at_start / 2**20:.0f} at the "
+          f"start of the phase), reserved {torch.cuda.max_memory_reserved() / 2**20:.0f} MiB with "
+          f"every program's pool; programs built {len(program.PROGRAMS) - n_prog}")
     if [d["metric"] for d in lines] != list(BENCH_METRICS):
         fail(f"bench: result lines {[d['metric'] for d in lines]}")
     if single["lost"] or single["n_finite_frames"] != N_FRAMES or single["n_frames"] != N_FRAMES:
@@ -1531,35 +1714,80 @@ def phase_initializer(dev, launches):
           f"{time.perf_counter() - t0:.1f} s")
     calib = make_calib(K[0, 0], K[1, 1], K[0, 2], K[1, 2], 0.1, W_, H_, n_levels=INIT_LEVELS,
                        device=dev)
-    tk.reset_launches()
-    ini = MonoInitializer(calib, Settings(desired_point_density=600.0, immature_cap=512,
-                                          active_cap=1024), device=dev)
-    ini.set_first(*build_pyramid(torch.as_tensor(img0, device=dev), INIT_LEVELS))
-    ms, ready = [], []
-    for T, img in frames:
-        t1 = time.perf_counter()
-        ready.append(ini.track_frame(build_pyramid(torch.as_tensor(img, device=dev),
-                                                   INIT_LEVELS)[0]))
-        torch.cuda.synchronize()
-        ms.append(1000.0 * (time.perf_counter() - t1))
-    launches["initializer"] = (tk.LAUNCHES, tk.LAUNCHES_SLAB)
-    sc = score_against_truth(ini.levels[0], idepth0, ini.this_to_next, frames[-1][0])
-    good = [int((L.valid & L.is_good).sum()) for L in ini.levels]
-    print(f"[initializer] MonoInitializer {INIT_LEVELS} levels, {INIT_FRAMES} frames: snapped "
-          f"{ini.snapped} at frame {ini.snapped_at} (JAX {INIT_JAX_SNAP}), ready {ready}; good "
-          f"points per level {good}; median relative inverse-depth error "
-          f"{sc['median_rel_err']:.5f} (JAX {INIT_JAX_REL:.5f}), translation cosine "
-          f"{sc['t_cos']:.4f}; ms per track_frame {[round(m, 1) for m in ms]} (median "
-          f"{float(np.median(ms)):.1f}); kernel launches {launches['initializer']}")
-    if not ini.snapped or ini.snapped_at != INIT_JAX_SNAP:
-        fail(f"initializer: snapped {ini.snapped} at {ini.snapped_at}, JAX at {INIT_JAX_SNAP}")
-    if not (sc["median_rel_err"] < INIT_REL_MAX
-            and abs(sc["median_rel_err"] - INIT_JAX_REL) <= INIT_REL_MARGIN):
-        fail(f"initializer: median relative inverse-depth error {sc['median_rel_err']}")
-    if not sc["t_cos"] > INIT_COS_MIN:
-        fail(f"initializer: translation cosine {sc['t_cos']}")
-    if not all(np.isfinite(ini.this_to_next).ravel()) or good[0] <= 50:
-        fail("initializer: non-finite pose or too few good points")
+    from stereo_dso_g2o_tpu_torch.runtime import program
+
+    runs = {}
+    # the first pass builds the programs (set_first's and every level's),
+    # the second replays them, the third and fourth run eagerly
+    for mode in ("build", "program", "eager", "eager again"):
+        ctx = program.disabled() if mode.startswith("eager") else contextlib.nullcontext()
+        n_prog = len(program.PROGRAMS)
+        tk.reset_launches()
+        with ctx:
+            ini = MonoInitializer(calib, Settings(desired_point_density=600.0, immature_cap=512,
+                                                  active_cap=1024), device=dev)
+            t1 = time.perf_counter()
+            ini.set_first(*build_pyramid(torch.as_tensor(img0, device=dev), INIT_LEVELS))
+            torch.cuda.synchronize()
+            first_ms = 1000.0 * (time.perf_counter() - t1)
+            ms, ready = [], []
+            for T, img in frames:
+                t1 = time.perf_counter()
+                ready.append(ini.track_frame(build_pyramid(torch.as_tensor(img, device=dev),
+                                                           INIT_LEVELS)[0]))
+                torch.cuda.synchronize()
+                ms.append(1000.0 * (time.perf_counter() - t1))
+        sc = score_against_truth(ini.levels[0], idepth0, ini.this_to_next, frames[-1][0])
+        good = [int((L.valid & L.is_good).sum()) for L in ini.levels]
+        runs[mode] = dict(ini=ini, ms=ms, first_ms=first_ms, ready=ready, sc=sc, good=good,
+                          built=len(program.PROGRAMS) - n_prog,
+                          launches=(tk.LAUNCHES, tk.LAUNCHES_SLAB))
+        print(f"[initializer] {mode}: MonoInitializer {INIT_LEVELS} levels, {INIT_FRAMES} frames: "
+              f"snapped {ini.snapped} at frame {ini.snapped_at} (JAX {INIT_JAX_SNAP}), ready "
+              f"{ready}; good points per level {good}; median relative inverse-depth error "
+              f"{sc['median_rel_err']:.5f} (JAX {INIT_JAX_REL:.5f}), translation cosine "
+              f"{sc['t_cos']:.4f}; set_first {first_ms:.1f} ms, ms per track_frame "
+              f"{[round(m, 1) for m in ms]} (median {float(np.median(ms)):.1f}); programs built "
+              f"{runs[mode]['built']}; kernel launches {runs[mode]['launches']}")
+        if not ini.snapped or ini.snapped_at != INIT_JAX_SNAP:
+            fail(f"initializer: {mode}: snapped {ini.snapped} at {ini.snapped_at}, JAX at "
+                 f"{INIT_JAX_SNAP}")
+        if not (sc["median_rel_err"] < INIT_REL_MAX
+                and abs(sc["median_rel_err"] - INIT_JAX_REL) <= INIT_REL_MARGIN):
+            fail(f"initializer: {mode}: median relative inverse-depth error {sc['median_rel_err']}")
+        if not sc["t_cos"] > INIT_COS_MIN:
+            fail(f"initializer: {mode}: translation cosine {sc['t_cos']}")
+        if not all(np.isfinite(ini.this_to_next).ravel()) or good[0] <= 50:
+            fail(f"initializer: {mode}: non-finite pose or too few good points")
+    launches["initializer"] = runs["program"]["launches"]
+    P, E = runs["program"], runs["eager"]
+    differ = trees_equal(P["ini"].levels, E["ini"].levels)
+    pose_diff = float(np.abs(P["ini"].this_to_next - E["ini"].this_to_next).max())
+    differ_e = trees_equal(E["ini"].levels, runs["eager again"]["ini"].levels)
+    differ_p = trees_equal(P["ini"].levels, runs["build"]["ini"].levels)
+    # each propagation twice, eagerly, on the same inputs: a sum by
+    # atomics would part two runs here (propagate_up sums into parents)
+    from stereo_dso_g2o_tpu_torch.frontend.initializer import propagate_down, propagate_up
+
+    L0, L1 = E["ini"].levels[0], E["ini"].levels[1]
+    twice = {f.__name__: trees_equal(f(*args), f(*args))
+             for f, args in ((propagate_up, (L0, L1)), (propagate_down, (L0, L1)))}
+    names = sorted({p.name for p in program.PROGRAMS.values()
+                    if p.name in ("lm_level_init", "propagate_up", "propagate_down",
+                                  "_grid_max_select", "grid_knn", "grid_parent")})
+    progs = [p.report() for p in program.PROGRAMS.values() if p.name in names]
+    print(f"[initializer] program against eager from the same start: {differ} level leaves "
+          f"differ, largest pose difference {pose_diff:.3g} (eager against eager: {differ_e} "
+          f"leaves, the two passes through the programs: {differ_p}; each propagation run twice "
+          f"eagerly on the same inputs, leaves that differ: {twice}); ms per track_frame median "
+          f"program "
+          f"{float(np.median(P['ms'])):.1f}, eager {float(np.median(E['ms'])):.1f}; {len(progs)} "
+          f"programs ({names}): capture {sum(r['capture_s'] for r in progs):.2f} s in all, nodes "
+          f"{[r['nodes'] for r in progs if r['name'] == 'lm_level_init']} in the level LMs, pools "
+          f"{sum(r['pool_mib'] for r in progs):.1f} MiB in all")
+    if differ or differ_e or differ_p:
+        fail(f"initializer: the passes differ ({differ} program against eager, {differ_e} eager "
+             f"against eager, {differ_p} program against program)")
 
 
 def phase_tools(obs, launches):
@@ -1826,7 +2054,7 @@ def main() -> int:
     check_edges((H_, W_), cases[0][1]["S"], dIR, 21)
     plane = {f"{W_}x{H_}": plane_ms((H_, W_), dIR)}
 
-    # ---- 4. the slice: FullSystem over 40 frames ----
+    # ---- 4. the slice: FullSystem over 40 frames, programs against eager ----
     from stereo_dso_g2o_tpu_torch.frontend import graph_system as tgs
     from stereo_dso_g2o_tpu_torch.frontend.full_system import FullSystem
     from stereo_dso_g2o_tpu_torch.io import trajectory
@@ -1836,42 +2064,7 @@ def main() -> int:
     launches = {}  # path -> (resident launches, slab launches)
     gt = [np.linalg.inv(T) for T in poses_cw]
     calib = make_calib(K[0, 0], K[1, 1], K[0, 2], K[1, 2], BASE, W_, H_, n_levels=6, device=dev)
-    fs = FullSystem(calib, settings, device=dev)
-    # SDSO_PROFILE=1: per-section host times (each section synchronizes, so
-    # the frame times of such a run are not the steady-state ones) and a
-    # torch.profiler trace of the last PROFILE_FRAMES frames
-    tk.reset_launches()
-    t_all = time.perf_counter()
-    frame_ms, prof = run_odometry(
-        lambda i: fs.add_frame(lefts[i], rights[i], i, timestamp=0.1 * i),
-        0, N_FRAMES, lambda: fs.is_lost, "slice", PROFILE_FRAMES)
-    total_s = time.perf_counter() - t_all
-    launches["full_system"] = (tk.LAUNCHES, tk.LAUNCHES_SLAB)
-    traj = fs.trajectory()
-    if len(traj) != N_FRAMES or not all(np.isfinite(T).all() for T in traj):
-        fail("non-finite or missing poses")
-    ate = trajectory.ate_rmse(traj, gt)
-    n_kf = len(fs.kf_shells)
-    steady = frame_ms[2:]
-    print(f"[slice] {N_FRAMES} frames in {total_s:.1f} s; ms/frame median "
-          f"{float(np.median(steady)):.1f} mean {float(np.mean(steady)):.1f} (frames 2..), "
-          f"first two {frame_ms[0]:.0f}/{frame_ms[1]:.0f} ms")
-    print(f"[slice] KFs {n_kf} at frames {[s.id for s in fs.kf_shells]}, ATE {ate:.5f} m, "
-          f"frame marginalizations {fs.n_frame_marginalizations}, kernel launches "
-          f"{launches['full_system']}, "
-          f"peak memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
-    if PROF.enabled:
-        print_profile(prof, sum(frame_ms[-PROFILE_FRAMES:]))
-        PROF.reset()
-    if launches["full_system"][0] <= 0:
-        fail("the epipolar kernel was not launched on the main path")
-    if fs.n_frame_marginalizations < 1:
-        fail("no frame marginalization ran")
-    if not KF_RANGE[0] <= n_kf <= KF_RANGE[1]:
-        fail(f"KF count {n_kf} outside {KF_RANGE}")
-    if not ate <= ATE_MAX:
-        fail(f"ATE {ate} > {ATE_MAX}")
-    del fs
+    phase_slice(dev, calib, settings, lefts, rights, gt, launches)
 
     # ---- 5. slab kernel vs plain and vs the resident kernel, 2048x1024 ----
     settings2 = dataclasses.replace(
@@ -1904,16 +2097,52 @@ def main() -> int:
 
     calib2 = make_calib(K2[0, 0], K2[1, 1], K2[0, 2], K2[1, 2], BASE, W2, H2, n_levels=6,
                         device=dev)
+    from stereo_dso_g2o_tpu_torch.ops.selector import PixelSelector
+    from stereo_dso_g2o_tpu_torch.runtime import program
+
+    def match():
+        # a selector of its own each call: every call selects as the first
+        return stereo_match(imgs2[0], imgs2[1], calib2, selector=PixelSelector(settings2),
+                            settings=settings2, device=dev)
+
+    t1 = time.perf_counter()
+    n_prog = len(program.PROGRAMS)
+    match()  # builds the programs
+    torch.cuda.synchronize()
+    build_s, n_built = time.perf_counter() - t1, len(program.PROGRAMS) - n_prog
     tk.reset_launches()
-    result, imap = stereo_match(imgs2[0], imgs2[1], calib2, settings=settings2, device=dev)
+    result, imap = match()
     torch.cuda.synchronize()
     launches["stereo_match"] = (tk.LAUNCHES, tk.LAUNCHES_SLAB)
-    match_ms = []
-    for _ in range(5):
-        t1 = time.perf_counter()
-        stereo_match(imgs2[0], imgs2[1], calib2, settings=settings2, device=dev)
-        torch.cuda.synchronize()
-        match_ms.append(1000.0 * (time.perf_counter() - t1))
+    tk.reset_launches()
+    with program.disabled():
+        result_e, imap_e = match()
+    torch.cuda.synchronize()
+    launches_e = (tk.LAUNCHES, tk.LAUNCHES_SLAB)
+    match_differ = trees_equal((result, imap), (result_e, imap_e))
+    match_ms = {"program": [], "eager": []}
+    for mode in ("program", "eager", "eager", "program"):
+        ctx = program.disabled() if mode == "eager" else contextlib.nullcontext()
+        with ctx:
+            for _ in range(5):
+                t1 = time.perf_counter()
+                match()
+                torch.cuda.synchronize()
+                match_ms[mode].append(1000.0 * (time.perf_counter() - t1))
+    prog = next(p for p in program.PROGRAMS.values() if p.name == "_match_points")
+    print(f"[stereo_match] stereo_match_points as one program against program.disabled(): "
+          f"{match_differ} leaves of the result and the map differ; K2 launches from inside the "
+          f"program {launches['stereo_match']}, eager {launches_e}; the first call built "
+          f"{n_built} programs in {build_s:.1f} s; ms per call, median of 10 (order program, "
+          f"eager, eager, program): program {float(np.median(match_ms['program'])):.1f}, eager "
+          f"{float(np.median(match_ms['eager'])):.1f}; the program: capture {prog.capture_s:.3f} s, "
+          f"{prog.nodes} nodes, K1/K2 sites {prog.launches}, pool {prog.pool_bytes / 2**20:.1f} "
+          f"MiB, inputs {prog.input_bytes / 2**20:.1f} MiB")
+    if match_differ:
+        fail("stereo_match: the program and eager differ")
+    if launches["stereo_match"] != launches_e:
+        fail("stereo_match: the program and eager launched the kernels other times")
+    match_ms = match_ms["program"]
     good = result.good
     n_good, n_sel = int(good.sum()), int(result.valid.sum())
     iu, iv = result.us.long(), result.vs.long()
@@ -1922,7 +2151,7 @@ def main() -> int:
     med_rel = float(rel.median()) if n_good else float("nan")
     print(f"[stereo_match] {W2}x{H2}: {n_sel} selected, {n_good} good, median relative "
           f"inverse-depth error {med_rel:.5f}, over 0.2: {float((rel > 0.2).float().mean()):.4f}; "
-          f"ms/call median {float(np.median(match_ms)):.1f} (of 5, synchronized); "
+          f"ms/call median {float(np.median(match_ms)):.1f} through the program (of 10, synchronized); "
           f"kernel launches {launches['stereo_match']}")
     if launches["stereo_match"][1] < 2:
         fail("stereo_match did not go through the slab kernel")

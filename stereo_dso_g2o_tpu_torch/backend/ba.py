@@ -48,7 +48,7 @@ from stereo_dso_g2o_tpu_torch.config import (
 from stereo_dso_g2o_tpu_torch.ops import residuals as R
 from stereo_dso_g2o_tpu_torch.utils import loop, se3
 from stereo_dso_g2o_tpu_torch.utils.fixed import constant
-from stereo_dso_g2o_tpu_torch.utils.tree import leaves, per_row, select_rows, tree_map
+from stereo_dso_g2o_tpu_torch.utils.tree import at_index, leaves, per_row, select_rows, tree_map
 
 C_SCALE = np.asarray([SCALE_F, SCALE_F, SCALE_C, SCALE_C], dtype=np.float32)
 
@@ -703,7 +703,7 @@ def _at_col(x, slot):
     """x[..., slot] of a per-(point, frame) tensor (NP, F); x[n, :, slot[n]]
     of N stacked sequences' (N, NP, F) for a (N,) slot."""
     if not isinstance(slot, torch.Tensor) or slot.dim() == 0:
-        return x[..., slot]
+        return at_index(x, slot, -1)
     idx = slot.long().reshape(slot.shape + (1, 1)).expand(x.shape[:2] + (1,))
     return torch.gather(x, 2, idx)[..., 0]
 

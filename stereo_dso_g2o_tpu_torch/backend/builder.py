@@ -13,7 +13,7 @@ import torch
 from stereo_dso_g2o_tpu_torch.backend import window as W
 from stereo_dso_g2o_tpu_torch.config import SCALE_A, SCALE_B
 from stereo_dso_g2o_tpu_torch.utils.fixed import constant
-from stereo_dso_g2o_tpu_torch.utils.tree import at_rows
+from stereo_dso_g2o_tpu_torch.utils.tree import at_index, at_rows, set_index
 
 
 def _value(val, like: torch.Tensor) -> torch.Tensor:
@@ -29,7 +29,7 @@ def _value(val, like: torch.Tensor) -> torch.Tensor:
 
 def _set_row(x, idx, val):
     out = x.clone()
-    out[idx] = _value(val, x)
+    set_index(out, idx, _value(val, x))
     return out
 
 
@@ -96,8 +96,8 @@ def set_frame_eval_pt(win: W.Window, slot) -> W.Window:
         set_ = _set_at
     else:
         s = slot
-        w2c = win.w2c()[slot]
-        state = win.state[slot]
+        w2c = at_index(win.w2c(), slot)
+        state = at_index(win.state, slot)
         set_ = _set_row
     new_state = torch.zeros_like(state)
     new_state[..., 6] = state[..., 6]

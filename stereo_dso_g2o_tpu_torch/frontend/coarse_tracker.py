@@ -17,6 +17,7 @@ import torch
 from stereo_dso_g2o_tpu_torch.config import Settings, default_settings
 from stereo_dso_g2o_tpu_torch.models.camera import Calib
 from stereo_dso_g2o_tpu_torch.ops import tracker_ops
+from stereo_dso_g2o_tpu_torch.runtime import program
 from stereo_dso_g2o_tpu_torch.utils import se3
 
 # Legacy DSO per-level iteration caps (CoarseTracker.cpp:861), extended for
@@ -38,6 +39,18 @@ def k_levels(calib: Calib):
     return [
         torch.stack([calib.fx(l), calib.fy(l), calib.cx(l), calib.cy(l)], -1)
         for l in range(calib.n_levels)
+    ]
+
+
+def build_ref(dI_ref_pyr, us, vs, idepths, weights, valid, n_levels: int, caps: tuple):
+    """makeCoarseDepthL0 STEP2-5 on the device: every level's splatted
+    maps and their compacted point lists (one program on the card)."""
+    id_maps, valid_maps, color_maps = tracker_ops.build_ref_maps(
+        us, vs, idepths, weights, valid, n_levels=n_levels, dI_ref=dI_ref_pyr
+    )
+    return [
+        tracker_ops.compact_ref_level(id_maps[lvl], valid_maps[lvl], color_maps[lvl], caps[lvl])
+        for lvl in range(n_levels)
     ]
 
 
@@ -65,16 +78,9 @@ class CoarseTracker:
                       ref_frame_id: int = -1):
         """Build the semi-dense tracking reference from splatted points
         (makeCoarseDepthL0 STEP2-5)."""
-        n_levels = self.calib.n_levels
-        id_maps, valid_maps, color_maps = tracker_ops.build_ref_maps(
-            us, vs, idepths, weights, valid, n_levels=n_levels, dI_ref=dI_ref_pyr
-        )
-        self.ref = [
-            tracker_ops.compact_ref_level(
-                id_maps[lvl], valid_maps[lvl], color_maps[lvl], self.caps[lvl]
-            )
-            for lvl in range(n_levels)
-        ]
+        self.ref = program.run(
+            build_ref, (list(dI_ref_pyr), us, vs, idepths, weights, valid),
+            dict(n_levels=self.calib.n_levels, caps=tuple(self.caps)))
         dev = self.calib.device
         self.ref_aff = (
             torch.zeros(2, dtype=torch.float32, device=dev)

@@ -34,7 +34,7 @@ from stereo_dso_g2o_tpu_torch.ops import tracker_ops
 from stereo_dso_g2o_tpu_torch.ops.pyramid import build_pyramid
 from stereo_dso_g2o_tpu_torch.utils import loop
 from stereo_dso_g2o_tpu_torch.utils.smalls import matmul_fma
-from stereo_dso_g2o_tpu_torch.utils.tree import at_rows, first, lead_one, per_row
+from stereo_dso_g2o_tpu_torch.utils.tree import at_index, at_rows, first, lead_one, per_row
 
 
 class TrackOut(NamedTuple):
@@ -178,7 +178,7 @@ def _at_slot(x, slot):
     sequences' (slot (N,), a device gather)."""
     if isinstance(slot, torch.Tensor) and slot.dim() == 1:
         return at_rows(x, slot.long())
-    return x[slot]
+    return at_index(x, slot)
 
 
 def _host_transforms(win, T_new, calib):

@@ -14,6 +14,21 @@ removal, tracking-reference rebuild, point marginalization -> new traces
 static-stereo depths seed the first keyframe.
 
 The host code is control flow; numeric stages are torch ops on `device`.
+Each stage the JAX package jits is one program on the card
+(`runtime/program.run`, the port's `jax.jit`: captured once per key and
+replayed, its loops WHILE nodes and its branches IF nodes, nothing inside
+reading the host): the tracked frame (`frame_step_full`), the non-keyframe
+refinement, and on a keyframe the trace onto it, the activation, BA (one
+program per iteration cap), the final linearization, the tracking
+reference, the selector's pass, the seeding and the frames'
+marginalization. Between them the host reads what the JAX package reads,
+each bundle packed into one copy (`utils/host.Fetch`): one read on a
+tracked non-keyframe frame. Slots and other indices the JAX package traces
+are device int tensors among the inputs, not part of the key. On the CPU
+and inside `program.disabled()` the same functions run eagerly. Frames
+0-2 (the first keyframe, the rotation ladder), the host cascade after a
+failed track and the sharded BA stay eager.
+
 With `Settings.dist_ba_shards > 1` the windowed BA runs point-sharded over a
 `torch.distributed` process group (`_dist_ba`, parallel/dist_ba.py); with
 `Settings.log_eigenvalues` and a `log_stream` every keyframe writes one
@@ -44,6 +59,9 @@ from stereo_dso_g2o_tpu_torch.models.camera import Calib
 from stereo_dso_g2o_tpu_torch.ops import trace as trace_ops
 from stereo_dso_g2o_tpu_torch.ops.pyramid import build_pyramid
 from stereo_dso_g2o_tpu_torch.ops.selector import PixelSelector, map_to_points
+from stereo_dso_g2o_tpu_torch.runtime import program
+from stereo_dso_g2o_tpu_torch.utils import host
+from stereo_dso_g2o_tpu_torch.utils.fixed import constant
 from stereo_dso_g2o_tpu_torch.utils.timing import PROF
 
 
@@ -73,6 +91,50 @@ def device_image(x, device):
 
 def _f32(x, device):
     return torch.tensor(float(x), dtype=torch.float32, device=device)
+
+
+def _idx(i: int, device) -> torch.Tensor:
+    """A window slot as a program input: a () int64 tensor made once per
+    value and device (a traced index in the JAX package, not a key)."""
+    return constant(int(i), torch.int64, device)
+
+
+def _run(fn: Callable, args, **static):
+    """`fn(*args, **static)` as one program on the card (`runtime/program.run`),
+    eagerly on the CPU and inside `program.disabled()`; the searches' route
+    is part of the key."""
+    return program.run(fn, args, static, key=(trace_ops.DEFAULT_ROUTE,))
+
+
+def _activate(win, imm, dI_stack, newest_slot, min_act_dist, calib_c,
+              settings: Settings, h1: int, w1: int):
+    """activatePointsMT's device part: the candidate gate, the immature
+    points' 1-dof LM and their insertion into the window (one program)."""
+    pre = W.precalc(win)
+    cand_flat, delete = IMM.activation_gate(
+        win, imm, newest_slot, min_act_dist, calib_c, settings=settings, h1=h1, w1=w1,
+    )
+    imm = imm.replace(valid=imm.valid & ~delete)
+    act = IMM.optimize_immature(
+        imm, cand_flat, pre["RTll"], pre["tTll"], pre["aff"],
+        win.frame_valid, dI_stack, win.c_value, settings=settings,
+    )
+    win, imm, _ = IMM.insert_activated(win, imm, act, settings=settings)
+    return win, imm
+
+
+def _seed(imm, slot, dI_host, status_map, settings: Settings, cap: int):
+    """makeNewTraces' device part: the selected pixels compacted and seeded
+    into the slot's row of the immature set (one program)."""
+    us, vs, types, valid = map_to_points(status_map, cap)
+    return IMM.seed_slot(imm, slot, dI_host, us, vs, types, valid, settings=settings)
+
+
+def _marg_frames(win, imm, flagged, settings: Settings):
+    """All flagged frames marginalized (an IF node per slot) and their
+    immature points dropped (one program)."""
+    win = ba.marginalize_frames_masked(win, flagged, settings=settings)
+    return win, imm.replace(valid=imm.valid & ~flagged[:, None])
 
 
 class FullSystem:
@@ -270,19 +332,18 @@ class FullSystem:
         aff_t = torch.as_tensor(np.asarray(aff_last, np.float32), device=dev)
         if len(tries) == 5:
             last0 = self.last_coarse_rmse[0]
-            (dIpL, dIpR), imm_new, track, _ = FS.frame_step_full(
+            (dIpL, dIpR), imm_new, track, _ = _run(FS.frame_step_full, (
                 left_dev, right_dev, tuple(self.tracker.ref), self.win, self.imm,
-                self.calib.c, self.calib.baseline, ref_slot,
+                self.calib.c, self.calib.baseline, _idx(ref_slot, dev),
                 torch.as_tensor(np.stack(tries).astype(np.float32), device=dev),
                 aff_t, self.tracker.ref_aff, ref_exp, new_exp,
                 _f32(last0 if np.isfinite(last0) else 1e30, dev),
-                settings=s, n_levels=n_lvl, n_tries=5,
-            )
-            T_np = track.T.cpu().numpy()
-            aff_np = track.aff.cpu().numpy()
-            res_np = track.residuals.cpu().numpy()
-            flow_np = track.flow.cpu().numpy()
-            if bool(track.ok) and float(track.sat_frac0) <= 0.6 and np.isfinite(res_np[0]):
+            ), settings=s, n_levels=n_lvl, n_tries=5)
+            # the frame's one read (the JAX package's one device_get)
+            T_np, aff_np, res_np, flow_np, ok_np, sat_np = host.Fetch(
+                (track.T, track.aff, track.residuals, track.flow, track.ok, track.sat_frac0)
+            ).get()
+            if bool(ok_np) and float(sat_np) <= 0.6 and np.isfinite(res_np[0]):
                 self.last_coarse_rmse = np.where(
                     np.isfinite(res_np), res_np, self.last_coarse_rmse
                 )
@@ -449,12 +510,12 @@ class FullSystem:
     def _make_non_keyframe(self, dIpL, dIpR, shell, T_ref_new, aff, exposure):
         """makeNonKeyFrame: temporal + stereo depth refinement only."""
         dev = self.device
-        self.imm = FS.nonkey_refine_step(
+        self.imm = _run(FS.nonkey_refine_step, (
             self.win, self.imm, dIpL[0], dIpR[0], self.calib.c, self.calib.baseline,
-            self.kf_slots[-1], torch.as_tensor(np.asarray(T_ref_new, np.float32), device=dev),
+            _idx(self.kf_slots[-1], dev),
+            torch.as_tensor(np.asarray(T_ref_new, np.float32), device=dev),
             torch.as_tensor(np.asarray(aff, np.float32), device=dev), _f32(exposure, dev),
-            settings=self.settings, n_levels=self.n_levels,
-        )
+        ), settings=self.settings, n_levels=self.n_levels)
 
     # ------------------------------------------------------------------
     def _make_keyframe(self, dIpL, dIpR, shell, T_ref_new, aff, exposure):
@@ -465,16 +526,16 @@ class FullSystem:
 
         # STEP 1: temporal trace of every immature point onto the new KF
         with PROF.section("kf.trace", True):
-            self.imm = FS.kf_trace_step(
+            self.imm = _run(FS.kf_trace_step, (
                 self.win, self.imm, dIpL[0], self.calib.c, self.calib.baseline,
                 torch.as_tensor(np.asarray(T_new_w2c, np.float32), device=dev),
                 torch.as_tensor(np.asarray(aff, np.float32), device=dev), _f32(exposure, dev),
-                settings=s, n_levels=self.n_levels,
-            )
+            ), settings=s, n_levels=self.n_levels)
 
         # STEP 2: flag frames for marginalization (host-side policy)
         with PROF.section("kf.flag_frames"):
             flagged = self._flag_frames()
+        flagged_dev = torch.as_tensor(flagged, device=dev)
 
         # STEP 3: insert the new KF into the window
         slot = self._free_slot()
@@ -519,8 +580,8 @@ class FullSystem:
             if s.dist_ba_shards > 1:
                 self.win, energy, nres = self._dist_ba(dI_stack, max_its)
             else:
-                self.win, energy, nres = ba.optimize_fused(
-                    self.win, dI_stack, settings=s, max_its=max_its)
+                self.win, energy, nres = _run(ba.optimize_fused, (self.win, dI_stack),
+                                              settings=s, max_its=max_its)
         if s.log_eigenvalues and self.log_stream is not None:
             from stereo_dso_g2o_tpu_torch.runtime.diagnostics import eigenvalue_record
 
@@ -531,17 +592,18 @@ class FullSystem:
         # STEPS 7-8 + final linearization
         prev_slot = self.kf_slots[-2] if len(self.kf_slots) >= 2 else -1
         with PROF.section("kf.finalize", True):
-            self.win, ref_inputs, gone_dev, w2c_dev, aff_dev, _, _stats = FS.kf_finalize(
-                self.win, dI_stack, self.dI_slots[slot][0], self.right_slots[slot], slot,
-                torch.as_tensor(flagged, device=dev), prev_slot,
-                self.calib.c, self.calib.baseline, settings=s, n_levels=self.n_levels,
-            )
-        gone = gone_dev.cpu().numpy()
-        w2c = w2c_dev.cpu().numpy().astype(np.float64)
-        aff_all = aff_dev.cpu().numpy().astype(np.float64)
-        pt_host_np = self.win.pt_host.cpu().numpy()
-        energy_np = float(energy)
-        nres_np = int(nres)
+            self.win, ref_inputs, gone_dev, w2c_dev, aff_dev, _, _stats = _run(FS.kf_finalize, (
+                self.win, dI_stack, self.dI_slots[slot][0], self.right_slots[slot],
+                _idx(slot, dev), flagged_dev, _idx(prev_slot, dev),
+                self.calib.c, self.calib.baseline,
+            ), settings=s, n_levels=self.n_levels)
+        # one read of the bundle (the JAX package's one device_get)
+        gone, w2c, aff_all, pt_host_np, energy_np, nres_np = host.Fetch(
+            (gone_dev, w2c_dev, aff_dev, self.win.pt_host, energy, nres)).get()
+        w2c = w2c.astype(np.float64)
+        aff_all = aff_all.astype(np.float64)
+        energy_np = float(energy_np)
+        nres_np = int(nres_np)
         # initialization-failure check (FullSystem.cpp:1404-1418)
         rmse = float(np.sqrt(max(energy_np, 0.0) / max(8.0 * nres_np, 1.0)))
         n_kfs_hist = len(self.kf_shells)
@@ -558,7 +620,7 @@ class FullSystem:
             self.log_stream.write(json.dumps({
                 "type": "kf", "kf_id": self.slot_frame_id[slot], "frame_id": shell.id,
                 "rmse": rmse, "energy": energy_np, "n_res": nres_np,
-                "n_points": int((self.win.pt_status == W.PT_ACTIVE).sum()),
+                "n_points": host.item((self.win.pt_status == W.PT_ACTIVE).sum()),
                 "n_kfs": len(self.kf_slots), "marg_points": int(gone.sum()),
             }) + "\n")
         for s_ in self.kf_slots:
@@ -581,16 +643,14 @@ class FullSystem:
             status_map, _ = self.selector.make_maps(
                 dIpL[0], asg[0], asg[1], asg[2], s.desired_immature_density
             )
-            us, vs, types, valid = map_to_points(status_map, s.immature_cap)
-            self.imm = IMM.seed_slot(self.imm, slot, dIpL[0], us, vs, types, valid, settings=s)
+            self.imm = _run(_seed, (self.imm, _idx(slot, dev), dIpL[0], status_map),
+                            settings=s, cap=s.immature_cap)
 
         # STEP 10: marginalize flagged frames
         with PROF.section("kf.marg_frames", True):
             if flagged.any():
-                self.win = ba.marginalize_frames_masked(self.win, flagged, settings=s)
-                self.imm = self.imm.replace(
-                    valid=self.imm.valid & ~torch.as_tensor(flagged, device=dev)[:, None]
-                )
+                self.win, self.imm = _run(_marg_frames, (self.win, self.imm, flagged_dev),
+                                          settings=s)
                 for s_ in list(self.kf_slots):
                     if flagged[s_]:
                         self._forget_slot(s_)
@@ -598,7 +658,7 @@ class FullSystem:
 
     # ------------------------------------------------------------------
     def _free_slot(self) -> int:
-        free = np.nonzero(~self.win.frame_valid.cpu().numpy())[0]
+        free = np.nonzero(~host.Fetch(self.win.frame_valid).get()[0])[0]
         assert len(free) > 0, "window capacity exceeded"
         return int(free[0])
 
@@ -609,11 +669,12 @@ class FullSystem:
         flagged = np.zeros(F, dtype=bool)
         if len(self.kf_slots) < 2:
             return flagged
-        pt_status = self.win.pt_status.cpu().numpy()
-        pt_host = self.win.pt_host.cpu().numpy()
-        imm_valid = self.imm.valid.cpu().numpy()
-        aff_all = self.win.aff_g2l().cpu().numpy().astype(np.float64)
-        exps = self.win.ab_exposure.cpu().numpy().astype(np.float64)
+        # one read (the JAX package's one device_get)
+        pt_status, pt_host, imm_valid, aff_all, exps = host.Fetch(
+            (self.win.pt_status, self.win.pt_host, self.imm.valid, self.win.aff_g2l(),
+             self.win.ab_exposure)).get()
+        aff_all = aff_all.astype(np.float64)
+        exps = exps.astype(np.float64)
         n_flagged = 0
         n_kfs = len(self.kf_slots)
         back = self.kf_slots[-1]
@@ -629,7 +690,7 @@ class FullSystem:
                 n_flagged += 1
 
         if n_kfs + 1 - n_flagged >= s.max_frames + 1:
-            w2c = self.win.w2c().cpu().numpy().astype(np.float64)
+            w2c = host.Fetch(self.win.w2c()).get()[0].astype(np.float64)
             latest = self.kf_slots[-1]
             latest_id = self.slot_frame_id[latest]
             best_score = 1.0
@@ -658,7 +719,7 @@ class FullSystem:
     def _activate_points(self, dI_stack, newest_slot):
         """activatePointsMT."""
         s = self.settings
-        n_active = int((self.win.pt_status == W.PT_ACTIVE).sum())
+        n_active = host.item((self.win.pt_status == W.PT_ACTIVE).sum())
         d = s.desired_point_density
         if n_active < d * 0.66:
             self.current_min_act_dist -= 0.8
@@ -678,18 +739,10 @@ class FullSystem:
             self.current_min_act_dist += 0.1
         self.current_min_act_dist = float(np.clip(self.current_min_act_dist, 0.0, 4.0))
 
-        pre = W.precalc(self.win)
-        cand_flat, delete = IMM.activation_gate(
-            self.win, self.imm, newest_slot,
-            torch.tensor(self.current_min_act_dist, dtype=torch.float32, device=self.device),
-            self.calib.c, settings=s, h1=self.calib.h[1], w1=self.calib.w[1],
-        )
-        self.imm = self.imm.replace(valid=self.imm.valid & ~delete)
-        act = IMM.optimize_immature(
-            self.imm, cand_flat, pre["RTll"], pre["tTll"], pre["aff"],
-            self.win.frame_valid, dI_stack, self.win.c_value, settings=s,
-        )
-        self.win, self.imm, _ = IMM.insert_activated(self.win, self.imm, act, settings=s)
+        self.win, self.imm = _run(_activate, (
+            self.win, self.imm, dI_stack, _idx(newest_slot, self.device),
+            _f32(self.current_min_act_dist, self.device), self.calib.c,
+        ), settings=s, h1=self.calib.h[1], w1=self.calib.w[1])
 
     # ------------------------------------------------------------------
     def _marginalize_frame(self, slot):

@@ -27,7 +27,7 @@ from stereo_dso_g2o_tpu_torch.ops.interp import take
 from stereo_dso_g2o_tpu_torch.ops.residuals import _bilinear3_frames, by_host
 from stereo_dso_g2o_tpu_torch.utils.fixed import constant, nonzero_fixed, scatter_drop
 from stereo_dso_g2o_tpu_torch.utils.timing import PROF
-from stereo_dso_g2o_tpu_torch.utils.tree import at_rows, per_row, seq_scalar
+from stereo_dso_g2o_tpu_torch.utils.tree import at_index, at_rows, per_row, seq_scalar, set_index
 
 
 @dataclasses.dataclass
@@ -84,7 +84,7 @@ def _set_slot(x, slot, val):
     if isinstance(slot, torch.Tensor) and slot.dim() == 1:
         out[torch.arange(x.shape[0], device=x.device), slot.long()] = val
     else:
-        out[slot] = val
+        set_index(out, slot, val)
     return out
 
 
@@ -595,7 +595,7 @@ def activation_gate(win, imm: ImmatureSet, newest_slot, min_act_dist, calib_c,
     w2c = win.w2c()
     slot = newest_slot if isinstance(newest_slot, torch.Tensor) else constant(
         newest_slot, torch.int64, w2c.device)
-    w2c_new = at_rows(w2c, slot.long()) if slot.dim() else w2c[slot]
+    w2c_new = at_rows(w2c, slot.long()) if slot.dim() else at_index(w2c, slot)
     # products of one matrix per sequence: one call per sequence
     # (utils/tree.per_row), as one sequence alone makes it
     many = w2c.dim() == 4

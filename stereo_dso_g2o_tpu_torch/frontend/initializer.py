@@ -15,6 +15,13 @@ masked iterations, as the reference's `fori_loop` does: `accept` and
 
 Per-level point capacities derive from the reference densities
 {0.03, 0.05, 0.15, 0.5, 1.0} x (w_l * h_l) (setFirstStereo:860).
+
+The functions the JAX package jits are programs on the card
+(`runtime/program.run`, one per level shape): `lm_level_init` (its
+`max_iterations` trips unrolled into the graph), `propagate_up`,
+`propagate_down`, `_grid_max_select`, `knn.grid_knn` and
+`knn.grid_parent`. `track_frame` reads the device once, after the last
+level (the JAX package reads the snap flag once a level).
 """
 
 from __future__ import annotations
@@ -31,8 +38,9 @@ from stereo_dso_g2o_tpu_torch.config import (
 )
 from stereo_dso_g2o_tpu_torch.models.camera import Calib
 from stereo_dso_g2o_tpu_torch.ops.interp import bilinear
-from stereo_dso_g2o_tpu_torch.utils import knn, se3
-from stereo_dso_g2o_tpu_torch.utils.fixed import nonzero_fixed
+from stereo_dso_g2o_tpu_torch.runtime import program
+from stereo_dso_g2o_tpu_torch.utils import host, knn, se3
+from stereo_dso_g2o_tpu_torch.utils.fixed import constant, nonzero_fixed
 from stereo_dso_g2o_tpu_torch.utils.smalls import fma
 
 DENSITIES = (0.03, 0.05, 0.15, 0.5, 1.0)  # CoarseInitializer.cpp:860
@@ -122,7 +130,7 @@ class MonoInitializer:
                 us, vs, types, valid = map_to_points(status, cap)
                 types = types.to(torch.int32)
             else:
-                us, vs, valid = _grid_max_select(dIp[lvl], asg[lvl], cap)
+                us, vs, valid = program.run(_grid_max_select, (dIp[lvl], asg[lvl]), dict(cap=cap))
                 types = torch.ones(cap, dtype=torch.int32, device=us.device)
             self.levels.append(_new_level(us, vs, types, valid, s))
         self._make_nn()
@@ -142,16 +150,17 @@ class MonoInitializer:
             w_l, h_l = self.calib.w[lvl], self.calib.h[lvl]
             gh = max(2, int(np.ceil(h_l / 2.0)))
             gw = max(2, int(np.ceil(w_l / 2.0)))
-            nn_idx, _ = knn.grid_knn(L.u, L.v, L.valid, self._cell(lvl, L.u.shape[0]),
-                                     gh=gh, gw=gw, k=10)
+            nn_idx, _ = program.run(knn.grid_knn,
+                                    (L.u, L.v, L.valid, self._cell(lvl, L.u.shape[0])),
+                                    dict(gh=gh, gw=gw, k=10))
             parent = torch.full_like(L.parent, -1)
             if lvl + 1 < n_lvl:
                 C = self.levels[lvl + 1]
                 wc, hc = self.calib.w[lvl + 1], self.calib.h[lvl + 1]
-                parent = knn.grid_parent(
-                    L.u, L.v, L.valid, C.u, C.v, C.valid, self._cell(lvl + 1, C.u.shape[0]),
-                    gh=max(2, int(np.ceil(hc / 2.0))), gw=max(2, int(np.ceil(wc / 2.0))),
-                )
+                parent = program.run(
+                    knn.grid_parent,
+                    (L.u, L.v, L.valid, C.u, C.v, C.valid, self._cell(lvl + 1, C.u.shape[0])),
+                    dict(gh=max(2, int(np.ceil(hc / 2.0))), gw=max(2, int(np.ceil(wc / 2.0)))))
             self.levels[lvl] = L.replace(nn=nn_idx, parent=parent)
 
     # -- per-frame tracking ---------------------------------------------
@@ -172,28 +181,32 @@ class MonoInitializer:
 
         T = torch.as_tensor(np.asarray(self.this_to_next, np.float32), device=dev)
         aff = torch.as_tensor(np.asarray(self.this_to_next_aff, np.float32), device=dev)
-        snapped_flag = bool(self.snapped)
+        # the snap flag stays on the device from level to level: each
+        # level's result holds the flag it was given or'ed with its own
+        snapped = torch.tensor(bool(self.snapped), device=dev)
 
         for lvl in range(n_lvl - 1, -1, -1):
             if lvl < n_lvl - 1:
-                self.levels[lvl] = propagate_down(self.levels[lvl], self.levels[lvl + 1])
+                self.levels[lvl] = program.run(
+                    propagate_down, (self.levels[lvl], self.levels[lvl + 1]), {})
             K_lvl = torch.stack([self.calib.fx(lvl), self.calib.fy(lvl),
                                  self.calib.cx(lvl), self.calib.cy(lvl)])
-            top = lvl == n_lvl - 1
-            L, T, aff, _, snapped_new = lm_level_init(
-                self.levels[lvl], self.dI_first[lvl], dI_new_pyr[lvl], K_lvl,
-                T, aff, torch.tensor(snapped_flag, device=dev),
-                settings=self.settings, top_level=top,
-                max_iterations=MAX_ITERATIONS[min(lvl, len(MAX_ITERATIONS) - 1)],
-            )
+            L, T, aff, _, snapped = program.run(
+                lm_level_init,
+                (self.levels[lvl], self.dI_first[lvl], dI_new_pyr[lvl], K_lvl, T, aff, snapped),
+                dict(settings=self.settings, top_level=lvl == n_lvl - 1,
+                     max_iterations=MAX_ITERATIONS[min(lvl, len(MAX_ITERATIONS) - 1)]))
             self.levels[lvl] = L
-            snapped_flag = snapped_flag or bool(snapped_new)
-
-        self.this_to_next = T.detach().cpu().numpy().astype(np.float64)
-        self.this_to_next_aff = aff.detach().cpu().numpy().astype(np.float64)
 
         for lvl in range(n_lvl - 1):
-            self.levels[lvl + 1] = propagate_up(self.levels[lvl], self.levels[lvl + 1])
+            self.levels[lvl + 1] = program.run(
+                propagate_up, (self.levels[lvl], self.levels[lvl + 1]), {})
+
+        # the frame's one read
+        T_np, aff_np, snapped_np = host.Fetch((T, aff, snapped)).get()
+        self.this_to_next = T_np.astype(np.float64)
+        self.this_to_next_aff = aff_np.astype(np.float64)
+        snapped_flag = bool(snapped_np)
 
         self.frame_id += 1
         if not snapped_flag:
@@ -279,7 +292,7 @@ def _calc_res_gs(L: InitLevel, dI_ref, dI_new, K_lvl, T, aff, snapped, settings:
     RKi = R @ Ki
     a_exp = torch.exp(aff[0])
 
-    pat = torch.as_tensor(PATTERN, dtype=torch.float32, device=L.u.device)
+    pat = constant(PATTERN, torch.float32, L.u.device)
     pu = L.u[:, None] + pat[None, :, 0]  # (N, 8)
     pv = L.v[:, None] + pat[None, :, 1]
     # rounded as XLA computes them: the 3-term dot as a chain of FMAs, and
@@ -436,14 +449,14 @@ def lm_level_init(L: InitLevel, dI_ref, dI_new, K_lvl, T, aff, snapped,
     L = _apply(L, first)
 
     dev = L.u.device
-    wM = torch.as_tensor(WM, device=dev)
+    wM = constant(WM, torch.float32, dev)
     eye8 = torch.eye(8, dtype=torch.float32, device=dev)
     npx = dI_new.shape[0] * dI_new.shape[1]
     H, b, Hsc, bsc = first["H"], first["b"], first["Hsc"], first["bsc"]
     E_old = torch.stack([first["E"], first["alpha"]])
-    lam = torch.tensor(0.1, dtype=torch.float32, device=dev)
-    fails = torch.tensor(0, dtype=torch.int32, device=dev)
-    done = torch.tensor(False, device=dev)
+    lam = torch.full((), 0.1, dtype=torch.float32, device=dev)
+    fails = torch.zeros((), dtype=torch.int32, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
     snapped_c = snapped
 
     for _ in range(max_iterations):
@@ -517,8 +530,11 @@ def propagate_up(src: InitLevel, dst: InitLevel) -> InitLevel:
     parent = torch.clamp(src.parent, min=0).long()
     w_src = torch.where(src.valid & src.is_good & (src.parent >= 0), src.last_hessian,
                         torch.zeros_like(src.last_hessian))
-    iR_sum = torch.zeros_like(dst.iR).index_add_(0, parent, src.iR * w_src)
-    w_sum = torch.zeros_like(dst.iR).index_add_(0, parent, w_src)
+    # summed in index order: on the card `index_add_` adds by atomics, in
+    # an order that varies from run to run; an accumulating `index_put_`
+    # sorts the indices first (on the CPU both add serially, in order)
+    iR_sum = torch.zeros_like(dst.iR).index_put_((parent,), src.iR * w_src, accumulate=True)
+    w_sum = torch.zeros_like(dst.iR).index_put_((parent,), w_src, accumulate=True)
     has = w_sum > 0
     new_iR = torch.where(has, iR_sum / torch.clamp(w_sum, min=1e-12), dst.iR)
     out = dst.replace(
@@ -526,7 +542,7 @@ def propagate_up(src: InitLevel, dst: InitLevel) -> InitLevel:
         idepth=torch.where(has, new_iR, dst.idepth),
         is_good=dst.is_good | (has & dst.valid),
     )
-    return _opt_reg(out, torch.tensor(True, device=dst.iR.device))
+    return _opt_reg(out, constant(True, torch.bool, dst.iR.device))
 
 
 def propagate_down(dst: InitLevel, src: InitLevel) -> InitLevel:
@@ -548,7 +564,7 @@ def propagate_down(dst: InitLevel, src: InitLevel) -> InitLevel:
         is_good=dst.is_good | revive,
         last_hessian=torch.where(revive, torch.zeros_like(dst.last_hessian), dst.last_hessian),
     )
-    return _opt_reg(out, torch.tensor(True, device=dst.iR.device))
+    return _opt_reg(out, constant(True, torch.bool, dst.iR.device))
 
 
 def score_against_truth(level0: InitLevel, idepth_gt: np.ndarray, T_est, T_gt) -> dict:

@@ -8,6 +8,9 @@ and emit (idepth, idepth_min, idepth_max) per accepted point.
 
 The per-point loop is two batched `trace_stereo` calls over the full
 fixed-capacity point set; the consistency gate is elementwise masking.
+`stereo_match_points` is one program on the card (`runtime/program.run`,
+the JAX package's `jax.jit`); the pyramids, the selector's passes and
+their reads, and the map stay outside it.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from stereo_dso_g2o_tpu_torch.models.camera import Calib
 from stereo_dso_g2o_tpu_torch.ops import trace as trace_ops
 from stereo_dso_g2o_tpu_torch.ops.pyramid import build_pyramid
 from stereo_dso_g2o_tpu_torch.ops.selector import PixelSelector, map_to_points
+from stereo_dso_g2o_tpu_torch.runtime import program
 
 
 class StereoMatchResult(NamedTuple):
@@ -39,7 +43,16 @@ def stereo_match_points(us, vs, valid, dI_left, dI_right, K, baseline,
                         settings: Settings = default_settings(),
                         route=None) -> StereoMatchResult:
     """Batched L->R trace + R->L consistency check for given pixel
-    locations. `route` forces one of the two epipolar kernels (ops/trace)."""
+    locations. `route` forces one of the two epipolar kernels (ops/trace).
+    On the card one program per shape (captured at its first call and
+    replayed), eagerly on the CPU and inside `program.disabled()`."""
+    return program.run(_match_points, (us, vs, valid, dI_left, dI_right, K, baseline),
+                       dict(settings=settings, route=route), key=(trace_ops.DEFAULT_ROUTE,))
+
+
+def _match_points(us, vs, valid, dI_left, dI_right, K, baseline, settings: Settings,
+                  route) -> StereoMatchResult:
+    """`stereo_match_points` run eagerly (what its program captures)."""
     dev = dI_left.device
     us = us.to(torch.float32)
     vs = vs.to(torch.float32)

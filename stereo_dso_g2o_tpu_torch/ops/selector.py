@@ -30,7 +30,8 @@ import numpy as np
 import torch
 
 from stereo_dso_g2o_tpu_torch.config import Settings, default_settings
-from stereo_dso_g2o_tpu_torch.utils import loop
+from stereo_dso_g2o_tpu_torch.runtime import program
+from stereo_dso_g2o_tpu_torch.utils import host, loop
 from stereo_dso_g2o_tpu_torch.utils.fixed import constant, nonzero_fixed
 
 # The 16 unit direction vectors (PixelSelector2.cpp:368-384).
@@ -305,13 +306,26 @@ def torch_uniform(salt: int, shape, device) -> torch.Tensor:
     return torch.rand(shape, generator=gen, device=device)
 
 
+def _select_pass(dI0, asg0, asg1, asg2, ths, pot, salt, th_factor: float,
+                 settings: Settings):
+    """One `select` pass over one image at a () integer potential and salt
+    on the device, run as the batch of one (an IF node per supported
+    potential in a program), and its count of selected pixels."""
+    sel = select(dI0[None], asg0[None], asg1[None], asg2[None], ths[None], pot.reshape(1),
+                 th_factor, salt.reshape(1), settings)
+    return sel.status_map[0], torch.sum(sel.counts[0])
+
+
 class PixelSelector:
     """Host-side density controller (PixelSelector2::makeMaps).
 
     Holds the adaptive `current_potential` between frames, re-runs `select`
     with an adjusted potential until the yield is within [0.25, 1.25]x of the
     requested density, and randomly thins overshoot with
-    `uniform(salt, shape, device)`."""
+    `uniform(salt, shape, device)`. The thresholds and each pass are
+    programs on the card (`runtime/program.run`), the potential and the
+    salt their inputs; the host reads each pass's count, and the count
+    after a thinning, as the JAX package does."""
 
     def __init__(self, settings: Settings = default_settings(), seed: int = 0,
                  uniform: Optional[Callable] = None):
@@ -323,13 +337,17 @@ class PixelSelector:
 
     def make_maps(self, dI0, asg0, asg1, asg2, density: float, th_factor: float = 1.0):
         """Returns (status_map (H,W) int32 in {0,1,2,4}, num_selected)."""
-        ths = block_thresholds(asg0, self.settings)
+        dev = asg0.device
+        ths = program.run(block_thresholds, (asg0,), dict(settings=self.settings))
         self._calls += 1
         salt = self._seed * 1000003 + self._calls
+        salt_t = torch.tensor(salt, dtype=torch.int64, device=dev)
         pot = self.current_potential
         for recursion in range(2, -1, -1):
-            selm = select(dI0, asg0, asg1, asg2, ths, pot, th_factor, salt, self.settings)
-            num_have = float(torch.sum(selm.counts))
+            status_map, count = program.run(
+                _select_pass, (dI0, asg0, asg1, asg2, ths, constant(pot, torch.int64, dev), salt_t),
+                dict(th_factor=float(th_factor), settings=self.settings))
+            num_have = float(host.item(count))
             quotia = density / max(num_have, 1.0)
             K = num_have * (pot + 1) * (pot + 1)
             ideal_pot = max(int(np.sqrt(K / density) - 1), 1)
@@ -342,12 +360,12 @@ class PixelSelector:
             break
         self.current_potential = snap_pot(max(ideal_pot, 1))
 
-        status = selm.status_map
+        status = status_map
         if quotia < 0.95:
             u = self.uniform(salt, tuple(status.shape), status.device)
             keep = torch.as_tensor(u, device=status.device) < quotia
             status = torch.where(keep, status, torch.zeros_like(status))
-            num_have = float(torch.sum(status > 0))
+            num_have = float(host.item(torch.sum(status > 0)))
         return status, int(num_have)
 
 

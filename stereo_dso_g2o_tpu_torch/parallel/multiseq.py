@@ -16,10 +16,12 @@ import torch
 import torch.distributed as dist
 
 from stereo_dso_g2o_tpu_torch.config import Settings, default_settings
+from stereo_dso_g2o_tpu_torch.ops import trace as trace_ops
 from stereo_dso_g2o_tpu_torch.frontend.stereo_match import (
     StereoMatchResult,
     stereo_match_points,
 )
+from stereo_dso_g2o_tpu_torch.runtime import program
 
 
 def make_mesh(n_devices: Optional[int] = None) -> List[torch.device]:
@@ -39,20 +41,30 @@ def sharded_stereo_match(group=None, settings: Settings = default_settings(), ro
       K: (3, 3) and baseline: () are the same on every rank.
     Returns (StereoMatchResult with a leading axis S, this rank's block;
     total_good, the good points of all ranks, summed over the group).
-    `group=None` is the default group; `route` as in `stereo_match_points`."""
+    `group=None` is the default group; `route` as in `stereo_match_points`.
+    On the card this rank's block is one program (`runtime/program.run`);
+    the all-reduce runs after it, outside the graph."""
 
     def step(us, vs, valid, dI_l, dI_r, K, baseline):
-        res = [
-            stereo_match_points(us[s], vs[s], valid[s], dI_l[s], dI_r[s], K, baseline,
-                                settings=settings, route=route)
-            for s in range(us.shape[0])
-        ]
-        out = StereoMatchResult(*[torch.stack(xs) for xs in zip(*res)])
-        total_good = torch.sum(out.good)
+        out, total_good = program.run(
+            _match_block, (us, vs, valid, dI_l, dI_r, K, baseline),
+            dict(settings=settings, route=route), key=(trace_ops.DEFAULT_ROUTE,))
         dist.all_reduce(total_good, op=dist.ReduceOp.SUM, group=group)
         return out, total_good
 
     return step
+
+
+def _match_block(us, vs, valid, dI_l, dI_r, K, baseline, settings: Settings, route):
+    """`stereo_match_points` over each sequence of a rank's block, stacked,
+    and the block's count of good points."""
+    res = [
+        stereo_match_points(us[s], vs[s], valid[s], dI_l[s], dI_r[s], K, baseline,
+                            settings=settings, route=route)
+        for s in range(us.shape[0])
+    ]
+    out = StereoMatchResult(*[torch.stack(xs) for xs in zip(*res)])
+    return out, torch.sum(out.good)
 
 
 class MultiSequenceRunner:

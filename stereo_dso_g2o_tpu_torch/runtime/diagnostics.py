@@ -7,6 +7,12 @@ last H, its pose/a-b sub-blocks, the Hessian diagonal, and the nullspace
 columns). This module gives the same dump as one JSONL record, so that
 accuracy drift during performance work can be traced to a direction of the
 state space.
+
+On the card the Hessian, its blocks, diagonal and nullspace responses are
+one program (`runtime/program.run`, as the JAX package jits
+`_hessian_parts`); the three symmetric eigenvalue solves run after it,
+eagerly: `torch.linalg.eigvalsh` checks cuSOLVER's status on the host,
+which a captured graph cannot hold. The record is one read.
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ import torch
 from stereo_dso_g2o_tpu_torch.backend import ba
 from stereo_dso_g2o_tpu_torch.backend import window as W
 from stereo_dso_g2o_tpu_torch.config import CPARS, Settings, default_settings
+from stereo_dso_g2o_tpu_torch.runtime import program
+from stereo_dso_g2o_tpu_torch.utils import host
 
 
 def hessian(win: W.Window, settings: Settings) -> torch.Tensor:
@@ -31,11 +39,10 @@ def hessian(win: W.Window, settings: Settings) -> torch.Tensor:
     return accA.H + win.HM - sc.H
 
 
-def _hessian_parts(win: W.Window, settings: Settings):
-    """Eigendata, diagonal and nullspace responses of `hessian`."""
+def _hessian_blocks(win: W.Window, settings: Settings):
+    """The symmetrized H, its pose and a/b blocks, its diagonal and the
+    nullspace responses: `_hessian_parts` up to the eigenvalue solves."""
     H = hessian(win, settings)
-    # the reference logs eigenvalues of the undamped system
-    ev_all = torch.linalg.eigvalsh(0.5 * (H + H.T))
     # pose block (6 dof per frame) and a/b block, like ev_H_A / ev_H_ab
     F = win.F
     per_frame = torch.arange(F * 8, device=win.device).reshape(F, 8)
@@ -43,21 +50,25 @@ def _hessian_parts(win: W.Window, settings: Settings):
     ab_idx = CPARS + per_frame[:, 6:].reshape(-1)
     Hp = H[pose_idx][:, pose_idx]
     Hab = H[ab_idx][:, ab_idx]
-    ev_pose = torch.linalg.eigvalsh(0.5 * (Hp + Hp.T))
-    ev_ab = torch.linalg.eigvalsh(0.5 * (Hab + Hab.T))
     diag = torch.diagonal(H)
     N = ba.nullspaces(win)
     # nullspace response: ||H n|| / ||n|| per column (should be ~0 in the
     # gauge directions the orthogonalization removes)
     resp = torch.linalg.norm(H @ N, dim=0) / torch.clamp(torch.linalg.norm(N, dim=0), min=1e-12)
-    return ev_all, ev_pose, ev_ab, diag, resp
+    return 0.5 * (H + H.T), 0.5 * (Hp + Hp.T), 0.5 * (Hab + Hab.T), diag, resp
+
+
+def _hessian_parts(win: W.Window, settings: Settings):
+    """Eigendata, diagonal and nullspace responses of `hessian` (the
+    reference logs eigenvalues of the undamped system)."""
+    H, Hp, Hab, diag, resp = program.run(_hessian_blocks, (win,), dict(settings=settings))
+    return (torch.linalg.eigvalsh(H), torch.linalg.eigvalsh(Hp), torch.linalg.eigvalsh(Hab),
+            diag, resp)
 
 
 def eigenvalue_record(win: W.Window, settings: Settings = default_settings()):
     """One JSON-ready dict mirroring printEigenValLine's content."""
-    ev_all, ev_pose, ev_ab, diag, resp = (
-        x.cpu().numpy() for x in _hessian_parts(win, settings)
-    )
+    ev_all, ev_pose, ev_ab, diag, resp = host.Fetch(_hessian_parts(win, settings)).get()
     return {
         "type": "eig",
         "ev_H": np.round(np.sort(ev_all)[::-1], 6).tolist(),

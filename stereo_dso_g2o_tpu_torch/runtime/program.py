@@ -33,7 +33,10 @@ device. `run(fn, args, static)` gives the port the same on the card:
 
 `disabled()` is the counterpart of `jax.disable_jit()`: inside it `run`
 calls `fn` eagerly, on the card too (`chip_smoke.py` and the tools put the
-two side by side with it). Tensors on the CPU always run eagerly.
+two side by side with it). Tensors on the CPU always run eagerly. While a
+program is being built (its warm-up and its capture), a `run` inside its
+function calls its own function straight through, as a `jax.jit` inside a
+jitted function inlines: no capture starts inside a capture.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ from stereo_dso_g2o_tpu_torch.utils import host, loop
 from stereo_dso_g2o_tpu_torch.utils.tree import leaves, tree_map
 
 _DISABLED = 0
+_BUILDING = 0  # programs being built (warmed up or captured) right now
 PROGRAMS: Dict[tuple, "Program"] = {}  # key -> its program
 _LIB = []
 
@@ -67,8 +71,19 @@ def disabled():
 
 
 def active(device) -> bool:
-    """Whether `run` replays a program for tensors on `device`."""
-    return torch.device(device).type == "cuda" and not _DISABLED
+    """Whether `run` replays a program for tensors on `device` (not while
+    another program is being built: its function runs inside that one's)."""
+    return torch.device(device).type == "cuda" and not _DISABLED and not _BUILDING
+
+
+@contextlib.contextmanager
+def _building():
+    global _BUILDING
+    _BUILDING += 1
+    try:
+        yield
+    finally:
+        _BUILDING -= 1
 
 
 def _unflatten(tree, new_leaves):
@@ -107,6 +122,10 @@ class Program:
     """`fn(*args, **static)` captured for one key (module docstring)."""
 
     def __init__(self, fn: Callable, args, static: dict, name: str):
+        with _building():
+            self._build(fn, args, static, name)
+
+    def _build(self, fn: Callable, args, static: dict, name: str):
         self.name = name
         self.replays = 0
         in_leaves = leaves(args)

@@ -21,6 +21,11 @@ import torch
 from stereo_dso_g2o_tpu_torch.utils.tree import leaves
 
 READS = 0  # device->host reads since the last reset()
+_NUMPY = {torch.bool: np.dtype(np.bool_), torch.uint8: np.dtype(np.uint8),
+          torch.int8: np.dtype(np.int8), torch.int16: np.dtype(np.int16),
+          torch.int32: np.dtype(np.int32), torch.int64: np.dtype(np.int64),
+          torch.float16: np.dtype(np.float16), torch.float32: np.dtype(np.float32),
+          torch.float64: np.dtype(np.float64)}
 
 
 def reset():
@@ -53,35 +58,34 @@ def tolist(x: torch.Tensor):
 
 
 class Fetch:
-    """A tree of tensors copied to the host: the copy starts at
-    construction and `get()` waits for it (one read). On the card the
-    leaves are packed into one byte buffer and copied into pinned memory
-    behind the work already queued, so the host does not wait at the start
-    and `get()` waits for that work only, not for what was queued after
-    it: the host may run ahead of the device until then."""
+    """A tree of tensors copied to the host: the leaves are packed into one
+    byte buffer, and `get()` reads it once. On the card the buffer is
+    copied into pinned memory behind the work already queued, starting at
+    construction, so the host does not wait at the start and `get()` waits
+    for that work only, not for what was queued after it: the host may run
+    ahead of the device until then."""
 
     def __init__(self, tree):
         xs = leaves(tree)
         self.meta = [(tuple(x.shape), x.dtype) for x in xs]
         self.event = None
-        if xs and xs[0].is_cuda:
-            flat = torch.cat([x.detach().reshape(-1).contiguous().view(torch.uint8) for x in xs])
+        flat = torch.cat([x.detach().reshape(-1).contiguous().view(torch.uint8) for x in xs])
+        if flat.is_cuda:
             self.buf = torch.empty(flat.shape, dtype=torch.uint8, pin_memory=True)
             self.buf.copy_(flat, non_blocking=True)
             self.event = torch.cuda.Event()
             self.event.record()
         else:
-            self.buf = xs
+            self.buf = flat
 
     def get(self) -> list:
         """The leaves as numpy arrays, in `utils/tree.leaves` order."""
         count()
-        if self.event is None:
-            return [x.numpy() for x in self.buf]
-        self.event.synchronize()
+        if self.event is not None:
+            self.event.synchronize()
         raw, out, at = self.buf.numpy(), [], 0
         for shape, dtype in self.meta:
-            dt = torch.empty(0, dtype=dtype).numpy().dtype
+            dt = _NUMPY[dtype]
             n = int(np.prod(shape)) * dt.itemsize
             out.append(np.frombuffer(raw, dtype=dt, count=n // dt.itemsize, offset=at)
                        .reshape(shape).copy())

@@ -49,6 +49,25 @@ def at_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x[n, idx]
 
 
+def at_index(x: torch.Tensor, i, dim: int = 0) -> torch.Tensor:
+    """x[i] along `dim`, for an int or a 0-dim integer tensor `i`: a tensor
+    index is gathered on the device (an index by a 0-dim tensor reads it on
+    the host)."""
+    if isinstance(i, torch.Tensor):
+        return x.index_select(dim, i.reshape(1).long()).squeeze(dim)
+    return x.select(dim, i)
+
+
+def set_index(x: torch.Tensor, i, val):
+    """x[i] = val in place along the first axis, for an int (or any index
+    Python takes) or a 0-dim integer tensor `i`, which is written on the
+    device with no read (`val` a tensor then)."""
+    if isinstance(i, torch.Tensor) and i.dim() == 0:
+        x.index_put_((i.reshape(1).long(),), val.to(x.dtype))
+    else:
+        x[i] = val
+
+
 def seq_scalar(x, nd: int):
     """A per-sequence scalar, () for one sequence or (N,) for N, shaped to
     broadcast over `nd` trailing axes of the sequence's tensors."""
