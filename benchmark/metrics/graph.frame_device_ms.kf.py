@@ -1,0 +1,9 @@
+"""Median device time of the traced window's graph calls with a keyframe pipeline:
+CUDA events on the stream before and after each call."""
+
+from benchmark.harness import stats
+
+
+def read(ctx):
+    xs = [c["device_ms"] for c in ctx["calls"] if c["layer"] == "graph" and c["kf"] is True]
+    return stats.median(xs) if xs else None
