@@ -751,13 +751,21 @@ def phase_program(dev, lefts, rights, twins, gt, launches):
     from stereo_dso_g2o_tpu_torch.runtime import program
     from stereo_dso_g2o_tpu_torch.tools._common import host_split, profile_summary, profiled
     from stereo_dso_g2o_tpu_torch.utils import host, loop
+    from stereo_dso_g2o_tpu_torch.utils.timing import PROF
 
     t_phase = time.perf_counter()
     runs = {}
+    prof_was = PROF.enabled
+    # the stages of programs built before this phase, to count this run's
+    stages0 = {id(pr): pr.stages()["stages"] for pr in program.PROGRAMS.values()}
     for mode, g in zip(("program", "eager"), twins):
         ctx = program.disabled() if mode == "eager" else contextlib.nullcontext()
         ms, reads, k1, bundles, pre = [], [], [], [], {}
         tk.reset_launches()
+        # the eager run counts its named loops' host trips (PROF), the
+        # program's replays count them on the device (Program.stages)
+        PROF.enabled = mode == "eager" or prof_was
+        trips0 = dict(PROF.trips)
         with ctx:
             for i in range(BOOT, N_FRAMES):
                 pre[i] = g.state  # a frame writes no input: the state stays as it is
@@ -771,10 +779,12 @@ def phase_program(dev, lefts, rights, twins, gt, launches):
                 k1.append(tk.LAUNCHES - k0)
                 bundles.append(g._pending_q[-1][0])
             g.flush()
+        PROF.enabled = prof_was
         if g.is_lost:
             fail(f"program: the {mode} run was lost")
         runs[mode] = dict(ms=ms, reads=reads, k1=k1, bundles=bundles, pre=pre, g=g,
-                          kf=[bool(b.need_kf) for b in bundles], launches=tk.LAUNCHES)
+                          kf=[bool(b.need_kf) for b in bundles], launches=tk.LAUNCHES,
+                          trips={k: v - trips0.get(k, 0) for k, v in PROF.trips.items()})
     P, E = runs["program"], runs["eager"]
     launches["program"] = (P["launches"], 0)
     state_differ = trees_equal(P["g"].state, E["g"].state)
@@ -787,6 +797,14 @@ def phase_program(dev, lefts, rights, twins, gt, launches):
     kfj = [j for j, i in enumerate(frames) if i >= BOOT + 2 and P["kf"][j]]
     prog = next(pr for pr in program.PROGRAMS.values() if pr.name == "_frame_auto"
                 and pr.inputs[-6].dim() == 2)  # the single-sequence key of this path
+    # the program's stages in all, and its trips over the program run's frames
+    st, st0 = prog.stages()["stages"], stages0.get(id(prog), {})
+
+    def trips(d):
+        return d.get("trips", d.get("taken", 0))
+
+    dev_trips = {k: trips(st[k]) - trips(st0.get(k, {})) for k in ("track.lm", "ba", "kf.need")}
+    host_trips = {k: E["trips"].get(k, 0) for k in dev_trips}
 
     def stats(r, idx):
         v = [r["ms"][j] for j in idx]
@@ -796,7 +814,17 @@ def phase_program(dev, lefts, rights, twins, gt, launches):
           f"under program.disabled() from twins of the freeze: {state_differ} state leaves and "
           f"{bundle_differ} bundle leaves differ; KFs {n_kf} at frames "
           f"{[sh.id for sh in P['g'].kf_shells]}, ATE {ate:.5f} m")
-    print(f"[program] ms per frame (host clock, synchronized, frames {BOOT + 2}..): non-keyframe "
+    print(f"[program] trips over frames {BOOT}..{N_FRAMES - 1}, counted on the device by the "
+          f"program's replays {dev_trips}, by the eager run's host loops "
+          f"{host_trips}; stamp nodes {prog.stamp_nodes}; clock offset, error (ns) {prog.clock}")
+    print(f"[program] stages of the whole-frame program over its {prog.replays} replays "
+          f"(device ms in all, self ms, count, trips or taken):")
+    for name, d in st.items():
+        extra = d.get("trips", d.get("taken", ""))
+        print(f"[program]   {name:<30} parent {str(d['parent']):<16} {d['device_ms']:>10.2f} "
+              f"{d['self_ms']:>10.2f} {d['count']:>6} {extra}")
+    print(f"[program] ms per frame (host clock, synchronized, frames {BOOT + 2}..; the eager run "
+          f"with PROF on): non-keyframe "
           f"program {stats(P, nonkf)}, eager {stats(E, nonkf)}; keyframe program {stats(P, kfj)}, "
           f"eager {stats(E, kfj)}; all program {stats(P, nonkf + kfj)}, eager {stats(E, nonkf + kfj)}")
     print(f"[program] host reads per frame: program non-keyframe "
@@ -831,6 +859,8 @@ def phase_program(dev, lefts, rights, twins, gt, launches):
              f"({E['launches']})")
     if prog.while_nodes < 1 or prog.if_nodes < 1 or prog.nodes is None:
         fail("program: the whole-frame program holds no WHILE or no IF node")
+    if dev_trips != host_trips or not dev_trips["track.lm"] or not dev_trips["ba"]:
+        fail(f"program: the device counted trips {dev_trips}, the host loops {host_trips}")
 
     g = P["g"]
     cal = g.calib

@@ -682,7 +682,7 @@ def optimize_fused(win: W.Window, dI_stack, settings: Settings = default_setting
         c["it"].add_(1)
         torch.logical_or(~c["running"], c["it"] >= max_its, out=done)
 
-    loop.while_loop(done, trip, max_its, first_trip=max_its > 0)
+    loop.while_loop(done, trip, max_its, first_trip=max_its > 0, name="ba")
     return carry["win"], carry["energy"], carry["nres"]
 
 

@@ -25,6 +25,20 @@
 // The kernel reads one byte and writes the condition: launch-bound, one
 // thread, nothing to tune. Each call returns a cudaError_t (0: success).
 //
+// Stage accounting (runtime/program.py, utils/loop.py). A captured program
+// keeps a small int64 buffer of slots, one per named stage, each 8 values
+// (the S_* indices below; the last two unused), read once after the run.
+// sdso_stamp captures a one-thread kernel that reads %globaltimer (ns) into a slot: at
+// a section's entry it sets `begin` and counts an entry; at its exit it adds
+// now - begin to `total`, counts it and sets `end`. A named loop or branch
+// hands its slot to sdso_cond_begin / sdso_cond_end, and the kernel that
+// sets the condition keeps the slot too, adding no node: before a WHILE node
+// it sets `begin` and counts an entry (and a completion if no trip runs);
+// at the end of each trip it counts the trip, and once the condition turns
+// false it adds the loop's span to `total` and counts the completion; before
+// an IF node it counts an evaluation (entry and completion) and, when the
+// flag is set, a taken branch in `trips`. A null slot keeps none of it.
+//
 // For the report and for a graph CUDA will not instantiate: sdso_graph_nodes
 // counts a graph's nodes by type (a body's at its end, sdso_cond_end), and
 // sdso_graph_fault instantiates a graph once more to name the node it
@@ -36,16 +50,65 @@
 
 namespace {
 
-__global__ void set_condition(cudaGraphConditionalHandle handle, const bool* flag) {
-  cudaGraphSetConditional(handle, *flag ? 1u : 0u);
+// a slot's fields (runtime/program.py reads them by these positions)
+constexpr int S_BEGIN = 0, S_END = 1, S_TOTAL = 2, S_COUNT = 3, S_TRIPS = 4, S_ENTRIES = 5;
+// where set_condition runs
+constexpr int kBeforeIf = 0, kBeforeWhile = 1, kTripEnd = 2;
+
+__device__ __forceinline__ long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return static_cast<long long>(t);
+}
+
+__global__ void stamp(long long* slot, int is_end) {
+  long long t = global_ns();
+  if (is_end) {
+    slot[S_TOTAL] += t - slot[S_BEGIN];
+    slot[S_COUNT] += 1;
+    slot[S_END] = t;
+  } else {
+    slot[S_BEGIN] = t;
+    slot[S_ENTRIES] += 1;
+  }
+}
+
+__global__ void set_condition(cudaGraphConditionalHandle handle, const bool* flag,
+                              long long* slot, int where) {
+  bool go = *flag;
+  cudaGraphSetConditional(handle, go ? 1u : 0u);
+  if (slot == nullptr) return;
+  long long t = global_ns();
+  if (where == kBeforeIf) {
+    slot[S_ENTRIES] += 1;
+    slot[S_COUNT] += 1;
+    slot[S_TRIPS] += go;
+    slot[S_BEGIN] = t;
+    slot[S_END] = t;
+  } else if (where == kBeforeWhile) {
+    slot[S_BEGIN] = t;
+    slot[S_ENTRIES] += 1;
+    if (!go) {
+      slot[S_COUNT] += 1;
+      slot[S_END] = t;
+    }
+  } else {
+    slot[S_TRIPS] += 1;
+    if (!go) {
+      slot[S_TOTAL] += t - slot[S_BEGIN];
+      slot[S_COUNT] += 1;
+      slot[S_END] = t;
+    }
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
+// slot: the loop's or branch's stage slot, or null.
 int sdso_cond_begin(void* stream, void* body_stream, const void* flag, int is_while,
-                    unsigned long long* handle_out) {
+                    void* slot, unsigned long long* handle_out) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaStreamCaptureStatus status;
   cudaGraph_t graph;
@@ -58,7 +121,8 @@ int sdso_cond_begin(void* stream, void* body_stream, const void* flag, int is_wh
   cudaGraphConditionalHandle handle;
   err = cudaGraphConditionalHandleCreate(&handle, graph, 0, 0);
   if (err != cudaSuccess) return err;
-  set_condition<<<1, 1, 0, s>>>(handle, static_cast<const bool*>(flag));
+  set_condition<<<1, 1, 0, s>>>(handle, static_cast<const bool*>(flag),
+                                static_cast<long long*>(slot), is_while ? kBeforeWhile : kBeforeIf);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -112,14 +176,16 @@ cudaError_t count_types(cudaGraph_t graph, unsigned long long* n_out,
 }  // namespace
 
 // flag: the WHILE node's, set again at the end of its body; null for an IF.
-// types_out (kTypes counts): the body's nodes by type are added to it.
-int sdso_cond_end(void* body_stream, const void* flag, unsigned long long handle,
+// slot: the WHILE node's stage slot, or null. types_out (kTypes counts): the
+// body's nodes by type are added to it.
+int sdso_cond_end(void* body_stream, const void* flag, unsigned long long handle, void* slot,
                   unsigned long long* body_nodes_out, unsigned long long* types_out) {
   cudaStream_t s = static_cast<cudaStream_t>(body_stream);
   cudaError_t err = cudaSuccess;
   if (flag != nullptr) {
     set_condition<<<1, 1, 0, s>>>(static_cast<cudaGraphConditionalHandle>(handle),
-                                  static_cast<const bool*>(flag));
+                                  static_cast<const bool*>(flag), static_cast<long long*>(slot),
+                                  kTripEnd);
     err = cudaGetLastError();
   }
   cudaGraph_t body;
@@ -127,6 +193,13 @@ int sdso_cond_end(void* body_stream, const void* flag, unsigned long long handle
   if (err != cudaSuccess) return err;
   if (end != cudaSuccess) return end;
   return count_types(body, body_nodes_out, types_out);
+}
+
+// A stamp into `slot` on `stream` (captured there, or run eagerly): is_end
+// 0 at a section's entry, 1 at its exit.
+int sdso_stamp(void* stream, void* slot, int is_end) {
+  stamp<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<long long*>(slot), is_end);
+  return cudaGetLastError();
 }
 
 // Nodes at the top level of a graph (a captured program kept with

@@ -468,7 +468,7 @@ def frame_step_full(left, right, ref, win, imm, calib_c, baseline, ref_slot,
             sel = _select(full, last_rmse0, settings, n_tries)
             return TrackOut(*[tracker_ops._bsel(need_ladder, a, b) for a, b in zip(sel, t0)])
 
-        track = loop.cond(need_ladder.any(), ladder, t0)
+        track = loop.cond(need_ladder.any(), ladder, t0, name="track.ladder")
 
     imm_out = _nonkey_refine(
         win, imm, dIpL[0], dIpR[0], calib, track.T, track.aff,

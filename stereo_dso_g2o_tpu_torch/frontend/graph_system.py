@@ -309,6 +309,7 @@ class TrackAux(NamedTuple):
     kf_inputs: torch.Tensor  # (3,) decision-audit inputs (delta, rmse, first)
 
 
+@PROF.section("track", True)
 def _track_common(state: GraphState, left, right, calib_c, baseline, new_exposure,
                   settings: Settings, n_levels: int, n_tries: int, w0: int, h0: int):
     """Shared front half of every frame: pyramids + cascade + retry ladder +
@@ -431,6 +432,7 @@ def _nonkf_branch(state: GraphState, imm_spec, aux: TrackAux):
     return st, bundle
 
 
+@PROF.section("kf", True)
 def _kf_branch(state: GraphState, aux: TrackAux, calib_c, baseline, new_exposure,
                settings: Settings, n_levels: int, pots, caps: Tuple[int, ...],
                w0: int, h0: int, imm_cap: int,
@@ -651,7 +653,7 @@ def _frame_auto(state: GraphState, left, right, calib_c, baseline, new_exposure,
         picked = select_rows(aux.need_kf, (st_k, b_k), nonkf)
         return tree_map(lambda x, like: x.to(like.dtype), picked, nonkf)
 
-    return loop.cond(aux.need_kf.any(), kf, nonkf) if gate else kf()
+    return loop.cond(aux.need_kf.any(), kf, nonkf, name="kf.need") if gate else kf()
 
 
 def _on_device(x, dtype, dev) -> torch.Tensor:

@@ -628,5 +628,6 @@ def lm_level(
     p = LMProblem(pc_u, pc_v, pc_idepth, pc_color, pc_ok, dI_new, K_lvl, ref_aff,
                   ref_exposure, new_exposure, settings, max_iterations)
     carry, repeated = lm_init(p, T_init, aff_init, have_repeated)
-    loop.while_loop(carry.done, lambda: lm_trip(p, carry), 2 * max_iterations + 2)
+    loop.while_loop(carry.done, lambda: lm_trip(p, carry), 2 * max_iterations + 2,
+                    name="track.lm")
     return lm_final(p, carry, repeated)

@@ -61,6 +61,7 @@ from stereo_dso_g2o_tpu_torch.ops import trace as trace_ops
 from stereo_dso_g2o_tpu_torch.runtime import program
 from stereo_dso_g2o_tpu_torch.utils import host
 from stereo_dso_g2o_tpu_torch.utils.fixed import constant
+from stereo_dso_g2o_tpu_torch.utils.timing import span
 from stereo_dso_g2o_tpu_torch.utils.tree import tree_map
 
 # ---------------------------------------------------------------------------
@@ -361,12 +362,14 @@ class BatchedRunner:
         sequences that need it, and scatter the post-KF states/bundles in.
         The tracked-but-pre-KF speculative state of those sequences is
         replaced wholesale: identical semantics to "gated", one step later
-        on the host, same order on the device."""
+        on the host, same order on the device. The read is the host span
+        `sdso.batched.need_kf` under torch.profiler."""
         if self._pending_kf is None:
             return
         states_pre, aux, bundles, expos, entry = self._pending_kf
         self._pending_kf = None
-        need = np.nonzero(np.asarray(host.tolist(bundles.need_kf)))[0]
+        with span("sdso.batched.need_kf"):
+            need = np.nonzero(np.asarray(host.tolist(bundles.need_kf)))[0]
         if not need.size:
             return
         st_b, b_b, idx = self._dispatch_kf_subset(

@@ -31,6 +31,23 @@ device. `run(fn, args, static)` gives the port the same on the card:
   keyframe needs) changes at the next replay. Nothing waits for the
   device: the host may run ahead of it.
 
+**Stages.** Every program keeps its own stage accounting, always on: a
+small int64 buffer (`STAGE_SLOTS` rows of 8, made before the capture,
+outside its pool) into which one-thread kernels captured in the graph
+write `%globaltimer` stamps and counts (`csrc/graph_while.cu`,
+`utils/loop.Capture`): each `utils/timing.PROF.section` the capture
+passes becomes a pair of stamps, each named loop and branch counts its
+trips or taken branches in the kernel that sets its condition, the
+capture's first and last node stamp `program.replay`, and each call
+stamps `program.call` eagerly before its input copies and after its
+output copies (so `program.call` less `program.replay` is the copies and
+the graph's launch latency, or a wait for the host where the device ran
+dry).
+`stages()` reads every program's buffer once (`.tolist()`, outside
+`utils/host.READS`) and sets each stage's last span on the host clock
+through `clock()`, `%globaltimer`'s offset from `time.perf_counter_ns`
+measured once per device at the first build.
+
 `disabled()` is the counterpart of `jax.disable_jit()`: inside it `run`
 calls `fn` eagerly, on the card too (`chip_smoke.py` and the tools put the
 two side by side with it). Tensors on the CPU always run eagerly. While a
@@ -51,12 +68,18 @@ import torch
 
 from stereo_dso_g2o_tpu_torch.ops import trace_cuda
 from stereo_dso_g2o_tpu_torch.utils import host, loop
+from stereo_dso_g2o_tpu_torch.utils.timing import span
 from stereo_dso_g2o_tpu_torch.utils.tree import leaves, tree_map
 
 _DISABLED = 0
 _BUILDING = 0  # programs being built (warmed up or captured) right now
 PROGRAMS: Dict[tuple, "Program"] = {}  # key -> its program
 _LIB = []
+STAGE_SLOTS = 64  # stages a program can keep
+# a stage's row (csrc/graph_while.cu's S_* fields): last begin and end
+# (%globaltimer ns), total ns, completions, trips or taken, entries
+_BEGIN, _END, _TOTAL, _COUNT, _TRIPS, _ENTRIES = range(6)
+_CLOCK: Dict[torch.device, tuple] = {}  # device -> (offset ns, error ns), clock()
 
 
 @contextlib.contextmanager
@@ -107,15 +130,46 @@ def _lib():
     if not _LIB:
         lib = ctypes.CDLL(str(trace_cuda.build(["graph_while"])["graph_while"]))
         p, u64p = ctypes.c_void_p, ctypes.POINTER(ctypes.c_ulonglong)
-        lib.sdso_cond_begin.argtypes = [p, p, p, ctypes.c_int, u64p]
-        lib.sdso_cond_end.argtypes = [p, p, ctypes.c_ulonglong, u64p, u64p]
+        lib.sdso_cond_begin.argtypes = [p, p, p, ctypes.c_int, p, u64p]
+        lib.sdso_cond_end.argtypes = [p, p, ctypes.c_ulonglong, p, u64p, u64p]
+        lib.sdso_stamp.argtypes = [p, p, ctypes.c_int]
         lib.sdso_graph_nodes.argtypes = [p, u64p, u64p]
         lib.sdso_graph_fault.argtypes = [p, ctypes.c_char_p, ctypes.c_int]
-        for fn in (lib.sdso_cond_begin, lib.sdso_cond_end, lib.sdso_graph_nodes,
+        for fn in (lib.sdso_cond_begin, lib.sdso_cond_end, lib.sdso_stamp, lib.sdso_graph_nodes,
                    lib.sdso_graph_fault):
             fn.restype = ctypes.c_int
         _LIB.append(lib)
     return _LIB[0]
+
+
+def _stamp(addr: int, is_end: int, device):
+    """An eager stamp into the stage row at `addr` on `device`'s stream."""
+    rc = _lib().sdso_stamp(torch.cuda.current_stream(device).cuda_stream, addr, is_end)
+    if rc != 0:
+        raise RuntimeError(f"a stamp failed: cudaError {rc}")
+
+
+def clock(device) -> tuple:
+    """(offset, error) in ns of `device`'s `%globaltimer` against
+    `time.perf_counter_ns`, measured once: a host stamp, one eager stamp
+    kernel, a synchronization, a host stamp; the offset is the kernel's
+    value less the host midpoint, the error half the interval (the best of
+    five tries)."""
+    device = torch.device(device)
+    if device not in _CLOCK:
+        row = torch.zeros(8, dtype=torch.int64, device=device)
+        best = None
+        for _ in range(5):
+            torch.cuda.synchronize(device)
+            h0 = time.perf_counter_ns()
+            _stamp(row.data_ptr(), 0, device)
+            torch.cuda.synchronize(device)
+            h1 = time.perf_counter_ns()
+            got = (int(row[_BEGIN].item()) - (h0 + h1) // 2, (h1 - h0) // 2)
+            if best is None or got[1] < best[1]:
+                best = got
+        _CLOCK[device] = best
+    return _CLOCK[device]
 
 
 class Program:
@@ -147,11 +201,16 @@ class Program:
         self.body_pool = torch.cuda.graph_pool_handle()
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept: its nodes are counted
         trace_cuda.launch_counter(dev)
+        self.clock = clock(dev)
+        self.stamps = torch.zeros((STAGE_SLOTS, 8), dtype=torch.int64, device=dev)
         k0, r0 = tuple(trace_cuda.CAPTURED), host.READS
         try:
-            with loop.capturing(_lib(), self.body_pool) as cap, \
+            with loop.capturing(_lib(), self.body_pool, self.stamps) as cap, \
                     torch.cuda.graph(self.graph, pool=self.pool):
-                out = fn(*self.args, **static)
+                # program.call: stamped by each call around its copies
+                with cap.section("program.call", "call", stamp=False), \
+                        cap.section("program.replay"):
+                    out = fn(*self.args, **static)
         except Exception as e:
             raise RuntimeError(f"capturing the program {name} failed: {type(e).__name__}: {e}") from e
         # K1/K2 launches the graph holds, inside its nodes' bodies included
@@ -160,6 +219,8 @@ class Program:
             raise RuntimeError(f"the program {name} read the device {host.READS - r0} times")
         self.while_nodes, self.if_nodes, self.body_nodes = (
             cap.while_nodes, cap.if_nodes, cap.body_nodes)
+        self.stamp_nodes, self.stages_kept = cap.stamp_nodes, cap.stages
+        self._call_row = self.stamps[cap.stages["program.call"].slot].data_ptr()
         n, types = ctypes.c_ulonglong(), (ctypes.c_ulonglong * 16)()
         raw = self.graph.raw_cuda_graph()
         rc = _lib().sdso_graph_nodes(raw, ctypes.byref(n), types)
@@ -200,33 +261,74 @@ class Program:
         self.made_at = {k: i for i, k in enumerate(made)}
 
     def __call__(self, args):
-        in_leaves = leaves(args)
-        torch._foreach_copy_(self.inputs, in_leaves)
-        self.graph.replay()
-        self.replays += 1
-        copies = [torch.empty_like(x) for x in self.made]
-        if copies:
-            torch._foreach_copy_(copies, self.made)
+        dev = self.stamps.device
+        with span("sdso.program.call"):
+            in_leaves = leaves(args)
+            _stamp(self._call_row, 0, dev)
+            torch._foreach_copy_(self.inputs, in_leaves)
+            self.graph.replay()
+            self.replays += 1
+            copies = [torch.empty_like(x) for x in self.made]
+            if copies:
+                torch._foreach_copy_(copies, self.made)
+            _stamp(self._call_row, 1, dev)
         return _unflatten(self.out_tree, [
             in_leaves[j] if j is not None else copies[self.made_at[id(x)]]
             for x, j in zip(self.outputs, self.plan)
         ])
 
+    def stages(self) -> dict:
+        """The stage accounting over every call since the build (one read
+        of the buffer): per stage its parent, kind, completions (`count`),
+        device ms in all and less its children's (`self_ms`), entries,
+        `trips` (a loop) or `taken` (a branch), and `last`, its last span
+        on the host clock (`time.perf_counter` seconds; a branch's
+        evaluation, a loop with no trip: one instant). A stage that ran in
+        the last replay, number `replays`, has its `last` inside
+        `program.call`'s."""
+        rows = self.stamps.tolist()
+        off = self.clock[0]
+        out = {}
+        for name, st in self.stages_kept.items():
+            r = rows[st.slot]
+            d = dict(parent=st.parent, kind=st.kind, count=r[_COUNT], entries=r[_ENTRIES],
+                     device_ms=r[_TOTAL] / 1e6)
+            if st.kind == "while":
+                d["trips"] = r[_TRIPS]
+            if st.kind == "if":
+                d["taken"] = r[_TRIPS]
+            d["last"] = ([(r[_BEGIN] - off) / 1e9, (r[_END] - off) / 1e9]
+                         if r[_COUNT] else None)
+            out[name] = d
+        for d in out.values():
+            d["self_ms"] = d["device_ms"]
+        for d in out.values():
+            if d["parent"] is not None:
+                out[d["parent"]]["self_ms"] -= d["device_ms"]
+        return dict(name=self.name, replays=self.replays, stages=out)
 
     def report(self) -> dict:
         """What `chip_smoke.py` and the tools print of a program."""
         return dict(name=self.name, capture_s=round(self.capture_s, 4),
                     warmup_s=round(self.warmup_s, 4), nodes=self.nodes,
-                    body_nodes=self.body_nodes, node_types=self.node_types,
-                    body_types=self.body_types, while_nodes=self.while_nodes,
-                    if_nodes=self.if_nodes, launch_sites=list(self.launches),
+                    body_nodes=self.body_nodes, stamp_nodes=self.stamp_nodes,
+                    node_types=self.node_types, body_types=self.body_types,
+                    while_nodes=self.while_nodes, if_nodes=self.if_nodes,
+                    launch_sites=list(self.launches),
                     pool_mib=round(self.pool_bytes / 2**20, 1),
-                    input_mib=round(self.input_bytes / 2**20, 1), replays=self.replays)
+                    input_mib=round(self.input_bytes / 2**20, 1), replays=self.replays,
+                    stages=self.stages()["stages"])
 
 
 def report() -> list:
     """`Program.report()` of every program built, in the order built."""
     return [p.report() for p in PROGRAMS.values()]
+
+
+def stages() -> list:
+    """`Program.stages()` of every program built, in the order built, each
+    with its device's `clock()` (offset and error, ns)."""
+    return [dict(p.stages(), clock=list(p.clock)) for p in PROGRAMS.values()]
 
 
 def run(fn: Callable, args, static: dict, key=()):

@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from stereo_dso_g2o_tpu_torch.utils.timing import span
 from stereo_dso_g2o_tpu_torch.utils.tree import leaves
 
 READS = 0  # device->host reads since the last reset()
@@ -63,7 +64,8 @@ class Fetch:
     copied into pinned memory behind the work already queued, starting at
     construction, so the host does not wait at the start and `get()` waits
     for that work only, not for what was queued after it: the host may run
-    ahead of the device until then."""
+    ahead of the device until then. The wait is the host span
+    `sdso.fetch.wait` under torch.profiler."""
 
     def __init__(self, tree):
         xs = leaves(tree)
@@ -82,7 +84,8 @@ class Fetch:
         """The leaves as numpy arrays, in `utils/tree.leaves` order."""
         count()
         if self.event is not None:
-            self.event.synchronize()
+            with span("sdso.fetch.wait"):
+                self.event.synchronize()
         raw, out, at = self.buf.numpy(), [], 0
         for shape, dtype in self.meta:
             dt = _NUMPY[dtype]

@@ -17,6 +17,17 @@ every op of the capture once.
 A node's body is captured once and runs as often as the device decides;
 a search kernel launched inside one counts its launches on the device
 (`ops/trace_cuda.launch_counter`), each time the body runs.
+
+A loop or branch given a `name` keeps a stage of the program's accounting
+(`Capture.stamps`, read by `runtime/program.Program.stages`): the kernel
+that sets its condition also counts its trips (a branch: its evaluations
+and how often it was taken) and times a loop's span, adding no node.
+`stamped(name)` (what `utils/timing.PROF.section` becomes under capture)
+captures a stamp kernel at a block's entry and exit, so a section inside
+a node's body stamps each time the body runs. Each stage records the
+section open when it was captured as its parent. Eagerly a named loop or
+branch adds its host trips to `utils/timing.PROF` when that is enabled,
+and an unnamed one keeps nothing anywhere.
 """
 
 from __future__ import annotations
@@ -24,11 +35,13 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
-from typing import Callable, Optional
+import time
+from typing import Callable, Dict, List, Optional
 
 import torch
 
 from stereo_dso_g2o_tpu_torch.utils import host
+from stereo_dso_g2o_tpu_torch.utils.timing import PROF
 from stereo_dso_g2o_tpu_torch.utils.tree import leaves, tree_map
 
 _BOUNDED = False
@@ -38,19 +51,76 @@ _BODY_STREAMS = {}  # (device, depth) -> the stream node bodies are captured on
 
 
 @dataclasses.dataclass
+class Stage:
+    """A named stage of a program: its row of `Capture.stamps`, its kind
+    ("section", "while", "if", or "call": stamped outside the graph) and
+    the section open when it was captured (None at the top)."""
+
+    slot: int
+    kind: str
+    parent: Optional[str]
+
+
+@dataclasses.dataclass
 class Capture:
     """What a capture in progress gives its loops and branches: the bound
-    `csrc/graph_while.cu` (`sdso_cond_begin`, `sdso_cond_end`) and the
-    graph pool a body's allocations go to. It counts the nodes it adds."""
+    `csrc/graph_while.cu` (`sdso_cond_begin`, `sdso_cond_end`,
+    `sdso_stamp`), the graph pool a body's allocations go to, and the
+    program's stage buffer `stamps` ((slots, 8) int64, made outside the
+    graph's pool) with its registry. It counts the nodes it adds."""
 
     lib: ctypes.CDLL
     body_pool: tuple
+    stamps: torch.Tensor
     depth: int = 0
     while_nodes: int = 0
     if_nodes: int = 0
     body_nodes: int = 0
+    stamp_nodes: int = 0
     # the bodies' nodes by cudaGraphNodeType
     body_types: ctypes.Array = dataclasses.field(default_factory=lambda: (ctypes.c_ulonglong * 16)())
+    stages: Dict[str, Stage] = dataclasses.field(default_factory=dict)
+    open: List[str] = dataclasses.field(default_factory=list)  # sections open, innermost last
+
+    def slot(self, name: str, kind: str) -> int:
+        """The device address of stage `name`'s row (registered at first
+        sight, under the section open now)."""
+        st = self.stages.get(name)
+        if st is None:
+            if len(self.stages) == self.stamps.shape[0]:
+                raise RuntimeError(f"a program has room for {self.stamps.shape[0]} stages: "
+                                   f"{name} is one more")
+            st = self.stages[name] = Stage(len(self.stages), kind,
+                                           self.open[-1] if self.open else None)
+        elif st.kind != kind:
+            raise RuntimeError(f"the stage {name} is a {st.kind}, not a {kind}")
+        return self.stamps[st.slot].data_ptr()
+
+    def _stamp(self, addr: int, is_end: int):
+        stream = torch.cuda.current_stream(self.stamps.device).cuda_stream
+        _check(self.lib.sdso_stamp(stream, addr, is_end), "capturing a stamp")
+        self.stamp_nodes += 1
+
+    @contextlib.contextmanager
+    def section(self, name: str, kind: str = "section", stamp: bool = True):
+        """The block as stage `name`, open for the stages inside it; with
+        `stamp`, a stamp kernel captured at its entry and at its exit."""
+        addr = self.slot(name, kind)
+        if stamp:
+            self._stamp(addr, 0)
+        self.open.append(name)
+        yield
+        self.open.pop()
+        if stamp:
+            self._stamp(addr, 1)
+
+
+def stamped(name: str):
+    """Stage `name` around a block captured now (`Capture.section`);
+    nothing outside a capture by `runtime/program.py`."""
+    if _CAPTURE is None:
+        return contextlib.nullcontext()
+    return _CAPTURE.section(name)
 
 
 @contextlib.contextmanager
@@ -76,13 +146,15 @@ def every_branch():
 
 
 @contextlib.contextmanager
-def capturing(lib, body_pool):
+def capturing(lib, body_pool, stamps: torch.Tensor):
     """Within the block (a graph capture), loops and branches on a
-    capturing stream become conditional nodes; yields their `Capture`."""
+    capturing stream become conditional nodes, and sections and named
+    loops and branches keep their stages in `stamps`; yields their
+    `Capture`."""
     global _CAPTURE
     if _CAPTURE is not None:
         raise RuntimeError("a program is already being captured")
-    _CAPTURE = Capture(lib, body_pool)
+    _CAPTURE = Capture(lib, body_pool, stamps)
     try:
         yield _CAPTURE
     finally:
@@ -109,12 +181,14 @@ def _allocate_to(device: torch.device, pool):
         torch._C._cuda_endAllocateToPool(idx, pool)
 
 
-def _conditional(flag: torch.Tensor, body: Callable[[], None], is_while: bool):
+def _conditional(flag: torch.Tensor, body: Callable[[], None], is_while: bool,
+                 name: Optional[str]):
     """A conditional node on the () bool `flag` whose body `body()` is
     captured on a stream of its own (one per nesting depth). A body's
     allocations go to the capture's body pool, a pool of their own: a
     body's temporaries are reused only by later bodies, which run after it
-    (the thread is routed there once, at the outermost body)."""
+    (the thread is routed there once, at the outermost body). `name`: the
+    stage its condition kernels keep, or None."""
     cap = _CAPTURE
     if cap is None:
         raise RuntimeError("a loop or branch is being captured outside runtime/program.py")
@@ -123,9 +197,10 @@ def _conditional(flag: torch.Tensor, body: Callable[[], None], is_while: bool):
     stream = _BODY_STREAMS.get(key)
     if stream is None:
         stream = _BODY_STREAMS[key] = torch.cuda.Stream(dev)
+    slot = cap.slot(name, "while" if is_while else "if") if name else None
     handle = ctypes.c_ulonglong()
     _check(cap.lib.sdso_cond_begin(torch.cuda.current_stream(dev).cuda_stream, stream.cuda_stream,
-                                   flag.data_ptr(), int(is_while), ctypes.byref(handle)),
+                                   flag.data_ptr(), int(is_while), slot, ctypes.byref(handle)),
            "adding a conditional node")
     nodes = ctypes.c_ulonglong()
     routed = _allocate_to(dev, cap.body_pool) if cap.depth == 0 else contextlib.nullcontext()
@@ -134,14 +209,15 @@ def _conditional(flag: torch.Tensor, body: Callable[[], None], is_while: bool):
         with torch.cuda.stream(stream), routed:
             body()
             _check(cap.lib.sdso_cond_end(stream.cuda_stream, flag.data_ptr() if is_while else None,
-                                         handle, ctypes.byref(nodes), cap.body_types),
+                                         handle, slot if is_while else None, ctypes.byref(nodes),
+                                         cap.body_types),
                    "capturing a node's body")
     finally:
         cap.depth -= 1
     cap.body_nodes += nodes.value
 
 
-def _while_node(done: torch.Tensor, trip: Callable[[], None]):
+def _while_node(done: torch.Tensor, trip: Callable[[], None], name: Optional[str]):
     """`while_loop` inside a capture: a WHILE node whose body is `trip` and
     whose condition, "some entry of `done` is not set", the device
     evaluates before every trip (the first included: a loop whose first
@@ -152,11 +228,11 @@ def _while_node(done: torch.Tensor, trip: Callable[[], None]):
         trip()
         torch.logical_not(done.all(), out=flag)
 
-    _conditional(flag, body, True)
+    _conditional(flag, body, True, name)
     _CAPTURE.while_nodes += 1
 
 
-def _if_node(pred: torch.Tensor, body: Callable, otherwise):
+def _if_node(pred: torch.Tensor, body: Callable, otherwise, name: Optional[str]):
     """`cond` inside a capture: an IF node on `pred`, whose body writes
     `body()`'s result over a copy of `otherwise`."""
     outs = tree_map(lambda x: x.clone(), otherwise)
@@ -168,37 +244,47 @@ def _if_node(pred: torch.Tensor, body: Callable, otherwise):
             raise RuntimeError(f"a branch's body gave {len(got)} tensors for {len(dst)}")
         torch._foreach_copy_(dst, got)
 
-    _conditional(pred.to(torch.bool), write, False)
+    _conditional(pred.to(torch.bool), write, False, name)
     _CAPTURE.if_nodes += 1
     return outs
 
 
 def while_loop(done: torch.Tensor, trip: Callable[[], None], bound: int,
-               first_trip: bool = False):
+               first_trip: bool = False, name: Optional[str] = None):
     """Run `trip()` until every entry of the bool tensor `done` is set.
     `trip` updates `done` and the rest of its carry in place; a trip after
     every entry is set must change nothing, and after `bound` trips every
     entry is set. `first_trip`: the caller's `done` starts unset, so the
-    host loop runs the first trip without reading it (one read a trip)."""
+    host loop runs the first trip without reading it (one read a trip).
+    `name`: the stage that counts its trips (module docstring)."""
     if _capturing(done):
-        _while_node(done, trip)
-    elif _BOUNDED:
+        _while_node(done, trip, name)
+        return
+    t0, trips = time.perf_counter(), 0
+    if _BOUNDED:
+        trips = bound
         for _ in range(bound):
             trip()
     else:
         if first_trip:
             trip()
+            trips += 1
         while not host.flag(done.all()):
             trip()
+            trips += 1
+    if name:
+        PROF.loop(name, trips, time.perf_counter() - t0)
 
 
-def cond(pred: torch.Tensor, body: Callable, otherwise):
+def cond(pred: torch.Tensor, body: Callable, otherwise, name: Optional[str] = None):
     """`body()` if the () bool tensor `pred` holds, else `otherwise` (a tree
     of tensors of body's structure and shapes, `utils/tree.py`). `body`
     must give `otherwise`'s values wherever it does not act, so running it
-    always is the same."""
+    always is the same. `name`: the stage that counts its evaluations and
+    the times it was taken (module docstring)."""
     if _capturing(pred):
-        return _if_node(pred, body, otherwise)
-    if _BOUNDED or _EVERY_BRANCH or host.flag(pred):
-        return body()
-    return otherwise
+        return _if_node(pred, body, otherwise, name)
+    taken = _BOUNDED or _EVERY_BRANCH or host.flag(pred)
+    if name:
+        PROF.loop(name, int(taken))
+    return body() if taken else otherwise
