@@ -5,9 +5,9 @@
 
 Phases (each one passes or the script exits non-zero; nothing is caught):
   1. device: requires CUDA, prints `nvidia-smi` name and power limit;
-  2. build: compiles both epipolar-search kernels and the conditional-node
-     source of the captured program (csrc/, nvcc, sm_90a, one compiler
-     process per source, started together);
+  2. build: compiles both epipolar-search kernels, the LM trip kernel and
+     the conditional-node source of the captured program (csrc/, nvcc,
+     sm_90a, one compiler process per source, started together);
   3. resident kernel vs plain: runs the kernel and its plain PyTorch
      version on a rendered 1216x352 stereo pair with seeded lanes at the
      slice's shapes (temporal N=5120, stereo N=2560 in both directions),
@@ -18,14 +18,25 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
      positions and directions; a NaN pattern entry), the slab kernel also
      with its band cut to 8 pixels so that its taps fall back to global
      memory; and the time of making the intensity plane;
+  3b. lm_trip: the tracker's LM trip kernel (csrc/lm_trip.cu) against its
+     plain version (tracker_ops.lm_trip_ref) on a rendered plane at the
+     main path's shapes (tests/_torch_lm_cases.py): the corridor's levels
+     5..0 (5 hypothesis rows on levels 5-2, 1 on 1-0) and the fleet's
+     4 x 5 and 4 x 1 rows, with the edge rows (a rejected step, a row
+     already done, a cutoff repeat ending its pass, no point in bounds, a
+     NaN pose); three trips from the same carry within that module's
+     tolerances; each timed as a node of a captured graph and eagerly,
+     beside the plain trip and the bound (tracker_ops.trip_bound);
   4. slice: renders 40 frames of the bench corridor (sequence 0) on the
      card, runs the port's FullSystem over them at the KITTI-resolution
      bench settings through its programs (every jitted unit one captured
      program: a first pass builds them, a second from the same start
      replays them), then again under program.disabled(), and checks: the
      replaying pass and eager bit for bit (every pose, the keyframe ids,
-     the final window and immature set), K1 launches equal frame by frame,
-     one host read on every tracked non-keyframe frame, not lost, finite
+     the final window and immature set), K1 launches and LM trip kernel
+     launches equal frame by frame (every trip of a tracked non-keyframe
+     frame from inside a program), one host read on every tracked
+     non-keyframe frame, not lost, finite
      poses, the kernel was launched, a frame marginalization ran, KF count
      and ATE inside the bounds recorded in PERF.md; prints ms per frame
      both ways (keyframe and non-keyframe apart, the frames that built
@@ -53,7 +64,10 @@ Phases (each one passes or the script exits non-zero; nothing is caught):
      the final GraphState leaf by leaf and every frame's FrameBundle bit
      for bit, KF count and ATE inside phase 7's bounds, exactly 2 host
      reads on every non-keyframe frame (`need_kf` and the lagged drain),
-     K1 counted through the replays; ms per frame both ways; one
+     K1 counted through the replays, the LM trip kernel's device counter
+     equal to the device's `track.lm` trips (every trip one launch from
+     inside the replays) and the eager run's launches to its host trips;
+     ms per frame both ways; one
      non-keyframe frame traced both ways (aten ops and launch calls on the
      host, kernels and busy time on the device), one replay timed with
      CUDA events; the program's capture time, nodes and pool memory; and
@@ -249,6 +263,8 @@ IDX_AGREE_MIN = 0.999
 PROFILE_FRAMES = 10
 UV_TOL_PX = 1e-3
 E_TOL_REL = 1e-4
+# LM trip kernel launches by path (chip_smoke's report)
+LM_LAUNCHES = {}
 # the batched K1 against the plain version: the largest errors of the single
 # launches recorded in PERF.md §6
 BATCH_UV_TOL_PX, BATCH_E_TOL_REL = 6.1e-5, 3.9e-6
@@ -581,6 +597,103 @@ def check_kf_dispatches(log, tag):
              f"{log['eager_differ']} leaves")
 
 
+def graph_ms(fn, calls: int, replays: int = 5) -> float:
+    """Device time of one of `calls` calls of `fn` captured back to back
+    into one CUDA graph (median of `replays` replays, CUDA events): what a
+    call costs as nodes of a captured program, launch latency included."""
+    fn()  # warm-up: constants and library handles exist before the capture
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    times = []
+    for _ in range(replays):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return float(np.median(times))
+
+
+def phase_lm_trip(dev):
+    """Phase 3b: the tracker's LM trip kernel (csrc/lm_trip.cu) against
+    its plain version at the main path's shapes (tests/_torch_lm_cases.py:
+    a rendered plane at 1216x352, the levels' caps of the slice): the
+    corridor's levels 5..0 (5 hypotheses on levels 5-2, the winner on 1-0)
+    and the fleet's 4 x 5 rows (level 2, its largest coarse level) and
+    4 x 1 (level 0). Per shape: three trips of each from the same carry,
+    compared within the tolerances that module states; then each timed
+    with every row kept running (its `done` cleared before each trip: a
+    memset, timed alone and taken off): as one node of a captured graph
+    (`graph_ms`, what a trip costs inside the frame program; the plain
+    trip ~740 nodes), and eagerly (`cuda_ms`); beside the bound
+    (`tracker_ops.trip_bound`). Returns the report's rows."""
+    import _torch_lm_cases as lc
+
+    from stereo_dso_g2o_tpu_torch.ops import tracker_ops as tops
+
+    t_phase = time.perf_counter()
+    tops.trip_counter(dev)  # the trips captured below count there
+    rows_out = []
+    worst = {}
+    shapes = [("corridor", lvl, 1, 5 if lvl >= 2 else 1) for lvl in range(5, -1, -1)]
+    shapes += [("fleet", 2, 4, 5), ("fleet", 0, 4, 1)]
+    for cell, lvl, n_seq, k in shapes:
+        p, T_gt = lc.problem(lvl, n_seq, device=dev)
+        carry = lc.start(p, k, T_gt)
+        if n_seq * k >= 5:
+            lc.edge_rows(carry, p)
+        cur = carry
+        for trip in range(3):
+            want, got = lc.clone(cur), lc.clone(cur)
+            tops.lm_trip_ref(p, want)
+            tops.lm_trip(p, got)
+            torch.cuda.synchronize()
+            res = lc.compare(p, got, want, cur)
+            checked = res.pop("checked")
+            for key, v in lc.max_errors(got, want, cur).items():
+                worst[key] = max(worst.get(key, 0.0), v)
+            if any(res.values()) or (trip == 0 and not checked):
+                fail(f"lm_trip {cell} level {lvl} {n_seq}x{k} trip {trip}: kernel and plain "
+                     f"version differ: {res} (rows checked {checked})")
+            cur = want
+        P = p.pc_u.shape[-1]
+        H, W = p.dI_new.shape[-3:-1]
+        timed = lc.clone(carry)
+
+        def kernel():
+            timed.done.zero_()
+            tops.lm_trip(p, timed)
+
+        def plain():
+            timed.done.zero_()
+            tops.lm_trip_ref(p, timed)
+
+        reset = graph_ms(lambda: timed.done.zero_(), 20)
+        k_graph = graph_ms(kernel, 20) - reset
+        p_graph = graph_ms(plain, 3) - reset
+        k_eager, p_eager = cuda_ms(kernel), cuda_ms(plain)
+        bd = tops.trip_bound(n_seq, k, P, H, W)
+        row = {"cell": cell, "level": lvl, "rows": f"{n_seq}x{k}", "P": P,
+               "kernel_graph_ms": k_graph, "plain_graph_ms": p_graph,
+               "kernel_eager_ms": k_eager, "plain_eager_ms": p_eager,
+               "bound_ms": bd.ms, "bound_by": bd.by}
+        rows_out.append(row)
+        print(f"[lm_trip] {cell} level {lvl} rows {n_seq}x{k} P={P}: 3 trips equal within the "
+              f"tolerances; a trip inside a graph: kernel {1000 * k_graph:.1f} us, plain "
+              f"{1000 * p_graph:.1f} us ({p_graph / k_graph:.0f}x); eager: kernel "
+              f"{1000 * k_eager:.1f} us, plain {1000 * p_eager:.1f} us (device time; the memset "
+              f"of done, {1000 * reset:.1f} us a node, taken off inside the graph); bound "
+              f"{1000 * bd.ms:.2f} us by {bd.by}, share {100 * bd.ms / k_graph:.1f} %")
+    print(f"[lm_trip] largest differences, kernel against plain: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+    print(f"[lm_trip] phase {time.perf_counter() - t_phase:.1f} s")
+    return rows_out, worst
+
+
 def phase_slice(dev, calib, settings, lefts, rights, gt, launches):
     """Phase 4: FullSystem over the 40 frames through its programs (a
     first pass builds them: its frames that built a program are timed
@@ -594,6 +707,7 @@ def phase_slice(dev, calib, settings, lefts, rights, gt, launches):
     from stereo_dso_g2o_tpu_torch.frontend.full_system import FullSystem
     from stereo_dso_g2o_tpu_torch.io import trajectory
     from stereo_dso_g2o_tpu_torch.ops import trace_cuda as tk
+    from stereo_dso_g2o_tpu_torch.ops import tracker_ops as tops
     from stereo_dso_g2o_tpu_torch.runtime import program
     from stereo_dso_g2o_tpu_torch.utils import host
     from stereo_dso_g2o_tpu_torch.utils.timing import PROF
@@ -608,7 +722,8 @@ def phase_slice(dev, calib, settings, lefts, rights, gt, launches):
         built_before = set(program.PROGRAMS)
         fs = FullSystem(calib, settings, device=dev)
         tk.reset_launches()
-        ms, reads, k1, built, kf = [], [], [], [], []
+        tops.reset_trip_launches()
+        ms, reads, k1, built, kf, lm = [], [], [], [], [], []
         # SDSO_PROFILE=1: per-section host times and a torch.profiler trace
         # of the last PROFILE_FRAMES frames, of the eager run (the profiler
         # records a replayed WHILE body once, not once a trip)
@@ -622,6 +737,7 @@ def phase_slice(dev, calib, settings, lefts, rights, gt, launches):
                         torch.profiler.ProfilerActivity.CPU,
                         torch.profiler.ProfilerActivity.CUDA]))
                 n_prog, k0, kfs = len(program.PROGRAMS), tk.LAUNCHES, len(fs.kf_shells)
+                lm0 = tops.trip_launches(split=True)
                 host.reset()
                 t1 = time.perf_counter()
                 fs.add_frame(lefts[i], rights[i], i, timestamp=0.1 * i)
@@ -629,6 +745,7 @@ def phase_slice(dev, calib, settings, lefts, rights, gt, launches):
                 ms.append(1000.0 * (time.perf_counter() - t1))
                 reads.append(host.READS)
                 k1.append(tk.LAUNCHES - k0)
+                lm.append(tuple(b - a for a, b in zip(lm0, tops.trip_launches(split=True))))
                 built.append(len(program.PROGRAMS) - n_prog)
                 kf.append(len(fs.kf_shells) > kfs)
                 if fs.is_lost:
@@ -637,13 +754,17 @@ def phase_slice(dev, calib, settings, lefts, rights, gt, launches):
         if profile:
             print_profile(prof, sum(ms[-PROFILE_FRAMES:]))
         PROF.reset()
-        runs[mode] = dict(fs=fs, ms=ms, reads=reads, k1=k1, built=built, kf=kf,
+        runs[mode] = dict(fs=fs, ms=ms, reads=reads, k1=k1, built=built, kf=kf, lm=lm,
                           launches=(tk.LAUNCHES, tk.LAUNCHES_SLAB),
                           peak=torch.cuda.max_memory_allocated(),
                           reserved=torch.cuda.max_memory_reserved(),
                           programs=[k for k in program.PROGRAMS if k not in built_before])
     B, P, E = runs["build"], runs["program"], runs["eager"]
     launches["full_system"] = P["launches"]
+    # LM trip kernel launches a frame, (eager, from inside programs): the
+    # replaying pass's frames 3.. run every trip inside a program
+    lm_prog, lm_eager = [sum(x) for x in P["lm"]], [sum(x) for x in E["lm"]]
+    LM_LAUNCHES["full_system"] = sum(lm_prog)
     fs = P["fs"]
     traj, traj_e = fs.trajectory(), E["fs"].trajectory()
     if len(traj) != N_FRAMES or not all(np.isfinite(T).all() for T in traj):
@@ -666,7 +787,9 @@ def phase_slice(dev, calib, settings, lefts, rights, gt, launches):
     print(f"[slice] FullSystem over {N_FRAMES} frames through its programs and under "
           f"program.disabled() from the same start: {poses_differ} poses, {state_differ} window and "
           f"immature leaves differ; keyframe ids equal {kf_ids == kf_ids_e}; K1 launches program "
-          f"{P['launches']}, eager {E['launches']}, equal frame by frame {P['k1'] == E['k1']}")
+          f"{P['launches']}, eager {E['launches']}, equal frame by frame {P['k1'] == E['k1']}; "
+          f"LM trip kernel launches program {sum(lm_prog)} ({sum(x[1] for x in P['lm'])} from "
+          f"inside programs), eager {sum(lm_eager)}, equal frame by frame {lm_prog == lm_eager}")
     print(f"[slice] ms per frame (host clock, synchronized), frames 2..: non-keyframe program "
           f"{stats(P, nonkf)}, eager {stats(E, nonkf)}; keyframe program {stats(P, kfi)}, eager "
           f"{stats(E, kfi)}; all program {stats(P, steady)}, eager {stats(E, steady)}; first two "
@@ -703,6 +826,11 @@ def phase_slice(dev, calib, settings, lefts, rights, gt, launches):
         fail("slice: the second pass built programs: a key holds what differs between runs")
     if P["k1"] != E["k1"]:
         fail(f"slice: K1 launches differ frame by frame: {P['k1']} against {E['k1']}")
+    if lm_prog != lm_eager or min(lm_prog[1:]) <= 0:  # frame 0 tracks nothing
+        fail(f"slice: LM trip launches differ frame by frame: {lm_prog} against {lm_eager}")
+    if any(P["lm"][i][0] for i in range(3, N_FRAMES) if not P["kf"][i]):
+        fail(f"slice: a tracked frame of the replaying pass ran LM trips outside its programs: "
+             f"{P['lm']}")
     if P["launches"][0] <= 0:
         fail("slice: the epipolar kernel was not launched on the main path")
     if any(P["reads"][i] != 1 for i in range(3, N_FRAMES) if not P["kf"][i]):
@@ -748,6 +876,7 @@ def phase_program(dev, lefts, rights, twins, gt, launches):
     from stereo_dso_g2o_tpu_torch.frontend import graph_system as tgs
     from stereo_dso_g2o_tpu_torch.io import trajectory
     from stereo_dso_g2o_tpu_torch.ops import trace_cuda as tk
+    from stereo_dso_g2o_tpu_torch.ops import tracker_ops as tops
     from stereo_dso_g2o_tpu_torch.runtime import program
     from stereo_dso_g2o_tpu_torch.tools._common import host_split, profile_summary, profiled
     from stereo_dso_g2o_tpu_torch.utils import host, loop
@@ -762,6 +891,7 @@ def phase_program(dev, lefts, rights, twins, gt, launches):
         ctx = program.disabled() if mode == "eager" else contextlib.nullcontext()
         ms, reads, k1, bundles, pre = [], [], [], [], {}
         tk.reset_launches()
+        tops.reset_trip_launches()
         # the eager run counts its named loops' host trips (PROF), the
         # program's replays count them on the device (Program.stages)
         PROF.enabled = mode == "eager" or prof_was
@@ -784,6 +914,7 @@ def phase_program(dev, lefts, rights, twins, gt, launches):
             fail(f"program: the {mode} run was lost")
         runs[mode] = dict(ms=ms, reads=reads, k1=k1, bundles=bundles, pre=pre, g=g,
                           kf=[bool(b.need_kf) for b in bundles], launches=tk.LAUNCHES,
+                          lm=tops.trip_launches(split=True),
                           trips={k: v - trips0.get(k, 0) for k, v in PROF.trips.items()})
     P, E = runs["program"], runs["eager"]
     launches["program"] = (P["launches"], 0)
@@ -816,7 +947,9 @@ def phase_program(dev, lefts, rights, twins, gt, launches):
           f"{[sh.id for sh in P['g'].kf_shells]}, ATE {ate:.5f} m")
     print(f"[program] trips over frames {BOOT}..{N_FRAMES - 1}, counted on the device by the "
           f"program's replays {dev_trips}, by the eager run's host loops "
-          f"{host_trips}; stamp nodes {prog.stamp_nodes}; clock offset, error (ns) {prog.clock}")
+          f"{host_trips}; stamp nodes {prog.stamp_nodes}; clock offset, error (ns) {prog.clock}; "
+          f"LM trip kernel launches (eager, from inside programs): program run {P['lm']}, eager "
+          f"run {E['lm']}")
     print(f"[program] stages of the whole-frame program over its {prog.replays} replays "
           f"(device ms in all, self ms, count, trips or taken):")
     for name, d in st.items():
@@ -861,6 +994,13 @@ def phase_program(dev, lefts, rights, twins, gt, launches):
         fail("program: the whole-frame program holds no WHILE or no IF node")
     if dev_trips != host_trips or not dev_trips["track.lm"] or not dev_trips["ba"]:
         fail(f"program: the device counted trips {dev_trips}, the host loops {host_trips}")
+    # every LM trip is one launch of the kernel: the replays' device counter
+    # against the device's track.lm trips, the eager run's against its host
+    # loops
+    if P["lm"] != (0, dev_trips["track.lm"]) or E["lm"] != (host_trips["track.lm"], 0):
+        fail(f"program: LM trip kernel launches {P['lm']} (program run) and {E['lm']} (eager) "
+             f"against trips {dev_trips['track.lm']} and {host_trips['track.lm']}")
+    LM_LAUNCHES["program"] = P["lm"][1]
 
     g = P["g"]
     cal = g.calib
@@ -983,6 +1123,7 @@ def phase_batched(dev, settings, calib, K, poses_cw, seq0, graph_ms, launches):
     from stereo_dso_g2o_tpu_torch.frontend.full_system import FullSystem
     from stereo_dso_g2o_tpu_torch.io import synthetic, trajectory
     from stereo_dso_g2o_tpu_torch.ops import trace_cuda as tk
+    from stereo_dso_g2o_tpu_torch.ops import tracker_ops as tops
     from stereo_dso_g2o_tpu_torch.parallel.batched import BatchedRunner, _tree_slice, tree_map
     from stereo_dso_g2o_tpu_torch.runtime import program
 
@@ -1153,6 +1294,7 @@ def phase_batched(dev, settings, calib, K, poses_cw, seq0, graph_ms, launches):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tk.reset_launches()
+    tops.reset_trip_launches()
     tgs.reset_host_reads()
     dispatches = []  # (subset size, K1 launches, host reads) of each keyframe dispatch
     inner = runner._dispatch_kf_subset
@@ -1177,6 +1319,7 @@ def phase_batched(dev, settings, calib, K, poses_cw, seq0, graph_ms, launches):
     trajs = runner.trajectories()
     torch.cuda.synchronize()
     launches["batched"] = (tk.LAUNCHES, tk.LAUNCHES_SLAB)
+    LM_LAUNCHES["batched"] = tops.trip_launches()
     reads = tgs.HOST_READS
     gt = [np.linalg.inv(T) for T in poses_cw[:BATCH_FRAMES]]
     n_graph = BATCH_FRAMES - BOOT
@@ -1965,6 +2108,7 @@ def main() -> int:
 
     # ---- 2. build ----
     from stereo_dso_g2o_tpu_torch.ops import trace_cuda as tk
+    from stereo_dso_g2o_tpu_torch.ops import tracker_ops as tops
 
     t0 = time.perf_counter()
     libs = tk.build()
@@ -2083,6 +2227,9 @@ def main() -> int:
                    tk.epipolar_search_slab, tk.epipolar_search_slab_ref)
     check_edges((H_, W_), cases[0][1]["S"], dIR, 21)
     plane = {f"{W_}x{H_}": plane_ms((H_, W_), dIR)}
+
+    # ---- 3b. the tracker's LM trip kernel vs plain at the main path's shapes ----
+    lm_rows, lm_worst = phase_lm_trip(dev)
 
     # ---- 4. the slice: FullSystem over 40 frames, programs against eager ----
     from stereo_dso_g2o_tpu_torch.frontend import graph_system as tgs
@@ -2207,6 +2354,7 @@ def main() -> int:
     gs = tgs.GraphSystem.from_full_system(fs)
     kfs_boot = len(gs.kf_shells)
     tk.reset_launches()
+    tops.reset_trip_launches()
     tgs.reset_host_reads()
     PROF.reset()
 
@@ -2234,6 +2382,7 @@ def main() -> int:
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t_all
     launches["graph_system"] = (tk.LAUNCHES, tk.LAUNCHES_SLAB)
+    LM_LAUNCHES["graph_system"] = tops.trip_launches()
     reads = tgs.HOST_READS
     traj = gs.trajectory()
     if gs.is_lost:
@@ -2390,6 +2539,17 @@ def main() -> int:
     k2b["launches"] = launches["batched-slab"][1]
     k2b["launches_by_path"] = {"batched-slab": launches["batched-slab"][1]}
     report["kernels"].append(k2b)
+    # the LM trip at the main path's largest shapes: the corridor's level 2
+    # (5 rows) and the fleet's 4 x 5 rows
+    lm_main = [r for r in lm_rows if r["level"] == 2]
+    report["kernels"].append({
+        "name": "lm_trip", "route": "cuda", "source": "stereo_dso_g2o_tpu_torch/csrc/lm_trip.cu",
+        "replaces": None,  # the JAX package's lm_level loop body, in XLA
+        "launches": sum(LM_LAUNCHES.values()), "launches_by_path": dict(LM_LAUNCHES),
+        "max_abs_err": lm_worst, "ms": lm_main[0]["kernel_graph_ms"],
+        "plain_ms": lm_main[0]["plain_graph_ms"], "bound_ms": lm_main[0]["bound_ms"],
+        "bound_by": lm_main[0]["bound_by"], "library_ms": None,
+        "shape": f"level 2, rows {lm_main[0]['rows']}, P {lm_main[0]['P']}", "times": lm_rows})
     print(f"[total] chip_smoke.py {time.perf_counter() - T_START:.1f} s")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

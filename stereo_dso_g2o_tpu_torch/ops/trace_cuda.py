@@ -116,8 +116,10 @@ SOURCES = {
 }
 HEADERS = [_PKG / "csrc" / "epipolar_common.cuh"]  # included by every source
 # not a search: the WHILE node of a captured program (runtime/program.py),
-# built in the same pass as the searches
-RUNTIME_SOURCES = {"graph_while": _PKG / "csrc" / "graph_while.cu"}
+# and the tracker's LM trip (ops/tracker_ops.lm_trip), built in the same
+# pass as the searches
+RUNTIME_SOURCES = {"graph_while": _PKG / "csrc" / "graph_while.cu",
+                   "lm_trip": _PKG / "csrc" / "lm_trip.cu"}
 BUILD_DIR = _PKG / "_build"
 _LIBS = {}
 BUILD_SECONDS = {}  # kernel name -> wall time of the nvcc run this process made

@@ -20,10 +20,16 @@ sequence. The JAX `lax.while_loop` becomes `utils/loop.while_loop` over
 `lm_trip`, which freezes the finished rows, as a vmapped while_loop does:
 eagerly a host loop until every row is done (one host read an iteration
 for the whole batch), in a captured program a CUDA WHILE node.
+
+On CUDA tensors a trip is one launch of `csrc/lm_trip.cu` (`lm_trip_cuda`,
+a block per row; `trip_launches()` counts the launches the devices ran);
+on CPU tensors it is the plain version, `lm_trip_ref`, which the kernel
+is held to (tests/test_torch_lm_trip.py).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -532,7 +538,17 @@ def _lm_solve(p: LMProblem, Hm, bv, lam):
 def lm_trip(p: LMProblem, c: LMCarry):
     """One LM iteration of every row that is not done, written into the
     carry in place; a row that is done keeps its carry (vmapped while_loop
-    semantics), so a trip after every row is done changes nothing."""
+    semantics), so a trip after every row is done changes nothing. On CUDA
+    tensors one launch of the kernel (`lm_trip_cuda`), else the plain
+    version (`lm_trip_ref`)."""
+    if c.T.device.type == "cpu":
+        lm_trip_ref(p, c)
+    else:
+        lm_trip_cuda(p, c)
+
+
+def lm_trip_ref(p: LMProblem, c: LMCarry):
+    """The plain PyTorch version of `lm_trip`, on any device."""
     s = p.settings
     max_iterations = p.max_iterations
     b_ref = p.ref_aff[..., 1]
@@ -631,3 +647,206 @@ def lm_level(
     loop.while_loop(carry.done, lambda: lm_trip(p, carry), 2 * max_iterations + 2,
                     name="track.lm")
     return lm_final(p, carry, repeated)
+
+
+# ---------------------------------------------------------------------------
+# the LM trip kernel (csrc/lm_trip.cu)
+# ---------------------------------------------------------------------------
+
+# Launches of the kernel since the last reset_trip_launches(): an eager
+# launch adds one here on the host; a launch captured into a program
+# (runtime/program.py) hands the kernel the device's counter, which the
+# kernel itself increments each time the graph, or the node's body around
+# it, runs.
+_TRIP_EAGER = [0]
+_TRIP_COUNTERS = {}  # device -> () int64
+_TRIP_FN = []
+_TRIP_POINTERS = (
+    "pc_u", "pc_v", "pc_idepth", "pc_color", "pc_ok", "dI", "K", "ref_aff", "ref_exposure",
+    "new_exposure", "it", "total", "T", "aff", "E_old", "n_old", "lam", "Hm", "bv", "cutoff", "ar",
+    "inb", "rep_pending", "done", "launches")
+
+
+class TripArgs(ctypes.Structure):
+    """csrc/lm_trip.cu's `LmArgs`: the operands' addresses, shapes, settings."""
+
+    _fields_ = ([(k, ctypes.c_void_p) for k in _TRIP_POINTERS]
+                + [(k, ctypes.c_int) for k in ("n_seq", "rows_per_seq", "P", "H", "W", "opt_a",
+                                              "opt_b", "max_iterations")]
+                + [(k, ctypes.c_float) for k in ("huber_th", "two_huber_th", "huber_th_sq",
+                                                "cutoff_th")]
+                + [("scale", ctypes.c_float * 8), ("ar_stride", ctypes.c_longlong * 3)])
+
+
+def _card(device) -> torch.device:
+    device = torch.device(device)
+    return torch.device("cuda", torch.cuda.current_device()) if device.index is None else device
+
+
+def trip_counter(device) -> torch.Tensor:
+    """The () int64 counter of `device` that captured launches increment;
+    a program makes it before it captures (a capture allocates in its own
+    pool)."""
+    device = _card(device)
+    c = _TRIP_COUNTERS.get(device)
+    if c is None:
+        c = _TRIP_COUNTERS[device] = torch.zeros((), dtype=torch.int64, device=device)
+    return c
+
+
+def trip_launches(split: bool = False):
+    """Kernel launches the devices ran since the last reset_trip_launches():
+    the eager ones and the captured ones that ran, or (eager, captured)
+    with `split` (reads the counters: waits for the device)."""
+    captured = sum(int(c.item()) for c in _TRIP_COUNTERS.values())
+    return (_TRIP_EAGER[0], captured) if split else _TRIP_EAGER[0] + captured
+
+
+def reset_trip_launches():
+    _TRIP_EAGER[0] = 0
+    for c in _TRIP_COUNTERS.values():
+        c.zero_()
+
+
+def _trip_fn():
+    """The kernel's C entry point `sdso_lm_trip`, built at first use."""
+    if not _TRIP_FN:
+        from stereo_dso_g2o_tpu_torch.ops import trace_cuda
+
+        fn = ctypes.CDLL(str(trace_cuda.build(["lm_trip"])["lm_trip"])).sdso_lm_trip
+        fn.argtypes = [ctypes.POINTER(TripArgs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _TRIP_FN.append(fn)
+    return _TRIP_FN[0]
+
+
+def _dense(x: torch.Tensor) -> bool:
+    """Every element of `x` in a place of its own, and nothing between."""
+    order = sorted((st, sz) for st, sz in zip(x.stride(), x.shape) if sz > 1)
+    want = 1
+    for st, sz in order:
+        if st != want:
+            return False
+        want *= sz
+    return True
+
+
+def _per_seq(x, n_seq: int, tail: tuple, like: torch.Tensor) -> torch.Tensor:
+    """A problem operand as a contiguous (n_seq, *tail) float32 tensor on
+    `like`'s device: a number becomes a constant, one sequence's operand is
+    the batch of one, a broadcast one is expanded."""
+    if not isinstance(x, torch.Tensor):
+        x = constant(float(x), torch.float32, like.device)
+    if x.dtype != torch.float32 or x.device != like.device:
+        raise TypeError(f"a problem operand is {x.dtype} on {x.device}, not float32 on "
+                        f"{like.device}")
+    return x.expand((n_seq,) + tail).contiguous()
+
+
+def trip_args(p: LMProblem, c: LMCarry, launches: int = 0):
+    """(`TripArgs` of one trip, the tensors it points at) for the carry `c`
+    of the problem `p`, laid out as the plain version's operands: rows
+    (K,) of one sequence, or (N, K) of N sequences. Raises on what the
+    kernel does not take. `launches`: the counter's address, or 0."""
+    rows = tuple(c.T.shape[:-2])
+    batched = p.pc_u.dim() == 2
+    if len(rows) != 1 + batched or not rows[-1]:
+        raise ValueError(f"carry rows {rows} for points {tuple(p.pc_u.shape)}")
+    n_seq, per_seq, P = (p.pc_u.shape[0] if batched else 1), rows[-1], p.pc_u.shape[-1]
+    if batched and rows[0] != n_seq:
+        raise ValueError(f"carry rows {rows} for {n_seq} sequences")
+    if p.dI_new.dim() != 3 + batched or p.dI_new.shape[-1] != 3:
+        raise ValueError(f"image {tuple(p.dI_new.shape)} for points {tuple(p.pc_u.shape)}")
+    H, W = p.dI_new.shape[-3:-1]
+    dev = c.T.device
+    want = {"it": ((), torch.int64), "total": ((), torch.int64), "T": ((4, 4), torch.float32),
+            "aff": ((2,), torch.float32), "E_old": ((), torch.float32),
+            "n_old": ((), torch.int64), "lam": ((), torch.float32),
+            "Hm": ((8, 8), torch.float32), "bv": ((8,), torch.float32),
+            "cutoff": ((), torch.float32), "ar": ((P,), torch.float32),
+            "inb": ((P,), torch.bool), "rep_pending": ((), torch.bool),
+            "done": ((), torch.bool)}
+    ptrs = {}
+    for name, (tail, dtype) in want.items():
+        x = getattr(c, name)
+        if tuple(x.shape) != rows + tail or x.dtype != dtype or x.device != dev:
+            raise ValueError(f"carry {name}: {tuple(x.shape)} {x.dtype} on {x.device}, want "
+                             f"{rows + tail} {dtype} on {dev}")
+        if name not in ("ar", "inb") and not x.is_contiguous():
+            raise ValueError(f"carry {name} must be contiguous (the trip writes it in place)")
+        ptrs[name] = x.data_ptr()
+    # |r| and the flags as the plain version lays them out: any strides,
+    # the same for both where a dimension has more than one entry (the
+    # index of the others is 0), no two points of the carry in one place
+    strides = ((0,) * (not batched)) + tuple(c.ar.stride())
+    same = all(a == b or n == 1 for a, b, n in zip(c.ar.stride(), c.inb.stride(), c.ar.shape))
+    if not same or not _dense(c.ar):
+        raise ValueError(f"carry ar, inb: strides {c.ar.stride()}, {c.inb.stride()} for shape "
+                         f"{tuple(c.ar.shape)}")
+    keep = {
+        "pc_u": _per_seq(p.pc_u, n_seq, (P,), c.T), "pc_v": _per_seq(p.pc_v, n_seq, (P,), c.T),
+        "pc_idepth": _per_seq(p.pc_idepth, n_seq, (P,), c.T),
+        "pc_color": _per_seq(p.pc_color, n_seq, (P,), c.T),
+        "dI": _per_seq(p.dI_new, n_seq, (H, W, 3), c.T),
+        "K": _per_seq(p.K_lvl, n_seq, (4,), c.T), "ref_aff": _per_seq(p.ref_aff, n_seq, (2,), c.T),
+        "ref_exposure": _per_seq(p.ref_exposure, n_seq, (), c.T),
+        "new_exposure": _per_seq(p.new_exposure, n_seq, (), c.T),
+    }
+    if p.pc_ok.dtype != torch.bool or p.pc_ok.device != dev:
+        raise TypeError(f"pc_ok is {p.pc_ok.dtype} on {p.pc_ok.device}, not bool on {dev}")
+    keep["pc_ok"] = p.pc_ok.expand((n_seq, P)).contiguous()
+    ptrs.update({k: v.data_ptr() for k, v in keep.items()})
+    s = p.settings
+    args = TripArgs(
+        **ptrs, launches=launches or None, n_seq=n_seq, rows_per_seq=per_seq, P=P, H=H, W=W,
+        opt_a=int(s.affine_opt_mode_a >= 0), opt_b=int(s.affine_opt_mode_b >= 0),
+        max_iterations=p.max_iterations, huber_th=s.huber_th, two_huber_th=2.0 * s.huber_th,
+        huber_th_sq=s.huber_th**2, cutoff_th=s.coarse_cutoff_th,
+        scale=(ctypes.c_float * 8)(*((SCALE_XI_ROT,) * 3 + (SCALE_XI_TRANS,) * 3
+                                     + (SCALE_A, SCALE_B))),
+        ar_stride=(ctypes.c_longlong * 3)(*strides))
+    return args, keep
+
+
+def lm_trip_cuda(p: LMProblem, c: LMCarry):
+    """`lm_trip` as one launch of csrc/lm_trip.cu on the current stream of
+    the carry's device (a block per row); raises if the launch fails."""
+    dev = c.T.device
+    if torch.cuda.is_current_stream_capturing():
+        counter = _TRIP_COUNTERS.get(_card(dev))
+        if counter is None:
+            raise RuntimeError(f"no trip counter on {dev}: call trip_counter() before capturing")
+        args, _keep = trip_args(p, c, counter.data_ptr())
+    else:
+        args, _keep = trip_args(p, c)
+        _TRIP_EAGER[0] += 1
+    fn = _trip_fn()
+    with torch.cuda.device(dev):
+        rc = fn(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"lm_trip kernel launch failed: cudaError {rc}")
+
+
+class TripBound(NamedTuple):
+    bytes: float  # each operand read once, the carry written once
+    ops: float  # f32 operations these rows need
+    ms: float  # the larger of the two over the card's peaks
+    by: str  # "bytes" or "operations"
+
+
+def trip_bound(n_seq: int, per_seq: int, P: int, H: int, W: int) -> TripBound:
+    """The least time the card could take for one trip of n_seq * per_seq
+    rows of P points on (H, W) images: bytes, each once, over the memory
+    rate (a sequence's 17 bytes a point, a row's four 12-byte taps a point
+    up to its image's pixels, |r| and the in-bounds flag written), against
+    the operations over the f32 peak (~240 a point-row: the warp 30, the
+    sample 40, residual, weight and energy 15, the Jacobian 25, the 44
+    sums 97, the rest; ~1000 a row for the solve and the pose)."""
+    from stereo_dso_g2o_tpu_torch.ops.trace_cuda import F32_FLOP_PER_S, HBM_BYTES_PER_S
+
+    rows = n_seq * per_seq
+    nbytes = n_seq * P * 17 + rows * (12 * min(4 * P, H * W) + 5 * P + 4 * (16 + 64 + 8 + 12))
+    flops = rows * (240 * P + 1000)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return TripBound(nbytes, flops, 1000.0 * max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations")

@@ -22,7 +22,9 @@ device. `run(fn, args, static)` gives the port the same on the card:
   frames' marginalization) an IF node: the graph holds no host read. A
   K1/K2 launch, at the top level or inside a node, captures an increment
   of the device's launch counter next to it (`ops/trace_cuda`), so the
-  counts are those the device ran. If the capture fails, `run` raises
+  counts are those the device ran; an LM trip (`ops/tracker_ops.lm_trip`,
+  one kernel a trip) increments its own device counter from inside the
+  kernel. If the capture fails, `run` raises
   and names the failure; it never runs eagerly instead.
 - **Each call** copies the inputs in, replays and returns the outputs:
   an output that is an input buffer is the caller's own tensor (the
@@ -66,7 +68,7 @@ from typing import Callable, Dict
 
 import torch
 
-from stereo_dso_g2o_tpu_torch.ops import trace_cuda
+from stereo_dso_g2o_tpu_torch.ops import trace_cuda, tracker_ops
 from stereo_dso_g2o_tpu_torch.utils import host, loop
 from stereo_dso_g2o_tpu_torch.utils.timing import span
 from stereo_dso_g2o_tpu_torch.utils.tree import leaves, tree_map
@@ -201,6 +203,7 @@ class Program:
         self.body_pool = torch.cuda.graph_pool_handle()
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept: its nodes are counted
         trace_cuda.launch_counter(dev)
+        tracker_ops.trip_counter(dev)
         self.clock = clock(dev)
         self.stamps = torch.zeros((STAGE_SLOTS, 8), dtype=torch.int64, device=dev)
         k0, r0 = tuple(trace_cuda.CAPTURED), host.READS

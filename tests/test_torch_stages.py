@@ -16,11 +16,16 @@ branch counts its trips in the kernel that sets its condition. Here:
   read (no traced calls, as on the CPU; no program holding the stage; a
   port without stage accounting).
 
+- an LM trip on CPU tensors runs the plain version's ops and counts no
+  kernel launch.
+
 On the card (marked `cuda`, skipped here; this file imports no JAX, so
 it runs there: `python3 -m pytest --noconftest -o addopts= -p
 no:cacheprovider tests/test_torch_stages.py -q`): on a keyframe frame the
 trips the replayed `frame_auto` counts on the device equal the host
-loop's.
+loop's, and the LM trip kernel's device counter equals the device's
+`track.lm` trips (every trip went through the kernel), program and eager
+bit for bit.
 """
 
 import importlib.util
@@ -33,8 +38,10 @@ from stereo_dso_g2o_tpu_torch import bench as tbench
 from stereo_dso_g2o_tpu_torch.frontend import graph_system as tgs
 from stereo_dso_g2o_tpu_torch.frontend.full_system import FullSystem
 from stereo_dso_g2o_tpu_torch.models.camera import make_calib
+from stereo_dso_g2o_tpu_torch.ops import tracker_ops
 from stereo_dso_g2o_tpu_torch.runtime import program
 from stereo_dso_g2o_tpu_torch.utils import loop
+from stereo_dso_g2o_tpu_torch.utils.tree import leaves
 from stereo_dso_g2o_tpu_torch.utils.timing import PROF
 
 REPO = Path(__file__).resolve().parents[1]
@@ -201,14 +208,41 @@ def test_readers_leave_out_what_they_cannot_read(monkeypatch, case):
         assert _reader(n)(_ctx(calls)) is None, n
 
 
-@pytest.mark.cuda
-def test_device_counted_trips_equal_the_host_loops_on_the_card(prof):
-    """On a keyframe frame of the bench entry's small corridor, the trips
-    the replayed `frame_auto` counts on the device (`track.lm`, `ba`,
-    `kf.need` taken) equal those the same frame counts in the host loop
-    under `program.disabled()` with `PROF` on; the replay runs `track` and
-    `kf` once each, and the stamped children of each section sum to no
-    more than it."""
+def test_a_cpu_lm_trip_runs_the_plain_ops_and_launches_no_kernel(monkeypatch):
+    """On CPU tensors `tracker_ops.lm_trip` is the plain version: its
+    hundreds of PyTorch ops run, the kernel's wrapper is not called and no
+    launch is counted."""
+    import _torch_lm_cases
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    def refuse(p, c):
+        raise AssertionError("the kernel's wrapper was called on CPU tensors")
+
+    monkeypatch.setattr(tracker_ops, "lm_trip_cuda", refuse)
+    p, c = _torch_lm_cases.tiny(n_seq=2)
+    tracker_ops.reset_trip_launches()
+    want = _torch_lm_cases.clone(c)
+    tracker_ops.lm_trip_ref(p, want)
+    with Count():
+        tracker_ops.lm_trip(p, c)
+    assert Count.n > 300
+    assert tracker_ops.trip_launches() == 0
+    for name, a, b in zip(tracker_ops.LMCarry._fields, c, want):
+        assert torch.equal(a.nan_to_num() if a.is_floating_point() else a,
+                           b.nan_to_num() if b.is_floating_point() else b), name
+
+
+@pytest.fixture(scope="module")
+def corridor():
+    """The bench entry's small corridor on the card: 12 frames through
+    `FullSystem`, the freeze, and the keyword arguments of `frame_auto`."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the program is a CUDA graph")
     dev = torch.device("cuda", 0)
@@ -224,16 +258,34 @@ def test_device_counted_trips_equal_the_host_loops_on_the_card(prof):
     gs = tgs.GraphSystem.from_full_system(fs)
     kw = dict(settings=s, n_levels=cal.n_levels, n_tries=5, caps=gs.caps, w0=cal.w[0],
               h0=cal.h[0], imm_cap=s.immature_cap, pot=gs.pot)
-    st1, b1 = tgs.frame_auto(gs.state, lefts[B], rights[B], cal.c, cal.baseline, 1.0, **kw)
+    return dict(B=B, lefts=lefts, rights=rights, cal=cal, gs=gs, kw=kw)
+
+
+def _frame(cor, state, i):
+    cal = cor["cal"]
+    return tgs.frame_auto(state, cor["lefts"][i], cor["rights"][i], cal.c, cal.baseline, 1.0,
+                          **cor["kw"])
+
+
+@pytest.mark.cuda
+def test_device_counted_trips_equal_the_host_loops_on_the_card(prof, corridor):
+    """On a keyframe frame of the bench entry's small corridor, the trips
+    the replayed `frame_auto` counts on the device (`track.lm`, `ba`,
+    `kf.need` taken) equal those the same frame counts in the host loop
+    under `program.disabled()` with `PROF` on; the replay runs `track` and
+    `kf` once each, and the stamped children of each section sum to no
+    more than it."""
+    B = corridor["B"]
+    st1, b1 = _frame(corridor, corridor["gs"].state, B)
     assert not bool(b1.need_kf)
     prog = next(p for p in program.PROGRAMS.values() if p.name == "_frame_auto")
     before = prog.stages()["stages"]
-    _, b2 = tgs.frame_auto(st1, lefts[B + 1], rights[B + 1], cal.c, cal.baseline, 1.0, **kw)
+    _, b2 = _frame(corridor, st1, B + 1)
     after = prog.stages()["stages"]
     assert bool(b2.need_kf)
     prof.enabled = True
     with program.disabled():
-        tgs.frame_auto(st1, lefts[B + 1], rights[B + 1], cal.c, cal.baseline, 1.0, **kw)
+        _frame(corridor, st1, B + 1)
 
     def delta(stage, key):
         return after[stage][key] - before[stage][key]
@@ -244,3 +296,32 @@ def test_device_counted_trips_equal_the_host_loops_on_the_card(prof):
     assert delta("track", "count") == delta("kf", "count") == delta("program.call", "count") == 1
     for parent in ("track", "kf", "program.replay", "program.call"):
         assert after[parent]["self_ms"] >= 0, (parent, after)
+
+
+def _bits(tree):
+    return [x.view(torch.int32) if x.dtype == torch.float32 else x for x in leaves(tree)]
+
+
+@pytest.mark.cuda
+def test_every_lm_trip_of_a_replayed_frame_is_one_kernel_launch(prof, corridor):
+    """Over a replay of the captured `frame_auto` (a keyframe frame), the
+    LM trip kernel's device counter advances by the `track.lm` trips the
+    device counts; the same frame under `program.disabled()` launches it
+    once a host trip; program and eager leave the same state and bundle bit
+    for bit."""
+    B = corridor["B"]
+    st1, _ = _frame(corridor, corridor["gs"].state, B)
+    prog = next(p for p in program.PROGRAMS.values() if p.name == "_frame_auto")
+    before = prog.stages()["stages"]["track.lm"]["trips"]
+    tracker_ops.reset_trip_launches()
+    replayed = _frame(corridor, st1, B + 1)
+    launched = tracker_ops.trip_launches()
+    trips = prog.stages()["stages"]["track.lm"]["trips"] - before
+    assert launched == trips > 0
+    prof.enabled = True
+    tracker_ops.reset_trip_launches()
+    with program.disabled():
+        eager = _frame(corridor, st1, B + 1)
+    assert tracker_ops.trip_launches() == prof.trips["track.lm"] == trips
+    for a, b in zip(_bits(replayed), _bits(eager)):
+        assert torch.equal(a, b)
